@@ -1,0 +1,78 @@
+"""Load a flax parameter tree of the JAX package into a port module.
+
+The inverse of ``csof_tpu/compat/torch_import.py``. Port modules are named
+after the flax scopes, so a leaf ``a/b/Conv_0/kernel`` fills the parameter
+``a.b.Conv_0.weight``; the layout rule follows from the torch module type:
+
+- conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
+- ``ConvTranspose`` ``kernel`` (k, k, in, out) -> ``weight`` (in, out, k, k),
+  mirrored in both spatial axes (``csof_tpu/models/blocks.py:611-616``);
+- Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
+- norm ``scale`` -> ``weight``; ``bias`` -> ``bias``.
+
+The map is built by walking the flax tree, so flax's auto-numbered scopes
+(``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``) need no hand-written list.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+from csof_tpu_torch.models.blocks import ConvTranspose
+
+
+def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()):
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _leaves(value, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), value
+
+
+def _convert(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
+    if name == "kernel":
+        if isinstance(module, ConvTranspose):
+            return "weight", np.flip(arr, (0, 1)).transpose(2, 3, 0, 1)
+        if isinstance(module, nn.Conv2d):
+            return "weight", arr.transpose(3, 2, 0, 1)
+        if isinstance(module, nn.Linear):
+            return "weight", arr.T
+    elif name == "scale":
+        return "weight", arr
+    elif name == "bias":
+        return "bias", arr
+    raise KeyError(f"no rule for leaf {name!r} of a {type(module).__name__}")
+
+
+def load_flax_params(module: nn.Module, params: Mapping) -> None:
+    """Fill every parameter of ``module`` from the flax tree ``params``
+    (``variables["params"]`` with numpy leaves). Raises on a leaf that maps
+    to no parameter or to a parameter of another shape, and on a parameter
+    that no leaf fills."""
+    targets = dict(module.named_parameters())
+    filled: set[str] = set()
+    for path, leaf in _leaves(params):
+        scope, name = path[:-1], path[-1]
+        where = "/".join(path)
+        try:
+            sub = module.get_submodule(".".join(scope))
+        except AttributeError as e:
+            raise KeyError(f"flax leaf {where}: no torch module {'.'.join(scope)}") from e
+        pname, value = _convert(sub, name, np.asarray(leaf, dtype=np.float32))
+        key = ".".join(scope + (pname,))
+        if key not in targets or key in filled:
+            raise KeyError(f"flax leaf {where}: torch parameter {key} missing or already filled")
+        target = targets[key]
+        if tuple(value.shape) != tuple(target.shape):
+            raise ValueError(f"flax leaf {where}: shape {value.shape} does not fit {key} "
+                             f"{tuple(target.shape)}")
+        with torch.no_grad():
+            target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+        filled.add(key)
+    missing = sorted(set(targets) - filled)
+    if missing:
+        raise KeyError(f"torch parameters no flax leaf filled: {missing}")

@@ -1,0 +1,40 @@
+// Shared helpers for the hand-written Hopper kernels: element-type
+// conversion, and the rounding points the kernels share with the model.
+//
+// Every kernel takes its tensors in the model dtype (float32 or bfloat16,
+// selected by `dtype_code`: 0 = float32, 1 = bfloat16), computes in float32
+// and rounds with round-to-nearest-even where the model rounds.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace csof {
+namespace {
+
+enum DType : int { kFloat32 = 0, kBFloat16 = 1 };
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// x rounded through the model dtype and back (identity for float32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_float(from_float<T>(x)); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+  return v;
+}
+
+}  // namespace
+}  // namespace csof

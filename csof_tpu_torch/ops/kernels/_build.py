@@ -1,0 +1,119 @@
+"""Build and load the hand-written CUDA kernels (``csof_tpu_torch/csrc``).
+
+All ``csrc/*.cu`` files are compiled by ``nvcc`` for Hopper (``sm_90a``) into
+one shared library with a plain C interface, loaded through :mod:`ctypes`.
+No PyTorch header is included, so a build takes seconds. The library is built
+at first use into ``csof_tpu_torch/_build/`` under a name keyed by a hash of
+the sources and the flags, so an edited source is rebuilt and an unchanged
+one is loaded as it is. A missing ``nvcc`` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # q, m, out, B, C, H, W, radius, stride, dtype_code, stream
+    "csof_corr_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, m, corr, w, bias, gn_scale, gn_bias, y, partial, out,
+    # B, C, K2, H, W, F, groups, eps, slope, dtype_code, stream
+    "csof_skipfuse_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P],
+}
+
+#: seconds the last compile in this process took (0.0 if none ran)
+last_build_seconds = 0.0
+
+
+def _find_nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (PATH, $CUDA_HOME/bin): the CUDA kernels of "
+        "csof_tpu_torch are built from source at first use"
+    )
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libcsof_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the sources unless a library for them exists; return its path."""
+    global last_build_seconds
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
+            )
+        (BUILD_DIR / (out.stem + ".log")).write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    last_build_seconds = time.perf_counter() - t0
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Build if needed, load, and declare the C entry points."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.csof_error_string.argtypes = [ctypes.c_int]
+    lib.csof_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry returned a CUDA error code (cudaGetLastError after
+    its launches): a refused launch never runs, and a later synchronize would
+    not report it."""
+    if err != 0:
+        msg = load_library().csof_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

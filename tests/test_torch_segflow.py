@@ -1,0 +1,164 @@
+"""The PyTorch port's SegFlow against the JAX package's, at a small size:
+the same flax parameters (crossed over through load_flax_params), the same
+numpy video, both corr_fuse modes the port serves."""
+
+import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from csof_tpu.config.experiment import SegFlowModelConfig as JaxConfig
+from csof_tpu.models.segflow import SegFlow as JaxSegFlow
+from csof_tpu_torch.compat.flax_import import load_flax_params
+from csof_tpu_torch.config.experiment import SegFlowModelConfig
+from csof_tpu_torch.models.segflow import SegFlow
+from csof_tpu_torch.ops.kernels import corr as k1
+from csof_tpu_torch.ops.kernels import skipfuse as k3
+
+SMALL = dict(out_encoder_dims=(8, 16), d_model=16, bottleneck_heads=2, dim_feedforward=32,
+             corr_radius=(2, 2), corr_stride=(2, 1))
+KEYS = ("seg_logits", "flow", "cum_flow", "registered")
+# f32: reduction order only. bf16: the frameworks round at other points
+# inside fused elementwise ops, and the difference compounds over frames.
+TOL = {"float32": (5e-4, 1e-3), "bfloat16": (1e-1, 5e-2)}
+
+
+def small_params(cfg: JaxConfig, seed: int = 0):
+    """A flax parameter tree of the small SegFlow: structure and shapes from
+    flax (``eval_shape`` of init, no compile), values drawn from a seed so
+    that every leaf is non-trivial: kernels N(0, 1/fan_in), norm scales near
+    1, biases near 0. Flows come out around a pixel, so the warp matters."""
+    video = jax.ShapeDtypeStruct((3, 16, 16, 1), jnp.float32)
+    shapes = jax.eval_shape(JaxSegFlow(cfg=cfg).init, jax.random.PRNGKey(0), video)["params"]
+    rng = np.random.RandomState(seed)
+
+    def fill(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            return (rng.randn(*leaf.shape) / np.sqrt(np.prod(leaf.shape[:-1]))).astype(np.float32)
+        return ((name == "scale") + 0.1 * rng.randn(*leaf.shape)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(fill, shapes)
+
+
+@pytest.fixture(scope="module")
+def params():
+    return small_params(JaxConfig(corr_fuse="concat_cm", dtype="float32", **SMALL))
+
+
+def _video(seed=0, b=2, t=3, hw=16):
+    return np.random.RandomState(seed).rand(b, t, hw, hw, 1).astype(np.float32)
+
+
+def _jax_forward(cfg_kw, params, video):
+    model = JaxSegFlow(cfg=JaxConfig(**cfg_kw))
+    fwd = jax.jit(lambda p, v: jax.vmap(lambda x: model.apply({"params": p}, x))(v))
+    out = fwd(params, jnp.asarray(video))
+    return {k: np.asarray(out[k], np.float32) for k in KEYS}
+
+
+@pytest.mark.parametrize("mode,dtype", [
+    ("fused_cm", "float32"), ("concat_cm", "float32"), ("fused_cm", "bfloat16"),
+])
+def test_segflow_matches_jax(params, mode, dtype):
+    cfg_kw = dict(SMALL, corr_fuse=mode, dtype=dtype)
+    video = _video()
+    ref = _jax_forward(cfg_kw, params, video)
+    model = SegFlow(SegFlowModelConfig(**cfg_kw), num_classes=4)
+    load_flax_params(model, params)
+    k1.launches = k3.launches = 0
+    with torch.no_grad():
+        out = model(torch.from_numpy(video))
+    assert k1.launches == 0 and k3.launches == 0  # CPU tensors: plain versions
+    assert out["seg_logits"].shape == (2, 3, 16, 16, 4)
+    assert out["flow"].shape == out["cum_flow"].shape == (2, 3, 2, 16, 16)
+    assert out["registered"].shape == (2, 3, 16, 16)
+    assert float(np.abs(ref["flow"]).max()) > 0.1  # flows large enough to move the warp
+    atol, rtol = TOL[dtype]
+    for k in KEYS:
+        np.testing.assert_allclose(out[k].float().numpy(), ref[k], atol=atol, rtol=rtol,
+                                   err_msg=k)
+
+
+def test_converter_consumes_every_leaf_once_and_fills_every_parameter(params):
+    model = SegFlow(SegFlowModelConfig(**SMALL), num_classes=4)
+    n_leaves = len(jax.tree_util.tree_leaves(params))
+    assert n_leaves == len(list(model.parameters()))
+    load_flax_params(model, params)
+    extra = dict(params, stray={"kernel": np.zeros((1, 1), np.float32)})
+    with pytest.raises(KeyError, match="stray"):
+        load_flax_params(model, extra)
+    missing = jax.tree_util.tree_map(lambda x: x, params)
+    del missing["seg_decoder"]["Conv_0"]["bias"]
+    with pytest.raises(KeyError, match="seg_decoder.Conv_0.bias"):
+        load_flax_params(model, missing)
+    wrong = jax.tree_util.tree_map(lambda x: x, params)
+    wrong["query_encoder"]["ConvNormAct_0"]["Conv_0"]["kernel"] = np.zeros((3, 3, 2, 8))
+    with pytest.raises(ValueError, match="shape"):
+        load_flax_params(model, wrong)
+
+
+def test_config_mirrors_the_jax_fields_and_defaults():
+    assert [(f.name, f.default) for f in dataclasses.fields(SegFlowModelConfig)] == \
+        [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+
+
+def test_unported_modes_are_refused():
+    for kw in (dict(corr_fuse="split"), dict(attn_fused=True), dict(dec_upsample="linear"),
+               dict(corr_fuse="fused_cm", norm="instance"), dict(d_model=32)):
+        with pytest.raises(ValueError):
+            SegFlow(SegFlowModelConfig(**dict(SMALL, **kw)))
+
+
+def test_training_forward_raises_clearly():
+    model = SegFlow(SegFlowModelConfig(**dict(SMALL, corr_fuse="fused_cm", dtype="float32")))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        model(torch.from_numpy(_video(b=1)))
+
+
+def test_port_imports_no_jax_flax_or_yaml():
+    """A fresh interpreter with jax, flax and yaml blocked imports the port
+    and runs the small forward."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = sys.modules["flax"] = sys.modules["yaml"] = None
+        import torch
+        from csof_tpu_torch.config.experiment import SegFlowModelConfig
+        from csof_tpu_torch.inference.flow_predictor import FlowPredictor, predict_and_export_case
+        from csof_tpu_torch.inference.serving import apply_serving_config
+        from csof_tpu_torch.models.segflow import SegFlow
+        cfg = apply_serving_config(SegFlowModelConfig(out_encoder_dims=(8, 16), d_model=16,
+            bottleneck_heads=2, dim_feedforward=32, dtype="float32"), 2)
+        model = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(0))
+        with torch.inference_mode():
+            out = model(torch.rand(1, 2, 16, 16, 1))
+        assert torch.isfinite(out["seg_logits"]).all()
+        bad = [m for m in sys.modules if m == "csof_tpu" or m.startswith("csof_tpu.")]
+        assert not bad, bad
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, cwd=Path(__file__).resolve().parents[1])
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_generator_init_is_seeded_and_flax_like():
+    cfg = SegFlowModelConfig(**SMALL)
+    a = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(3)).state_dict()
+    b = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(3)).state_dict()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    # he_normal conv (fan_in 9): std sqrt(2/9); norms ones/zeros; seg head normal(1)
+    w = a["query_encoder.ConvNormAct_0.Conv_0.weight"]
+    assert float(w.abs().max()) <= 2 * (2 / 9) ** 0.5 / 0.8796 + 1e-6
+    assert torch.equal(a["query_encoder.ConvNormAct_0.GroupNorm_0.weight"], torch.ones(8))
+    assert torch.equal(a["query_encoder.ConvNormAct_0.Conv_0.bias"], torch.zeros(8))
+    flow_head = a["ScanSegFlowStep_0.flow_decoder.Conv_0.weight"]
+    assert float(flow_head.std()) < 1e-4
