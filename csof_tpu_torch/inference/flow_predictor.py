@@ -20,11 +20,11 @@ from csof_tpu_torch.utils.nifti import save_nifti
 
 class FlowPredictor:
     """model: a SegFlow (video (B, T, H, W, 1) -> {"seg_logits", "cum_flow",
-    "registered", ...}) on ``device``."""
+    "registered", ...}) on ``device``, the CUDA device unless told otherwise."""
 
     def __init__(self, model: torch.nn.Module, crop_size: int = 128,
                  processor: Processor | None = None, do_mirroring: bool = True,
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.model = model
         self.crop_size = crop_size
         self.processor = processor or Processor(crop_size=crop_size)

@@ -1,5 +1,5 @@
-"""SegFlow: joint segmentation + optical-flow cine model, forward for serving
-(port of ``csof_tpu/models/segflow.py``).
+"""SegFlow: joint segmentation + optical-flow cine model, for serving and
+training (port of ``csof_tpu/models/segflow.py``).
 
 NCHW inside; the public layouts are the JAX package's: video
 ``(B, T, H, W, 1)`` in, ``seg_logits`` ``(B, T, H, W, C)``, ``flow`` and
@@ -13,7 +13,9 @@ Submodules carry the flax scope names, so a flax parameter tree loads by name
 (:mod:`csof_tpu_torch.compat.flax_import`).
 
 Ported ``corr_fuse`` modes: ``concat``, ``concat_cm`` (the same math on NCHW)
-and ``fused_cm`` (kernel K3). ``split``, ``project`` and ``mean1`` have
+and ``fused_cm`` (kernel K3). ``concat`` and ``concat_cm`` are differentiable
+(the correlation runs K1 forward and K2 backward on the card); ``fused_cm`` is
+forward-only, the serving remap. ``split``, ``project`` and ``mean1`` have
 parameter trees of their own and are not ported yet.
 """
 
@@ -108,8 +110,8 @@ class Decoder(nn.Module):
 class SkipFuse(nn.Module):
     """Fuse (query, memory, correlation) skips: corr -> concat -> 3x3
     ConvNormAct. ``fused_cm`` runs the whole chain as kernel K3 on the same
-    parameters (GroupNorm only); the other modes run the correlation op
-    and the module chain."""
+    parameters (GroupNorm only, forward-only); the other modes run the
+    differentiable correlation op and the module chain."""
 
     def __init__(self, channels, mode="concat", norm="group", dtype=torch.float32, radius=4,
                  stride=1, use_corr=True, generator=None):
@@ -219,7 +221,9 @@ class SegFlowStep(nn.Module):
 class SegFlow(nn.Module):
     """Full video model. Build on the CPU (parameters are drawn from
     ``generator`` as flax initializes them), then move with ``.to(device)``.
-    Forward only: run it under ``torch.inference_mode()`` or ``no_grad()``."""
+    Gradients reach every parameter in the ``concat`` and ``concat_cm``
+    modes; ``fused_cm`` refuses them (run it under ``torch.inference_mode()``
+    or ``no_grad()``)."""
 
     def __init__(self, cfg: SegFlowModelConfig = SegFlowModelConfig(), num_classes: int = 4,
                  generator: torch.Generator | None = None):

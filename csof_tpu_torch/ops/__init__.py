@@ -1,1 +1,1 @@
-"""Array ops: warp, correlation."""
+"""Array ops: warp, correlation, losses."""

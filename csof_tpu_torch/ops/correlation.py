@@ -6,14 +6,15 @@ Port of ``csof_tpu/ops/correlation.py`` ``local_correlation_volume`` with
     out[b, kk, h, w] = <q[b, :, h, w], m[b, :, h + s*dy, w + s*dx]> / sqrt(C)
 
 over the (2r+1)^2 window, kk = (dy + r)(2r + 1) + (dx + r), zero outside the
-image, accumulated in float32 and returned in the input dtype.
+image, accumulated in float32 and returned in the input dtype. Differentiable
+in q and m.
 """
 
 from __future__ import annotations
 
 import torch
 
-from csof_tpu_torch.ops.kernels.corr import corr_cuda, corr_plain, forward_only
+from csof_tpu_torch.ops.kernels.corr import CorrFunction
 
 
 def local_correlation_volume(
@@ -21,10 +22,6 @@ def local_correlation_volume(
 ) -> torch.Tensor:
     """query, memory: (B, C, H, W) -> (B, (2r+1)^2, H, W).
 
-    A CUDA tensor runs kernel K1; a CPU tensor runs its plain version."""
-    forward_only("local_correlation_volume", query, memory)
-    if query.is_cuda:
-        return corr_cuda(query, memory, radius, stride)
-    if query.device.type == "cpu" and memory.device.type == "cpu":
-        return corr_plain(query, memory, radius, stride)
-    raise ValueError(f"unsupported devices {query.device}, {memory.device}")
+    CUDA tensors run kernel K1 forward and K2 backward; CPU tensors run their
+    plain versions (:class:`CorrFunction`)."""
+    return CorrFunction.apply(query, memory, radius, stride)

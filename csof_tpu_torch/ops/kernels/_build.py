@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (``csof_tpu_torch/csrc``).
 
-All ``csrc/*.cu`` files are compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, loaded through :mod:`ctypes`.
+Each ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded through :mod:`ctypes`.
 No PyTorch header is included, so a build takes seconds. The library is built
 at first use into ``csof_tpu_torch/_build/`` under a name keyed by a hash of
 the sources and the flags, so an edited source is rebuilt and an unchanged
@@ -25,13 +26,15 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # q, m, out, B, C, H, W, radius, stride, dtype_code, stream
     "csof_corr_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, m, g, dq, dm, B, C, H, W, radius, stride, dtype_code, stream
+    "csof_corr_backward": [_P] * 5 + [_I] * 7 + [_P],
     # q, m, corr, w, bias, gn_scale, gn_bias, y, partial, out,
     # B, C, K2, H, W, F, groups, eps, slope, dtype_code, stream
     "csof_skipfuse_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P],
@@ -75,24 +78,29 @@ def build() -> Path:
         return out
     nvcc = _find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in _sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu],
-            capture_output=True, text=True,
-        )
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        jobs = []
+        for src in (p for p in _sources() if p.suffix == ".cu"):
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+            jobs.append((obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                               stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for obj, proc in jobs:  # every compile runs to its end: none is left behind
+            logs.append(proc.communicate()[0])
+            if proc.returncode != 0:
+                failed.append(obj)
+        if failed:
+            raise RuntimeError(f"nvcc failed for {failed}:\n" + "\n".join(logs))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", lib,
+                               *(obj for obj, _ in jobs)], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}"
-            )
-        (BUILD_DIR / (out.stem + ".log")).write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout}\n"
+                               f"{proc.stderr}")
+        (BUILD_DIR / (out.stem + ".log")).write_text("\n".join(logs))
+        os.replace(lib, out)  # atomic: a concurrent loader sees all or nothing
     last_build_seconds = time.perf_counter() - t0
     return out
 

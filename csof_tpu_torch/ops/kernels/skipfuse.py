@@ -15,18 +15,23 @@ import torch
 import torch.nn.functional as F
 
 from csof_tpu_torch.ops.kernels import _build
-from csof_tpu_torch.ops.kernels.corr import (
-    check_pair,
-    corr_cuda,
-    corr_plain,
-    dtype_code,
-    forward_only,
-)
+from csof_tpu_torch.ops.kernels.corr import check_pair, corr_cuda, corr_plain, dtype_code
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
 
 _TILE = 16  # pixel tile edge of the conv pass (csrc/skipfuse.cu kConvTile)
+
+
+def forward_only(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would need K3's backward, which does not exist:
+    the TPU kernel is forward-only too, and training runs the unfused modes."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is forward-only: it has no backward kernel. Run it under "
+            "torch.no_grad() or torch.inference_mode(), or train with "
+            "corr_fuse='concat' / 'concat_cm'."
+        )
 
 
 def num_groups_for(features: int, num_groups: int = 8) -> int:

@@ -1,0 +1,141 @@
+"""The SegFlow training losses (port of ``csof_tpu/ops/losses.py``).
+
+Conventions as in the JAX package: logits are channels-last
+``(N, *spatial, C)``; targets are integer label maps ``(N, *spatial)`` unless
+stated; reductions return scalars. Ported: the soft confusion statistics,
+soft Dice, cross-entropy with an ignore index, the windowed NCC and the
+spatial and temporal flow-smoothness penalties.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+import torch.nn.functional as F
+
+
+def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
+    """float32 one-hot; labels outside [0, num_classes) give a zero row, as
+    ``jax.nn.one_hot`` does."""
+    classes = torch.arange(num_classes, device=labels.device)
+    return (labels.long()[..., None] == classes).float()
+
+
+def get_tp_fp_fn_tn(probs: torch.Tensor, target: torch.Tensor,
+                    axes: Sequence[int] | None = None, mask: torch.Tensor | None = None):
+    """Soft confusion-matrix pieces per class, summed over ``axes`` (default:
+    the spatial axes). probs ``(N, *spatial, C)``; target ``(N, *spatial)``
+    int or ``(N, *spatial, C)`` one-hot; mask broadcasts against probs (a
+    mask without the class axis gets one)."""
+    c = probs.shape[-1]
+    y = one_hot(target, c) if target.dim() == probs.dim() - 1 else target.to(probs.dtype)
+    if axes is None:
+        axes = tuple(range(1, probs.dim() - 1))
+    axes = tuple(axes)
+    if mask is not None:
+        # the masked tn is no sum identity: each piece is summed directly
+        m = mask[..., None] if mask.dim() == probs.dim() - 1 else mask
+        probs = probs * m
+        y = y * m
+        return ((probs * y).sum(axes), (probs * (1 - y)).sum(axes),
+                ((1 - probs) * y).sum(axes), ((1 - probs) * (1 - y)).sum(axes))
+    tp = (probs * y).sum(axes)
+    sp = probs.sum(axes)
+    sy = y.sum(axes)
+    count = 1
+    for a in axes:
+        count *= probs.shape[a]
+    return tp, sp - tp, sy - tp, count - sp - sy + tp
+
+
+def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor, batch_dice: bool = False,
+                   do_bg: bool = False, smooth: float = 1e-5, mask: torch.Tensor | None = None,
+                   probs_input: bool = False) -> torch.Tensor:
+    """1 - mean soft Dice over the classes (background dropped unless
+    ``do_bg``). ``batch_dice`` sums the statistics over the leading axis
+    too; ``probs_input`` takes probabilities instead of logits."""
+    probs = logits if probs_input else torch.softmax(logits, -1)
+    first = 0 if batch_dice else 1
+    tp, fp, fn, _ = get_tp_fp_fn_tn(probs, target, axes=range(first, probs.dim() - 1),
+                                    mask=mask)
+    dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth)
+    if not do_bg:
+        dc = dc[..., 1:]
+    return 1 - dc.mean()
+
+
+def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
+                       ignore_index: int | None = None) -> torch.Tensor:
+    """Mean cross-entropy, channels-last; with ``ignore_index`` the mean runs
+    over the other pixels only (at least one in the divisor)."""
+    y = one_hot(target.clamp_min(0), logits.shape[-1]).to(logits.dtype)
+    nll = torch.logsumexp(logits, -1) - (logits * y).sum(-1)
+    if ignore_index is not None:
+        valid = (target != ignore_index).to(logits.dtype)
+        return (nll * valid).sum() / valid.sum().clamp_min(1.0)
+    return nll.mean()
+
+
+def _box_sum(x: torch.Tensor, window: int) -> torch.Tensor:
+    """Zero-padded "SAME" window sums over the two spatial axes of
+    ``(N, C, H, W)``: average pooling with a divisor of 1 sums each window
+    directly (no convolution, so no TF32 on the card)."""
+    lo = (window - 1) // 2
+    x = F.pad(x, (lo, window - 1 - lo) * 2)
+    return F.avg_pool2d(x, window, stride=1, divisor_override=1)
+
+
+def ncc_loss(pred: torch.Tensor, target: torch.Tensor, window: int = 9, eps: float = 1e-3,
+             clip: tuple[float, float] | None = (0.001, 0.999),
+             reduction: str = "mean") -> torch.Tensor:
+    """1 - windowed local NCC (squared correlation over a window x window
+    box, clipped to ``clip``); ``reduction="none"`` returns the per-pixel
+    map. pred, target ``(N, H, W, C)``, computed in float32."""
+    win_size = float(window * window)
+    i = pred.float().movedim(-1, 1)
+    j = target.float().movedim(-1, 1)
+    c = i.shape[1]
+    sums = _box_sum(torch.cat([i, j, i * i, j * j, i * j], 1), window)
+    i_sum, j_sum, i2_sum, j2_sum, ij_sum = sums.split(c, 1)
+    i_mu, j_mu = i_sum / win_size, j_sum / win_size
+    cross = ij_sum - j_mu * i_sum - i_mu * j_sum + i_mu * j_mu * win_size
+    i_var = i2_sum - 2 * i_mu * i_sum + i_mu * i_mu * win_size
+    j_var = j2_sum - 2 * j_mu * j_sum + j_mu * j_mu * win_size
+    cc = (cross * cross) / (i_var * j_var + eps)
+    if clip is not None:
+        cc = cc.clamp(clip[0], clip[1])
+    cc = cc.movedim(1, -1)
+    if reduction == "none":
+        return 1.0 - cc
+    return 1.0 - cc.mean()
+
+
+def _central_gradient(x: torch.Tensor, axis: int) -> torch.Tensor:
+    """0.5 * (x[i+1] - x[i-1]) along ``axis`` with replicate padding."""
+    n = x.shape[axis]
+    xp = torch.cat([x.narrow(axis, 0, 1), x, x.narrow(axis, n - 1, 1)], axis)
+    return 0.5 * (xp.narrow(axis, 2, n) - xp.narrow(axis, 0, n))
+
+
+def spatial_gradient_penalty(flow: torch.Tensor, order: int = 2, reduction: str = "mean",
+                             channel_axis: int = -1) -> torch.Tensor:
+    """Mean |central spatial gradient|^order of a flow over its non-batch,
+    non-channel axes, averaged over those axes and the flow channels;
+    ``reduction="none"`` returns the ``(N, *spatial)`` map."""
+    ch = channel_axis % flow.dim()
+    spatial_axes = [a for a in range(1, flow.dim()) if a != ch]
+    total = 0.0
+    for ax in spatial_axes:
+        total = total + _central_gradient(flow, ax).abs() ** order
+    m = (total / len(spatial_axes)).mean(ch)
+    return m if reduction == "none" else m.mean()
+
+
+def temporal_gradient_penalty(flow_seq: torch.Tensor, order: int = 2, reduction: str = "mean",
+                              channel_axis: int = -1) -> torch.Tensor:
+    """Mean |central gradient along the leading (time) axis|^order, averaged
+    over the flow channels at ``channel_axis``; ``reduction="none"`` returns
+    the map without the channel axis."""
+    m = (_central_gradient(flow_seq, 0).abs() ** order).mean(channel_axis)
+    return m if reduction == "none" else m.mean()

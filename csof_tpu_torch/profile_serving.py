@@ -46,6 +46,32 @@ def busy_us(intervals) -> float:
     return total
 
 
+def device_summary(prof, wall_ms: float, what: str) -> tuple[str, str]:
+    """(summary line, kernel table) of a profile of one ``what`` whose
+    unprofiled host-clock time is ``wall_ms``: the device events counted once
+    each (the aten ops' rows repeat the time of the kernels they launch;
+    user annotations are ranges, not work), their summed time, the busy time
+    (union of their intervals) and the busy share of ``wall_ms``."""
+    kernels = [e for e in prof.events()
+               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    summed = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
+    summary = (f"{what} {wall_ms:.3f} ms host clock (median of 10, no profiler); "
+               f"{len(kernels)} device events, summed {summed:.3f} ms, busy {busy:.3f} ms; "
+               f"busy share {busy / wall_ms:.3f}")
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
+    return summary, table
+
+
+def report(summary: str, table: str) -> None:
+    """Print the summary and the table; also write them to argv[1] if given."""
+    print(summary)
+    print(table)
+    if len(sys.argv) > 1:
+        with open(sys.argv[1], "w") as f:
+            f.write(summary + "\n" + table + "\n")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_serving: no CUDA device", file=sys.stderr)
@@ -61,21 +87,7 @@ def main() -> int:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             model(video)
             torch.cuda.synchronize()
-    # device-side events, each kernel once (the aten ops' rows repeat the
-    # time of the kernels they launch; user annotations are ranges, not work)
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    summed = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
-    summary = (f"forward {wall:.3f} ms host clock (median of 10, no profiler); "
-               f"{len(kernels)} device events, summed {summed:.3f} ms, busy {busy:.3f} ms; "
-               f"busy share {busy / wall:.3f}")
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
-    print(summary)
-    print(table)
-    if len(sys.argv) > 1:
-        with open(sys.argv[1], "w") as f:
-            f.write(summary + "\n" + table + "\n")
+    report(*device_summary(prof, wall, "forward"))
     return 0
 
 

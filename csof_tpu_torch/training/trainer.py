@@ -1,0 +1,292 @@
+"""SegFlow training: the loss, the train step and the epoch loop (port of
+``csof_tpu/training/trainer.py`` for ``model="segflow"``).
+
+One step is: batch to the device, the batched SegFlow forward, the loss of
+each video (means over the batch of per-video losses, as the JAX package's
+``vmap`` gives), backward (K1 forward, K2 backward in every skip fuse on
+CUDA tensors), clip by global norm, AdamW under the warm-up cosine schedule.
+The epoch loop keeps the JAX trainer's best-criterion EMA, patience and
+checkpoint cadence. Not ported: the other model kinds,
+augmentation, deep supervision, rematerialisation, sharding over a mesh,
+compile-draw autotuning, TensorBoard and progress plots.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from dataclasses import dataclass, field
+from pathlib import Path
+from typing import Callable, Iterator
+
+import numpy as np
+import torch
+
+from csof_tpu_torch.config.experiment import ExperimentConfig
+from csof_tpu_torch.models.segflow import SegFlow
+from csof_tpu_torch.ops import losses as L
+from csof_tpu_torch.ops.warp import warp_image_cm
+from csof_tpu_torch.training import checkpoint as ckpt
+from csof_tpu_torch.training.schedules import build_optimizer
+
+TRAINED_CORR_FUSE = ("concat", "concat_cm")
+
+
+def build_model(config: ExperimentConfig, num_classes: int | None = None,
+                generator: torch.Generator | None = None) -> SegFlow:
+    """The model of ``config``; only ``segflow`` is ported."""
+    if config.model != "segflow":
+        raise NotImplementedError(f"model {config.model!r} is not ported (ported: segflow)")
+    return SegFlow(config.segflow, num_classes or 4, generator=generator)
+
+
+def _check_trainable(config: ExperimentConfig) -> None:
+    cfg = config.segflow
+    if cfg.corr_fuse not in TRAINED_CORR_FUSE:
+        raise NotImplementedError(f"training with corr_fuse={cfg.corr_fuse!r} is not ported "
+                                  f"(ported: {TRAINED_CORR_FUSE})")
+    if cfg.remat:
+        raise NotImplementedError("training with remat is not ported")
+    if config.data.do_data_aug:
+        raise NotImplementedError("augmentation not ported (ROADMAP item 11): set "
+                                  "config.data.do_data_aug=False")
+
+
+def make_segflow_loss(config: ExperimentConfig):
+    """loss_fn(model, batch) -> (loss, metrics), both means over the batch of
+    the per-video values. batch: "video" (B, T, H, W, 1), "seg" (B, T, H, W)
+    int (-1 where unlabelled), "labeled_mask" (B, T), optional "distance"
+    (B, T) and "loss_mask" (B, T, H, W), all tensors on the model's device."""
+    w = config.loss_weights
+
+    def one_video(out, video, seg, labeled_mask, loss_mask=None):
+        """The losses of one video from its model outputs: video (T, H, W, 1),
+        seg (T, H, W), labeled_mask (T,), loss_mask (T, H, W) or None (the ED
+        frame's map weights every per-pixel loss)."""
+        x0 = video[0]
+        m0 = None if loss_mask is None else loss_mask[0]
+        reg = out["registered"][1:, :, :, None]
+        fixed = x0.expand_as(reg)
+        cum = out["cum_flow"][1:]  # (T-1, 2, H, W)
+        if m0 is None:
+            ncc = L.ncc_loss(reg, fixed)
+            smooth_xy = L.spatial_gradient_penalty(cum, channel_axis=1)
+            smooth_t = L.temporal_gradient_penalty(cum, channel_axis=-3)
+        else:
+            ncc = (L.ncc_loss(reg, fixed, reduction="none") * m0[None, :, :, None]).mean()
+            smooth_xy = (L.spatial_gradient_penalty(cum, reduction="none", channel_axis=1)
+                         * m0[None]).mean()
+            smooth_t = (L.temporal_gradient_penalty(cum[:, None], reduction="none",
+                                                    channel_axis=-3) * m0[None, None]).mean()
+        logits = out["seg_logits"]
+        seg_ce = L.cross_entropy_loss(logits, seg, ignore_index=-1)
+        seg_dice = L.soft_dice_loss(logits, seg.clamp_min(0), batch_dice=True,
+                                    mask=labeled_mask[:, None, None])
+        loss = (w.image_flow_global * ncc + w.regularization_xy * smooth_xy
+                + w.regularization_z * smooth_t + w.segmentation * (seg_ce + seg_dice))
+        metrics = {"ncc": ncc, "smooth_xy": smooth_xy, "smooth_t": smooth_t,
+                   "seg_ce": seg_ce, "seg_dice": seg_dice}
+        if w.seg_registered:
+            # the last frame's one-hot ground truth warped back to frame 0 by
+            # the cumulative flow, scored against frame 0's; gated on both
+            # ends being labelled
+            oh_last = L.one_hot(seg[-1].clamp_min(0), logits.shape[-1]).permute(2, 0, 1)
+            warped = warp_image_cm(oh_last[None], out["cum_flow"][-1][None])[0]
+            seg_reg = L.soft_dice_loss(warped.permute(1, 2, 0)[None], seg[0].clamp_min(0)[None],
+                                       batch_dice=True, probs_input=True)
+            seg_reg = seg_reg * (labeled_mask[0] * labeled_mask[-1])
+            loss = loss + w.seg_registered * seg_reg
+            metrics["seg_registered"] = seg_reg
+        return loss, metrics
+
+    def loss_fn(model: torch.nn.Module, batch: dict):
+        out = model(batch["video"], batch.get("distance"))
+        loss_mask = batch.get("loss_mask")
+        per_video = [
+            one_video({k: v[b] for k, v in out.items()}, batch["video"][b], batch["seg"][b],
+                      batch["labeled_mask"][b], None if loss_mask is None else loss_mask[b])
+            for b in range(batch["video"].shape[0])
+        ]
+        loss = torch.stack([lv for lv, _ in per_video]).mean()
+        metrics = {k: torch.stack([m[k] for _, m in per_video]).mean() for k in per_video[0][1]}
+        return loss, metrics
+
+    return loss_fn
+
+
+@dataclass
+class TrainerHistory:
+    train_losses: list = field(default_factory=list)
+    val_losses: list = field(default_factory=list)
+    eval_metrics: list = field(default_factory=list)
+    epoch_times: list = field(default_factory=list)
+    #: host seconds of each train iteration, ending in the loss read (a sync)
+    step_times: list = field(default_factory=list)
+
+
+class _TrainingLog:
+    """Print a line and append it to output_folder/training_log.txt."""
+
+    def __init__(self, folder: Path):
+        self.file = folder / "training_log.txt"
+
+    def __call__(self, msg: str) -> None:
+        with open(self.file, "a") as f:
+            f.write(msg + "\n")
+        print(msg, flush=True)
+
+
+class Trainer:
+    """Config-driven SegFlow trainer on one device (``"cuda"`` unless told
+    otherwise). ``train_iter`` / ``val_iter`` yield host (numpy) batch dicts
+    with a leading batch axis, as :class:`csof_tpu_torch.data.loaders.VideoChunkLoader`."""
+
+    # EMA / patience constants of the JAX trainer
+    val_eval_criterion_alpha = 0.9
+    patience = 50
+    train_loss_ma_eps = 5e-4
+    checkpoint_every = 50
+    #: raise on a non-finite loss
+    nan_guard: bool = True
+
+    def __init__(self, config: ExperimentConfig, output_folder: str | Path,
+                 num_classes: int | None = None, device: torch.device | str = "cuda"):
+        _check_trainable(config)
+        self.config = config
+        self.output_folder = Path(output_folder)
+        self.output_folder.mkdir(parents=True, exist_ok=True)
+        self.num_classes = num_classes
+        self.device = torch.device(device)
+        self.loss_fn = make_segflow_loss(config)
+        self.history = TrainerHistory()
+        self.epoch = 0
+        self.model: SegFlow | None = None
+        self.optimizer = None
+
+    @property
+    def total_steps(self) -> int:
+        return self.config.max_num_epochs * self.config.num_batches_per_epoch
+
+    def _new_model(self, seed: int) -> SegFlow:
+        gen = torch.Generator().manual_seed(seed)
+        return build_model(self.config, self.num_classes, gen).to(self.device)
+
+    def initialize(self, example_batch: dict | None = None):
+        """Draw the weights from ``config.seed`` and build the optimizer. The
+        batch is accepted for the JAX trainer's signature: torch modules
+        need no example input."""
+        self.model = self._new_model(self.config.seed)
+        self.optimizer = build_optimizer(self.config.optim, self.total_steps,
+                                         self.model.parameters())
+        return self
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items() if v is not None}
+
+    def run_iteration(self, batch: dict, train: bool = True):
+        """One train step (or a loss evaluation); returns (loss, metrics)."""
+        if self.model is None:
+            raise RuntimeError("initialize() first")
+        t0 = time.perf_counter()
+        batch = self._to_device(batch)
+        if train:
+            loss, aux = self.loss_fn(self.model, batch)
+            self.optimizer.zero_grad()
+            loss.backward()
+            self.optimizer.step()
+        else:
+            with torch.no_grad():
+                loss, aux = self.loss_fn(self.model, batch)
+        loss = float(loss.detach())
+        if train:
+            self.history.step_times.append(time.perf_counter() - t0)
+        if self.nan_guard and not np.isfinite(loss):
+            raise FloatingPointError(f"non-finite loss {loss} at epoch {self.epoch}: check data/LR")
+        return loss, aux
+
+    def run_training(self, train_iter: Iterator[dict], val_iter: Iterator[dict] | None = None,
+                     max_epochs: int | None = None,
+                     log_fn: Callable[[str], None] | None = None) -> TrainerHistory:
+        if self.model is None:
+            self.initialize()
+        log_fn = log_fn or _TrainingLog(self.output_folder)
+        cfg = self.config
+        max_epochs = max_epochs or cfg.max_num_epochs
+        criterion_ma = None  # EMA of the epoch criterion, advanced every epoch
+        best_ma = None
+        best_epoch = 0
+        while self.epoch < max_epochs:
+            t0 = time.time()
+            ep_losses = [self.run_iteration(next(train_iter))[0]
+                         for _ in range(cfg.num_batches_per_epoch)]
+            self.history.train_losses.append(float(np.mean(ep_losses)))
+            if val_iter is not None:
+                v_losses = [self.run_iteration(next(val_iter), train=False)[0]
+                            for _ in range(cfg.num_val_batches_per_epoch)]
+                self.history.val_losses.append(float(np.mean(v_losses)))
+            self.history.epoch_times.append(time.time() - t0)
+            self.epoch += 1
+            self._maybe_momentum_rescue(log_fn)
+
+            criterion = (self.history.val_losses or self.history.train_losses)[-1]
+            criterion_ma = criterion if criterion_ma is None else (
+                self.val_eval_criterion_alpha * criterion_ma
+                + (1 - self.val_eval_criterion_alpha) * criterion)
+            if best_ma is None or criterion_ma < best_ma - self.train_loss_ma_eps:
+                best_ma, best_epoch = criterion_ma, self.epoch
+                self.save_checkpoint(ckpt.BEST)
+            if self.epoch % self.checkpoint_every == 0:
+                self.save_checkpoint(ckpt.LATEST)
+            log_fn(f"epoch {self.epoch}: train {self.history.train_losses[-1]:.4f}"
+                   + (f" val {self.history.val_losses[-1]:.4f}" if self.history.val_losses else "")
+                   + f" ({self.history.epoch_times[-1]:.1f}s)")
+            if self.epoch - best_epoch > self.patience:
+                log_fn(f"early stop: no improvement for {self.patience} epochs")
+                break
+        self.save_checkpoint(ckpt.FINAL)
+        return self.history
+
+    def _maybe_momentum_rescue(self, log_fn=print) -> bool:
+        """The SGD recipe's rescue: if the online foreground dice is still 0
+        once ``optim.momentum_rescue_epoch`` epochs are done, drop the
+        momentum to ``optim.momentum_rescue_value`` and draw the weights
+        anew (seed + epoch); the optimizer restarts with fresh buffers at the
+        same schedule position. It compares ``self.epoch`` as the JAX trainer
+        does, which fires one epoch before nnU-Net's recipe (ROADMAP fault
+        F5, left to the slice that ports a loss reporting dice). The SegFlow
+        loss reports no dice statistics, so for it the rescue never fires."""
+        ocfg = self.config.optim
+        if (ocfg.optimizer != "sgd" or ocfg.momentum_rescue_epoch <= 0
+                or self.epoch != ocfg.momentum_rescue_epoch
+                or not self.history.eval_metrics or self.history.eval_metrics[-1] != 0):
+            return False
+        new_optim = dataclasses.replace(ocfg, sgd_momentum=ocfg.momentum_rescue_value)
+        self.config = dataclasses.replace(self.config, optim=new_optim)
+        count = self.optimizer.count
+        self.model.load_state_dict(self._new_model(self.config.seed + self.epoch).state_dict())
+        self.optimizer = build_optimizer(new_optim, self.total_steps, self.model.parameters())
+        self.optimizer.count = count
+        log_fn(f"at epoch {self.epoch} the mean foreground Dice was 0: SGD momentum reduced "
+               f"{ocfg.sgd_momentum} -> {ocfg.momentum_rescue_value} and network weights "
+               "reinitialized")
+        return True
+
+    def save_checkpoint(self, name: str = ckpt.LATEST):
+        meta = {"epoch": self.epoch, "config_model": self.config.model,
+                "train_losses": self.history.train_losses[-5:],
+                "val_losses": self.history.val_losses[-5:]}
+        state = {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+                 "step": self.optimizer.count}
+        return ckpt.save_checkpoint(self.output_folder, state, name=name, meta=meta)
+
+    def load_checkpoint(self, name: str | None = None) -> dict:
+        """Restore model, optimizer and epoch from ``name`` (by default the
+        first of final, latest, best); returns the sidecar metadata."""
+        if self.model is None:
+            self.initialize()
+        state, meta = ckpt.load_checkpoint(self.output_folder, name, map_location=self.device)
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        self.epoch = int(meta.get("epoch", 0))
+        return meta

@@ -98,14 +98,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_gradient_request_raises_clearly():
+    """Gradients flow through the correlation (K2's plain version on the
+    CPU, equal to autograd of the plain forward); K3 stays forward-only."""
     _, _, q, m = _pair(6, 1, 8, 8, 8, "float32")
     q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        correlation.local_correlation_volume(q, m, 2, 1)
+    m.requires_grad_(True)
+    g = torch.from_numpy(np.random.RandomState(8).randn(1, 25, 8, 8).astype(np.float32))
+    got = torch.autograd.grad((correlation.local_correlation_volume(q, m, 2, 1) * g).sum(), (q, m))
+    ref = torch.autograd.grad((k1.corr_plain(q, m, 2, 1) * g).sum(), (q, m))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), atol=1e-6, rtol=1e-6)
     _, (w, b, gs, gb) = _skip_params(7, 8, 8, 25)
     w.requires_grad_(True)
     with pytest.raises(RuntimeError, match="forward-only"):
-        k3.fused_skip_fuse(q.detach(), m, w, b, gs, gb, 2, 1)
+        k3.fused_skip_fuse(q.detach(), m.detach(), w, b, gs, gb, 2, 1)
 
 
 def test_groups_are_lowered_until_they_divide():

@@ -105,9 +105,19 @@ def test_converter_consumes_every_leaf_once_and_fills_every_parameter(params):
         load_flax_params(model, wrong)
 
 
-def test_config_mirrors_the_jax_fields_and_defaults():
-    assert [(f.name, f.default) for f in dataclasses.fields(SegFlowModelConfig)] == \
-        [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+@pytest.mark.parametrize("name", ["OptimConfig", "LossWeights", "SegFlowModelConfig",
+                                  "RaftModelConfig", "VoxelMorphModelConfig", "DataConfig",
+                                  "ExperimentConfig"])
+def test_config_mirrors_the_jax_fields_and_defaults(name):
+    from csof_tpu.config import experiment as jexp
+    from csof_tpu_torch.config import experiment as texp
+
+    def fields(cls):
+        return [(f.name, f.default, getattr(f.default_factory, "__name__", None))
+                for f in dataclasses.fields(cls)]
+
+    assert fields(getattr(texp, name)) == fields(getattr(jexp, name))
+    assert dataclasses.asdict(getattr(texp, name)()) == dataclasses.asdict(getattr(jexp, name)())
 
 
 def test_unported_modes_are_refused():
@@ -118,9 +128,18 @@ def test_unported_modes_are_refused():
 
 
 def test_training_forward_raises_clearly():
+    """fused_cm (K3) refuses gradients; concat trains, and the gradient
+    reaches every parameter."""
     model = SegFlow(SegFlowModelConfig(**dict(SMALL, corr_fuse="fused_cm", dtype="float32")))
     with pytest.raises(RuntimeError, match="forward-only"):
         model(torch.from_numpy(_video(b=1)))
+    model = SegFlow(SegFlowModelConfig(**dict(SMALL, corr_fuse="concat", dtype="float32")),
+                    generator=torch.Generator().manual_seed(0))
+    out = model(torch.from_numpy(_video(b=1)))
+    (out["seg_logits"].square().mean() + out["cum_flow"].square().mean()
+     + out["registered"].mean()).backward()
+    assert all(p.grad is not None and bool(p.grad.abs().sum() > 0)
+               for p in model.parameters())
 
 
 def test_port_imports_no_jax_flax_or_yaml():
@@ -134,6 +153,11 @@ def test_port_imports_no_jax_flax_or_yaml():
         from csof_tpu_torch.inference.flow_predictor import FlowPredictor, predict_and_export_case
         from csof_tpu_torch.inference.serving import apply_serving_config
         from csof_tpu_torch.models.segflow import SegFlow
+        from csof_tpu_torch.data.loaders import VideoChunkLoader
+        from csof_tpu_torch.ops.losses import ncc_loss
+        from csof_tpu_torch.training.checkpoint import save_checkpoint
+        from csof_tpu_torch.training.schedules import build_optimizer
+        from csof_tpu_torch.training.trainer import Trainer, make_segflow_loss
         cfg = apply_serving_config(SegFlowModelConfig(out_encoder_dims=(8, 16), d_model=16,
             bottleneck_heads=2, dim_feedforward=32, dtype="float32"), 2)
         model = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(0))

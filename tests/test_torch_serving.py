@@ -90,7 +90,7 @@ def test_flow_predictor_and_export_match_jax(tmp_path):
     load_flax_params(model, params)
     k3.launches = 0
     got = flow_predictor.predict_and_export_case(
-        flow_predictor.FlowPredictor(model, crop_size=16), video, props, tmp_path / "torch",
+        flow_predictor.FlowPredictor(model, crop_size=16, device="cpu"), video, props, tmp_path / "torch",
         "case")
     assert k3.launches == 0
     assert got["roi_record"] == ref["roi_record"]
@@ -106,3 +106,9 @@ def test_flow_predictor_and_export_match_jax(tmp_path):
         b = load_nifti(tmp_path / "jax" / sub / "case.nii.gz")
         assert a.itk_spacing == b.itk_spacing
         np.testing.assert_allclose(a.data_czyx, b.data_czyx, atol=5e-4)
+
+
+def test_flow_predictor_targets_the_card_by_default():
+    predictor = flow_predictor.FlowPredictor(SegFlow(SegFlowModelConfig(
+        out_encoder_dims=(8, 16), d_model=16, bottleneck_heads=2, dim_feedforward=32)))
+    assert predictor.device.type == "cuda"
