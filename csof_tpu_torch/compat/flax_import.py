@@ -11,7 +11,10 @@ after the flax scopes, so a leaf ``a/b/Conv_0/kernel`` fills the parameter
 - norm ``scale`` -> ``weight``; ``bias`` -> ``bias``.
 
 The map is built by walking the flax tree, so flax's auto-numbered scopes
-(``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``) need no hand-written list.
+(``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``; the U-Net's
+``StackedConvs_0..2n`` in call order with ``ConvNormAct_i/Conv_0`` and
+``InstanceNorm_0`` inside, beside the named ``ConvTranspose_u`` and
+``seg_head_level``) need no hand-written list.
 """
 
 from __future__ import annotations

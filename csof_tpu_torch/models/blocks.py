@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from csof_tpu_torch.ops.kernels.conv import conv3x3, conv3x3_worthwhile
+from csof_tpu_torch.ops.kernels.norm_act import instance_norm_leaky_relu
 from csof_tpu_torch.ops.kernels.skipfuse import num_groups_for
 
 # flax's truncated-normal initializers divide the stddev by the std of a unit
@@ -50,15 +52,18 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
 
 class Conv(nn.Conv2d):
     """flax ``nn.Conv`` on NCHW: explicit ((top, bottom), (left, right))
-    padding, the conv rounded to the compute dtype and the bias added in it."""
+    padding, by default ((k-1)//2, k//2) per axis, the conv rounded to the
+    compute dtype and the bias added in it. Kernel and stride are an int or
+    a per-axis pair."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=None,
                  bias=True, dtype=torch.float32, init="he_normal", generator=None):
         super().__init__(in_channels, out_channels, kernel_size, stride=stride, bias=bias)
-        k = kernel_size
-        self.pads = padding if padding is not None else (((k - 1) // 2, k // 2),) * 2
+        kh, kw = self.kernel_size
+        self.pads = padding if padding is not None else (((kh - 1) // 2, kh // 2),
+                                                         ((kw - 1) // 2, kw // 2))
         self.compute_dtype = dtype
-        init_kernel_(self.weight, in_channels * k * k, init, generator)
+        init_kernel_(self.weight, in_channels * kh * kw, init, generator)
         if bias:
             nn.init.zeros_(self.bias)
 
@@ -185,30 +190,83 @@ def add_norm(parent: nn.Module, kind: str, channels: int, index: int) -> str:
 
 
 class ConvNormAct(nn.Module):
-    """3x3 conv -> norm -> LeakyReLU (flax ``ConvNormAct`` and
-    ``_NCHWConvNormAct``: same params, ((k-1)//2, k//2) padding)."""
+    """conv -> norm -> LeakyReLU (flax ``ConvNormAct`` and
+    ``_NCHWConvNormAct``: same params; per-axis kernel and stride with
+    ((k-1)//2, k//2) padding, so a stride-2 3x3 conv pads (1, 1)).
+
+    The JAX package's two switches, as explicit arguments (parameters are
+    the same either way):
+
+    - ``conv_impl="pallas"`` (``CSOF_CONV2D_IMPL=pallas``) runs the conv as
+      kernel K6 where the JAX package runs its Pallas conv: stride-1 3x3,
+      Co < 128, an input at least 32 wide;
+    - ``fused_norm_act=True`` (``CSOF_FUSED_NORM=1``) runs InstanceNorm +
+      LeakyReLU as kernel K5 (GroupNorm blocks ignore it, as in JAX).
+    """
 
     def __init__(self, in_channels, features, stride=1, norm="group", dtype=torch.float32,
-                 generator=None):
+                 generator=None, kernel_size=3, fused_norm_act=False, conv_impl="native"):
         super().__init__()
-        self.Conv_0 = Conv(in_channels, features, 3, stride, dtype=dtype, generator=generator)
+        if conv_impl not in ("native", "pallas"):
+            raise ValueError(f"conv_impl {conv_impl!r} is not ported (native or pallas)")
+        self.Conv_0 = Conv(in_channels, features, kernel_size, stride, dtype=dtype,
+                           generator=generator)
         self.norm_name = add_norm(self, norm, features, 0)
+        self.fused_norm_act = fused_norm_act and norm == "instance"
+        self.conv_impl = conv_impl
+
+    def uses_k6(self, width: int) -> bool:
+        """Whether an input ``width`` pixels wide runs the conv as K6."""
+        conv = self.Conv_0
+        return self.conv_impl == "pallas" and conv3x3_worthwhile(
+            conv.kernel_size, conv.stride, conv.in_channels, conv.out_channels, width)
 
     def forward(self, x):
-        return leaky_relu(getattr(self, self.norm_name)(self.Conv_0(x)))
+        conv = self.Conv_0
+        if self.uses_k6(x.shape[-1]):
+            x = conv3x3(x.to(conv.compute_dtype).contiguous(), conv.weight, conv.bias)
+        else:
+            x = conv(x)
+        norm = getattr(self, self.norm_name)
+        if self.fused_norm_act:
+            return instance_norm_leaky_relu(x.contiguous(), norm.weight, norm.bias, norm.eps)
+        return leaky_relu(norm(x))
+
+
+class StackedConvs(nn.Module):
+    """``num_convs`` ConvNormAct blocks (``ConvNormAct_0`` ...); the first may
+    downsample by ``first_stride`` (flax ``StackedConvs``)."""
+
+    def __init__(self, in_channels, features, num_convs, kernel_size=3, first_stride=None,
+                 norm="instance", dtype=torch.float32, generator=None, fused_norm_act=False,
+                 conv_impl="native"):
+        super().__init__()
+        for i in range(num_convs):
+            stride = first_stride if (i == 0 and first_stride is not None) else 1
+            self.add_module(f"ConvNormAct_{i}", ConvNormAct(
+                in_channels if i == 0 else features, features, stride, norm, dtype, generator,
+                kernel_size, fused_norm_act, conv_impl))
+
+    def forward(self, x):
+        for block in self.children():
+            x = block(x)
+        return x
 
 
 class ConvTranspose(nn.Module):
-    """flax ``ConvTranspose`` with kernel == stride, VALID. Torch layout
-    (C_in, C_out, k, k); the flax kernel maps onto it mirrored."""
+    """flax ``ConvTranspose`` with kernel == stride (an int or a per-axis
+    pair), VALID. Torch layout (C_in, C_out, kh, kw); the flax kernel maps
+    onto it mirrored."""
 
-    def __init__(self, in_channels, features, kernel=2, dtype=torch.float32, generator=None):
+    def __init__(self, in_channels, features, kernel=2, dtype=torch.float32, generator=None,
+                 init="lecun_normal"):
         super().__init__()
+        kernel = (kernel, kernel) if isinstance(kernel, int) else tuple(kernel)
         self.kernel = kernel
         self.compute_dtype = dtype
-        self.weight = nn.Parameter(torch.empty(in_channels, features, kernel, kernel))
+        self.weight = nn.Parameter(torch.empty(in_channels, features, *kernel))
         self.bias = nn.Parameter(torch.zeros(features))
-        init_kernel_(self.weight, in_channels * kernel * kernel, "lecun_normal", generator)
+        init_kernel_(self.weight, in_channels * kernel[0] * kernel[1], init, generator)
 
     def forward(self, x):
         dt = self.compute_dtype

@@ -38,6 +38,10 @@ _SIGNATURES = {
     # q, m, corr, w, bias, gn_scale, gn_bias, y, partial, out,
     # B, C, K2, H, W, F, groups, eps, slope, dtype_code, stream
     "csof_skipfuse_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P],
+    # x, scale, bias, out, partial, planes, C, HW, eps, slope, dtype_code, stream
+    "csof_norm_act_forward": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P],
+    # x, w, bias, out, N, Ci, H, W, Co, dtype_code, out_f32, stream
+    "csof_conv3x3_forward": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 #: seconds the last compile in this process took (0.0 if none ran)

@@ -23,14 +23,14 @@ launches = 0
 _TILE = 16  # pixel tile edge of the conv pass (csrc/skipfuse.cu kConvTile)
 
 
-def forward_only(name: str, *tensors: torch.Tensor) -> None:
-    """Raise when autograd would need K3's backward, which does not exist:
-    the TPU kernel is forward-only too, and training runs the unfused modes."""
+def forward_only(name: str, *tensors: torch.Tensor,
+                 hint: str = "train with corr_fuse='concat' / 'concat_cm'") -> None:
+    """Raise when autograd would need a kernel's backward that does not exist
+    (K3, K5, K6: their TPU kernels are forward-only on the paths they serve)."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
             f"{name} is forward-only: it has no backward kernel. Run it under "
-            "torch.no_grad() or torch.inference_mode(), or train with "
-            "corr_fuse='concat' / 'concat_cm'."
+            f"torch.no_grad() or torch.inference_mode(), or {hint}."
         )
 
 

@@ -96,6 +96,60 @@ def test_corr_function_gradients_on_the_card(cuda):
         _close(a, b, (1e-4, 1e-4))
 
 
+# K5: the kernel and the plain version take the same float32 sums in another
+# order, so the statistics differ by a few float32 ulps, which the
+# normalization scales by 1/std; bf16 rounds once: one bf16 ulp (2^-8).
+NORM_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (2e-2, 8e-3)}
+# K6: the same float32 sum in another order (up to 9 * 128 terms); bf16
+# output rounds once, plus one rounding of the bias add
+CONV_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (2e-2, 1e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w", [
+    (4, 32, 320, 256), (4, 64, 160, 128), (3, 128, 80, 64), (2, 480, 5, 4), (3, 7, 33, 129),
+    (2, 5, 1, 1),
+])
+def test_norm_act_kernel_matches_plain(cuda, n, c, h, w, dtype):
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy((rng.randn(n, c, h, w) * 2 + 0.5).astype(np.float32)).to(cuda, dtype)
+    x[0, 0] = 0.25  # a constant plane stays finite
+    scale = torch.from_numpy(1 + 0.2 * rng.randn(c).astype(np.float32)).to(cuda)
+    bias = torch.from_numpy(0.2 * rng.randn(c).astype(np.float32)).to(cuda)
+    before = k5.launches
+    got = k5.norm_act_cuda(x, scale, bias)
+    torch.cuda.synchronize()
+    assert k5.launches == before + 1
+    assert bool(torch.isfinite(got).all())
+    _close(got, k5.norm_act_plain(x, scale, bias), NORM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,ci,co,h,w,bias,out_f32", [
+    (2, 1, 32, 320, 256, True, False), (2, 32, 32, 64, 64, True, False),
+    (2, 128, 64, 40, 32, False, False), (3, 13, 40, 17, 23, True, False),
+    (2, 8, 16, 9, 70, False, True), (1, 3, 5, 1, 1, True, True),
+])
+def test_conv3x3_kernel_matches_plain(cuda, n, ci, co, h, w, bias, out_f32, dtype):
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    rng = np.random.RandomState(4)
+    x = torch.from_numpy(rng.randn(n, ci, h, w).astype(np.float32)).to(cuda, dtype)
+    wt = torch.from_numpy((rng.randn(co, ci, 3, 3) * np.sqrt(2 / (9 * ci))).astype(np.float32))
+    b = torch.from_numpy(0.1 * rng.randn(co).astype(np.float32)).to(cuda) if bias else None
+    before = k6.launches
+    got = k6.conv3x3_cuda(x, wt.to(cuda), b, out_f32)
+    torch.cuda.synchronize()
+    assert k6.launches == before + 1
+    assert got.dtype == (torch.float32 if out_f32 else dtype)
+    _close(got, k6.conv3x3_plain(x, wt.to(cuda), b, out_f32),
+           CONV_TOL[torch.float32 if out_f32 else dtype])
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q, m, params = _inputs(cuda, torch.float32, 8, 12, 12)
@@ -112,6 +166,18 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         k1.corr_bwd_cuda(q, m, g.bfloat16(), 2, 1)
     with pytest.raises(ValueError, match="contiguous"):
         k1.corr_bwd_cuda(q, m, g.transpose(2, 3), 2, 1)
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    scale, bias = params[2], params[3]  # (8,) float32
+    with pytest.raises(TypeError):
+        k5.norm_act_cuda(q.half(), scale, bias)
+    with pytest.raises(ValueError, match="scale"):
+        k5.norm_act_cuda(q, scale[:4].contiguous(), bias)
+    with pytest.raises(ValueError, match="weight"):
+        k6.conv3x3_cuda(q, params[0])  # Ci 97, not 8
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.conv3x3_cuda(q.transpose(2, 3), torch.zeros(4, 8, 3, 3, device=cuda))
 
 
 @pytest.mark.cuda
@@ -129,6 +195,41 @@ def test_small_segflow_on_the_card_matches_the_cpu(cuda):
     assert k3.launches == 1 + 3 * 3  # prime step: bottleneck level only
     for k in ("seg_logits", "flow", "cum_flow", "registered"):
         _close(got[k], ref[k], (1e-3, 1e-3))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_small_unet_on_the_card_matches_the_cpu(cuda, dtype):
+    """Both switches on: K5 and K6 on the card against their plain versions
+    on the CPU, through the whole U-Net and the predictor."""
+    from csof_tpu_torch.inference.predictor import PredictorConfig, SlidingWindowPredictor
+    from csof_tpu_torch.models.unet import GenericUNet
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    kw = dict(num_classes=3, base_num_features=16, pool_kernel_sizes=((2, 2),) * 3,
+              conv_kernel_sizes=((3, 3),) * 4, dtype=dtype, fused_norm_act=True,
+              conv_impl="pallas")
+    cpu = GenericUNet(generator=torch.Generator().manual_seed(0), **kw).eval()
+    gpu = GenericUNet(**kw).to(cuda).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    x = torch.from_numpy(np.random.RandomState(5).randn(4, 1, 64, 96).astype(np.float32))
+    k5.launches = k6.launches = 0
+    with torch.inference_mode():
+        got = gpu(x.to(cuda))
+        ref = cpu(x)
+    assert (k5.launches, k6.launches) == (14, 7) == tuple(gpu.kernel_launches(96).values())
+    tol = (1e-3, 1e-3) if dtype == torch.float32 else (0.15, 0.05)
+    for a, b in zip(got, ref):
+        _close(a, b, tol)
+    cfg = PredictorConfig((64, 64), 3, tile_batch=3)
+    vol = np.random.RandomState(6).randn(1, 3, 70, 90).astype(np.float32)
+    k5.launches = 0
+    _, probs_gpu = SlidingWindowPredictor(gpu, cfg, cuda).predict_2d_stack(vol)
+    _, probs_cpu = SlidingWindowPredictor(cpu, cfg, "cpu").predict_2d_stack(vol)
+    forwards = -(-4 * 4 // 3)  # D 3 -> 4, a (96, 96) bucket: 4 tiles a slice; 2 pad tiles
+    assert k5.launches == 14 * forwards
+    np.testing.assert_allclose(probs_gpu, probs_cpu, atol=1e-3 if dtype == torch.float32 else 0.1)
 
 
 @pytest.mark.cuda

@@ -164,6 +164,19 @@ def test_port_imports_no_jax_flax_or_yaml():
         with torch.inference_mode():
             out = model(torch.rand(1, 2, 16, 16, 1))
         assert torch.isfinite(out["seg_logits"]).all()
+        from csof_tpu_torch.config.plans import Plans, StagePlans
+        from csof_tpu_torch.data.preprocessing import Preprocessor
+        from csof_tpu_torch.inference.export import save_segmentation_from_softmax
+        from csof_tpu_torch.inference.predictor import (PredictorConfig,
+                                                        SlidingWindowPredictor, predict_case)
+        from csof_tpu_torch.models.unet import GenericUNet, unet_from_plans
+        from csof_tpu_torch.ops.kernels import conv, norm_act
+        net = GenericUNet(2, base_num_features=4, pool_kernel_sizes=((2, 2),),
+                          conv_kernel_sizes=((3, 3),) * 2, fused_norm_act=True,
+                          conv_impl="pallas", generator=torch.Generator().manual_seed(0))
+        pred = SlidingWindowPredictor(net, PredictorConfig((32, 32), 2, tile_batch=2), "cpu")
+        seg, probs = pred.predict_2d_stack(torch.rand(1, 2, 40, 36).numpy())
+        assert seg.shape == (2, 40, 36) and abs(probs.sum(0) - 1).max() < 1e-5
         bad = [m for m in sys.modules if m == "csof_tpu" or m.startswith("csof_tpu.")]
         assert not bad, bad
         print("ok")
