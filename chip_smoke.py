@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SegFlow serving and training paths and its
-nnU-Net 2D serving path once on one NVIDIA GPU.
+nnU-Net 2D serving and training paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -9,8 +9,8 @@ Phases, each printed on its own line:
 1. device: the card's name and power limit (nvidia-smi); TF32 off for the
    float32 checks. Without a CUDA device the script exits non-zero.
 2. build: compile the CUDA kernels (K1 corr, K2 corr backward, K3 skip fuse,
-   K5 norm + activation, K6 3x3 conv) from csof_tpu_torch/csrc, one nvcc per
-   source, all started together.
+   K4 NCC map, K5 norm + activation, K6 3x3 conv) from csof_tpu_torch/csrc,
+   one nvcc per source, all started together.
 3. kernels: each kernel against its plain PyTorch version at the three
    SegFlow level geometries (K1, K3: B=8; K2: the training batch, B=4;
    radius 4) and two ragged shapes, in float32 and bfloat16, with the median
@@ -39,6 +39,23 @@ Phases, each printed on its own line:
    versions), and the shapes each kernel was launched at.
 12. unet throughput: slices/s of predict_2d_stack (host clock, median of 5)
    and the CUDA-event time of one batch-32 forward.
+13. unet train kernels: K6's backward (Conv3x3Function: dx by K6 on the
+   flipped weight, dw and db by the library) against autograd of the plain
+   version at the 4 distinct dx shapes of a Task002 2d training step (batch
+   40) and two ragged shapes, float32 and bfloat16; the dx time beside the
+   plain version's and cuDNN's dgrad (torch.nn.grad.conv2d_input).
+14. unet train: 4 synthetic Task002-like cases (1, 40, 320, 320) through
+   run_cropping -> Preprocessor.run -> unpack_dataset -> load_dataset ->
+   do_split -> SegPatchLoader, then Trainer.run_training of the full-width
+   Task002 2d U-Net (float32, SGD-Nesterov + poly, CSOF_CONV2D_IMPL=pallas)
+   at batch 40 x 320x256: 2 epochs x 6 steps + 2 validation batches;
+   finite losses, a fg-dice in the log, 7 K6 + 6 K6-dx launches per step,
+   the checkpoint triad written and reloaded; train slices/s.
+15. unet train parity: full width, batch 2 of 320x256, float32: the GPU
+   loss and every parameter gradient against the CPU's.
+16. ncc: K4 against its plain version at 20 x 128^2 (the SegFlow loss's
+   B=4 x 5 planes) and two ragged shapes, with times; then ncc_loss_kernel,
+   the op's entry point, on the same planes against the port's ncc_loss.
 
 Then one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -96,6 +113,17 @@ K5_RAGGED = [(3, 7, 33, 129), (5, 3, 17, 9)]
 K6_RAGGED = [(3, 13, 40, 17, 23), (2, 1, 5, 9, 70)]
 UNET_CASES, UNET_DEPTH, UNET_HW, UNET_SPACING = 2, 40, (320, 320), 1.25
 UNET_TILE_BATCH = 8  # PredictorConfig's default, which predict_case serves with
+#: K6's backward beside the training dx shapes: forward convs (N, Ci, Co, H, W)
+K6_BWD_RAGGED = [(3, 13, 40, 17, 23), (2, 5, 9, 9, 70)]
+#: dx, dw, db (atol as a fraction of max|ref|, rtol): the same sums in another
+#: order (float32); bf16: dx rounds once as the plain version, dw is rounded
+#: to bf16 as the JAX VJP rounds it where autograd of the plain version is not
+K6_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+UNET_TRAIN_CASES = 4
+UNET_TRAIN_EPOCHS, UNET_TRAIN_STEPS, UNET_VAL_STEPS, UNET_TRAIN_WARMUP = 2, 6, 2, 2
+#: K4 planes: (N, H, W); the first is the SegFlow loss's B=4 x (T-1)=5 at 128^2
+NCC_SHAPES = [(20, 128, 128), (3, 33, 70), (2, 17, 9)]
+NCC_ATOL = 1e-4  # cc in [0, ~1]; the same operations, division by a reciprocal in the plain
 LAUNCHES_PER_REQUEST = 136  # 34 skip fuses per forward x 4 TTA forwards
 #: K1 (forward) and K2 (backward) per train step: the frame-0 prime step
 #: runs only the bottleneck level's skip fuse, every later frame all three
@@ -734,6 +762,369 @@ def unet_throughput(model, plans, card: str) -> float:
     return UNET_DEPTH / med
 
 
+def check_unet_train_kernels(card: str) -> dict:
+    """Phase 13: Conv3x3Function's gradients against autograd of the plain
+    version; the f32 dx time of one training step (each dx shape's median
+    times its launches) of kernel, plain version and cuDNN's dgrad, with
+    the bound of the same work."""
+    import torch
+
+    from csof_tpu_torch.bounds import (
+        UNET_K6_DX_SHAPES,
+        UNET_TRAIN_BATCH,
+        bound_ms,
+        unet_train_work,
+    )
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    bf16_ms = [0.0, 0.0, 0.0]
+
+    def rand(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    # forward convs (N, Ci, Co, H, W) whose dx the step launches: the dx
+    # shape (Ci', Co') is the conv's (Co, Ci)
+    runs = [((UNET_TRAIN_BATCH, co_, ci_, h, w), count)
+            for (ci_, co_, h, w), count in UNET_K6_DX_SHAPES]
+    runs += [(shape, 0) for shape in K6_BWD_RAGGED]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for (n, ci, co, h, w), count in runs:
+            x = rand(n, ci, h, w).to(dtype).requires_grad_(True)
+            wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5).requires_grad_(True)
+            b = rand(co, std=0.1).requires_grad_(True)
+            dy = rand(n, co, h, w).to(dtype)
+            got = torch.autograd.grad(k6.Conv3x3Function.apply(x, wt, b, False), (x, wt, b), dy)
+            torch.cuda.synchronize()
+            ref = torch.autograd.grad(k6.conv3x3_plain(x, wt, b), (x, wt, b), dy)
+            tag = f"{dname} conv (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, {w})"
+            err = compare("unet train kernels", f"K6 dx {tag}", got[0], ref[0],
+                          *UNET_TOL[("K6", dname)])
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            frac, rtol = K6_BWD_TOL[dname]
+            for gname, a, r in (("dw", got[1], ref[1]), ("db", got[2], ref[2])):
+                compare("unet train kernels", f"K6 {gname} {tag}", a, r,
+                        frac * float(r.abs().max()), rtol)
+            if not count:
+                continue
+            xd, wd, dyd = x.detach(), wt.detach(), dy.contiguous()
+            kern = lambda: k6.conv3x3_dx_cuda(dyd, wd)  # noqa: E731
+            plain = lambda: k6.conv3x3_dx_plain(dyd, wd)  # noqa: E731
+            wl = wd.to(dtype)
+            lib = lambda: torch.nn.grad.conv2d_input(xd.shape, wl, dyd, padding=1)  # noqa: E731
+            t, p = timed_pair(kern, plain)
+            lib_ms = median_ms(lib)
+            if dtype == torch.float32:
+                res["ms"] += count * t
+                res["plain_ms"] += count * p
+                res["library_ms"] += count * lib_ms
+            else:
+                bf16_ms = [a + count * v for a, v in zip(bf16_ms, (t, p, lib_ms))]
+            phase("unet train kernels", f"K6 dx of {tag} x{count} per step: kernel {t:.4f} ms, "
+                  f"plain {p:.4f} ms, torch.nn.grad.conv2d_input {lib_ms:.4f} ms ({card})")
+    res["bound_ms"], res["bound_by"] = bound_ms(*unet_train_work("K6_dx"))
+    phase("unet train kernels", f"K6 dx, one training step ({UNET_TRAIN_BATCH} x 320x256), "
+          f"float32: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, conv2d_input "
+          f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+          f"bfloat16: kernel {bf16_ms[0]:.4f} ms, plain {bf16_ms[1]:.4f} ms, conv2d_input "
+          f"{bf16_ms[2]:.4f} ms ({card})")
+    torch.cuda.synchronize()
+    return res
+
+
+class _TimedIter:
+    """Iterator wrapper that records the host seconds of each next()."""
+
+    def __init__(self, it):
+        self.it, self.seconds = it, []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        item = next(self.it)
+        self.seconds.append(time.perf_counter() - t0)
+        return item
+
+
+def _kernel_modules():
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import corr as k1
+    from csof_tpu_torch.ops.kernels import ncc as k4
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+    from csof_tpu_torch.ops.kernels import skipfuse as k3
+
+    return k1, k3, k4, k5, k6
+
+
+def _reset_counts() -> None:
+    k1, k3, k4, k5, k6 = _kernel_modules()
+    k1.launches = k1.bwd_launches = k3.launches = k4.launches = k5.launches = 0
+    k6.launches = k6.bwd_launches = 0
+
+
+def _read_counts() -> dict:
+    k1, k3, k4, k5, k6 = _kernel_modules()
+    return {"K1": k1.launches, "K2": k1.bwd_launches, "K3": k3.launches, "K4": k4.launches,
+            "K5": k5.launches, "K6": k6.launches, "K6_dx": k6.bwd_launches}
+
+
+def unet_train_data(plans, tmp: Path) -> dict:
+    """Synthetic Task002-like cases through the port's data plane: NIfTI
+    files -> run_cropping -> Preprocessor.run -> unpack_dataset ->
+    load_dataset. Returns the dataset dict."""
+    from csof_tpu_torch.data.cropping import run_cropping
+    from csof_tpu_torch.data.dataset import load_dataset, unpack_dataset
+    from csof_tpu_torch.data.preprocessing import Preprocessor
+    from csof_tpu_torch.utils.nifti import save_nifti
+
+    rng = np.random.RandomState(7)
+    spacing_xyz = (UNET_SPACING, UNET_SPACING, 1.37)
+    cases = []
+    t0 = time.perf_counter()
+    for i in range(UNET_TRAIN_CASES):
+        img = synthetic_case(rng)
+        img_path, seg_path = tmp / f"la_{i:03d}_0000.nii", tmp / f"la_{i:03d}_seg.nii"
+        save_nifti(img, img_path, spacing_xyz=spacing_xyz)
+        save_nifti((img > 150).astype(np.uint8), seg_path, spacing_xyz=spacing_xyz)
+        cases.append((f"la_{i:03d}", [str(img_path)], str(seg_path)))
+    run_cropping(cases, tmp / "cropped")
+    Preprocessor(plans).run(tmp / "cropped", tmp / "preprocessed")
+    unpack_dataset(tmp / "preprocessed")
+    ds = load_dataset(tmp / "preprocessed")
+    expect(sorted(ds) == [c for c, _, _ in cases], f"preprocessed cases {sorted(ds)}")
+    phase("unet train", f"{UNET_TRAIN_CASES} cases (1, {UNET_DEPTH}, {UNET_HW[0]}, "
+          f"{UNET_HW[1]}) cropped, preprocessed and unpacked in "
+          f"{time.perf_counter() - t0:.1f} s host clock")
+    return ds
+
+
+def unet_train(card: str) -> dict:
+    """Phase 14: Trainer.run_training of the full-width Task002 2d U-Net at
+    batch 40 on SegPatchLoader batches."""
+    import os
+
+    import torch
+
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig, OptimConfig
+    from csof_tpu_torch.config.plans import task002_heart_2d
+    from csof_tpu_torch.data.dataset import do_split
+    from csof_tpu_torch.data.loaders import SegPatchLoader
+    from csof_tpu_torch.training import checkpoint as ckpt
+    from csof_tpu_torch.training.trainer import Trainer
+
+    plans = task002_heart_2d()
+    sp = plans.fullres_stage()
+    config = ExperimentConfig(
+        model="unet2d", max_num_epochs=UNET_TRAIN_EPOCHS,
+        num_batches_per_epoch=UNET_TRAIN_STEPS, num_val_batches_per_epoch=UNET_VAL_STEPS,
+        optim=OptimConfig(optimizer="sgd", scheduler="poly", initial_lr=1e-2,
+                          weight_decay=3e-5),
+        data=DataConfig(do_data_aug=False))
+    n = UNET_TRAIN_EPOCHS * UNET_TRAIN_STEPS
+    n_val = UNET_TRAIN_EPOCHS * UNET_VAL_STEPS
+    env = {k: os.environ.pop(k, None) for k in ("CSOF_CONV2D_IMPL", "CSOF_FUSED_NORM")}
+    os.environ["CSOF_CONV2D_IMPL"] = "pallas"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ds = unet_train_data(plans, Path(tmp))
+            tr_keys, va_keys = do_split(list(ds), config.fold)
+            train_it = _TimedIter(SegPatchLoader({k: ds[k] for k in tr_keys}, sp.patch_size,
+                                                 sp.batch_size, seed=config.seed))
+            val_it = SegPatchLoader({k: ds[k] for k in va_keys}, sp.patch_size, sp.batch_size,
+                                    seed=config.seed + 1)
+            out = Path(tmp) / "fold_0"
+            trainer = Trainer(config, out, plans=plans, device="cuda").initialize()
+            trainer.checkpoint_every = UNET_TRAIN_EPOCHS  # so that the run writes "latest"
+            per_step = trainer.model.kernel_launches(sp.patch_size[1], backward=True)
+            expect(per_step == {"K5": 0, "K6": 7, "K6_dx": 6}, f"per step {per_step}")
+            step, event_ms, losses, lines = trainer.run_iteration, [], [], []
+
+            def timed_step(batch, train=True):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                loss, aux = step(batch, train)  # ends in a read of the loss: synchronised
+                end.record()
+                end.synchronize()
+                if train:
+                    event_ms.append(start.elapsed_time(end))
+                    losses.append(loss)
+                return loss, aux
+
+            def log(msg):
+                lines.append(msg)
+                phase("unet train", msg)
+
+            trainer.run_iteration = timed_step
+            torch.cuda.reset_peak_memory_stats()
+            _reset_counts()
+            hist = trainer.run_training(train_it, val_it, log_fn=log)
+            counts = _read_counts()
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            expect(len(losses) == n and all(np.isfinite(losses)), f"losses {losses}")
+            want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 7 * (n + n_val),
+                    "K6_dx": 6 * n}
+            expect(counts == want, f"launches in the U-Net train run {counts}, expected {want}")
+            expect(len(hist.eval_metrics) == UNET_TRAIN_EPOCHS
+                   and all(np.isfinite(hist.eval_metrics)), f"fg-dice {hist.eval_metrics}")
+            expect(all(" fg-dice " in line for line in lines[:UNET_TRAIN_EPOCHS]),
+                   f"no fg-dice in the log {lines}")
+            for name in (ckpt.BEST, ckpt.LATEST, ckpt.FINAL):
+                expect((out / name).is_file() and (out / (name + ".json")).is_file(),
+                       f"checkpoint {name} or its sidecar missing")
+            trained = {k: v.clone() for k, v in trainer.model.state_dict().items()}
+            fresh = Trainer(config, out, plans=plans, device="cuda")
+            meta = fresh.load_checkpoint()
+            expect(meta["epoch"] == UNET_TRAIN_EPOCHS and fresh.optimizer.count == n,
+                   f"reloaded epoch {meta['epoch']}, step {fresh.optimizer.count}")
+            expect(all(torch.equal(v, trained[k]) for k, v in fresh.model.state_dict().items()),
+                   "the reloaded weights differ from the trained ones")
+            del fresh, trainer, trained
+    finally:
+        for k, v in env.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    torch.cuda.empty_cache()
+    steps = hist.step_times[UNET_TRAIN_WARMUP:]
+    med = statistics.median(steps)
+    load_s = train_it.seconds[UNET_TRAIN_WARMUP:]
+    phase("unet train", f"{n} steps + {n_val} validation batches, losses {losses[0]:.5f} -> "
+          f"{losses[-1]:.5f}, fg-dice {hist.eval_metrics}; launches {counts} (7 K6 + 6 K6 dx "
+          f"per step, 7 K6 per validation batch); checkpoint triad written and reloaded; peak "
+          f"device memory {peak_gb:.2f} GB")
+    phase("unet train", f"step ({sp.batch_size}, 1, 320, 256) float32: median "
+          f"{med * 1e3:.3f} ms host clock over {len(steps)} steps after {UNET_TRAIN_WARMUP} "
+          f"warm-up (min {min(steps) * 1e3:.3f}, max {max(steps) * 1e3:.3f}) -> "
+          f"{sp.batch_size / med:.2f} train slices/s; CUDA-event step median "
+          f"{statistics.median(event_ms[UNET_TRAIN_WARMUP:]):.3f} ms; SegPatchLoader batch "
+          f"median {statistics.median(load_s) * 1e3:.3f} ms host clock, outside the step, on "
+          f"{card}")
+    return counts
+
+
+def unet_train_parity(card: str) -> None:
+    """Phase 15: float32 loss and every gradient of the full-width U-Net at
+    batch 2 of 320x256, GPU kernels vs CPU plain versions.
+
+    At this size a gradient leaf moves by more than GRAD_TOL under float32
+    rounding alone: the deepest levels hold 5 x 4 pixels a plane, where a
+    LeakyReLU input that rounding pushes across 0 changes its slope 100-fold.
+    So the CPU is also run on the input scaled by 1 + 1e-7 noise (below a
+    float32 ulp for most values), and the GPU's worst leaf is held to
+    GRAD_TOL, or to twice the worst leaf of that CPU-vs-CPU floor where the
+    floor itself exceeds it; the median leaf is held to GRAD_TOL."""
+    import torch
+
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
+    from csof_tpu_torch.config.plans import task002_heart_2d
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.training.trainer import make_seg_loss
+
+    cpu = unet_from_plans(task002_heart_2d(), conv_impl="pallas", fused_norm_act=False,
+                          generator=torch.Generator().manual_seed(1))
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.RandomState(8)
+    seg = np.zeros((2, 320, 256), np.int32)
+    seg[:, 100:200, 80:170] = 1
+    data = (rng.randn(2, 1, 320, 256) + seg[:, None]).astype(np.float32)
+    noisy = (data * (1 + 1e-7 * rng.randn(*data.shape))).astype(np.float32)
+    loss_fn = make_seg_loss(ExperimentConfig(model="unet2d", data=DataConfig(do_data_aug=False)))
+
+    def grads(model, x, device):
+        model.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(model, {"data": torch.from_numpy(x).to(device),
+                                  "seg": torch.from_numpy(seg).to(device)})
+        loss.backward()
+        return loss.item(), {k: None if p.grad is None else p.grad.cpu()
+                             for k, p in model.named_parameters()}
+
+    def ratios(got, ref):
+        """|diff| / (GRAD_TOL max|ref| + 1e-6) of each leaf with a gradient."""
+        out = {}
+        for name, r in ref.items():
+            expect((got[name] is None) == (r is None), f"{name}: a gradient on one side only")
+            if r is None:  # the zero-weight deep-supervision head
+                continue
+            expect(bool(torch.isfinite(got[name]).all()), f"{name}: non-finite gradient")
+            out[name] = float((got[name] - r).abs().max()) / (GRAD_TOL * float(r.abs().max())
+                                                               + 1e-6)
+        return out
+
+    before = (k6.launches, k6.bwd_launches)
+    a, g_gpu = grads(gpu, data, "cuda")
+    torch.cuda.synchronize()
+    expect((k6.launches - before[0], k6.bwd_launches - before[1]) == (7, 6),
+           "the GPU step did not run 7 K6 + 6 K6 dx")
+    b, g_cpu = grads(cpu, data, "cpu")
+    _, g_noisy = grads(cpu, noisy, "cpu")
+    expect(abs(a - b) <= LOSS_RTOL * abs(b), f"loss GPU {a} vs CPU {b}")
+    gpu_r, floor_r = ratios(g_gpu, g_cpu), ratios(g_noisy, g_cpu)
+    worst_name = max(gpu_r, key=gpu_r.get)
+    worst, floor, med = gpu_r[worst_name], max(floor_r.values()), statistics.median(
+        gpu_r.values())
+    limit = max(1.0, 2 * floor)
+    ok = worst <= limit and med <= 1
+    phase("unet train parity", f"full width float32 (2, 1, 320, 256): loss GPU {a:.7f} vs CPU "
+          f"{b:.7f}; {len(gpu_r)} gradients, |diff| / (tol {GRAD_TOL:g} max|g| + 1e-6): worst "
+          f"{worst:.3f} at {worst_name}, median {med:.4f}; CPU vs CPU on the input x (1 + 1e-7 "
+          f"noise): worst {floor:.3f} at {max(floor_r, key=floor_r.get)}; limit {limit:.3f} "
+          f"-> {'ok' if ok else 'FAIL'} ({card})")
+    expect(ok, f"gradient {worst_name} outside tolerance")
+
+
+def check_ncc(card: str) -> tuple[dict, dict]:
+    """Phase 16: K4 against its plain version, with times at the SegFlow
+    loss shape; then the op's entry point, ncc_loss_kernel, driven alone."""
+    import torch
+
+    from csof_tpu_torch.bounds import bound_ms, ncc_work
+    from csof_tpu_torch.ops import losses as L
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    rng = np.random.RandomState(9)
+    res = {"max_abs_err": 0.0, "library_ms": None}
+    for i, (n, h, w) in enumerate(NCC_SHAPES):
+        a = rng.rand(n, h, w).astype(np.float32)
+        a[:, : h // 3, : w // 3] = 0.4  # a constant region
+        b = (0.7 * a + 0.3 * rng.rand(n, h, w)).astype(np.float32)
+        pa, pb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+        got = k4.ncc_map_cuda(pa, pb)
+        torch.cuda.synchronize()
+        err = compare("ncc", f"K4 float32 (N, H, W)=({n}, {h}, {w}) window 9", got,
+                      k4.ncc_map_plain(pa, pb), NCC_ATOL, 0.0)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        if i == 0:
+            res["ms"], res["plain_ms"] = timed_pair(lambda: k4.ncc_map_cuda(pa, pb),
+                                                    lambda: k4.ncc_map_plain(pa, pb))
+            res["bound_ms"], res["bound_by"] = bound_ms(*ncc_work(n, h, w))
+            loss_ms = median_ms(lambda: L.ncc_loss(pa[..., None], pb[..., None],
+                                                   reduction="none"))
+            phase("ncc", f"K4 ({n}, {h}, {w}): kernel {res['ms']:.4f} ms, plain "
+                  f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms "
+                  f"({res['bound_by']}); library: none (no one PyTorch call; note: the port's "
+                  f"ncc_loss map, average pooling and elementwise calls, {loss_ms:.4f} ms) "
+                  f"({card})")
+            moving = pa[..., None]
+            fixed = pb[:1].expand_as(pb)[..., None].contiguous()
+    _reset_counts()
+    value = k4.ncc_loss_kernel(moving, fixed)
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    ref = L.ncc_loss(moving, fixed)
+    expect(abs(value.item() - ref.item()) <= 1e-5,
+           f"ncc_loss_kernel {value.item()} vs ncc_loss {ref.item()}")
+    expect(counts["K4"] == 1 and sum(counts.values()) == 1, f"launches {counts}")
+    phase("ncc", f"ncc_loss_kernel on {tuple(moving.shape)}: {value.item():.6f} vs ncc_loss "
+          f"{ref.item():.6f}; launches {counts} ({card})")
+    return res, counts
+
+
 def main() -> int:
     import torch
 
@@ -786,10 +1177,17 @@ def main() -> int:
     unet_counts = unet_serve(unet, plans, card)
     unet_parity(unet_cpu, card)
     unet_throughput(unet, plans, card)
+    del unet, unet_cpu
+    torch.cuda.empty_cache()
+    kernels["K6_dx"] = check_unet_train_kernels(card)
+    unet_train_counts = unet_train(card)
+    unet_train_parity(card)
+    kernels["K4"], ncc_counts = check_ncc(card)
 
-    by_path = {k: {"serving": counts.get(k, 0), "train": train_counts.get(k, 0),
-                   "unet_serving": unet_counts.get(k, 0)}
-               for k in ("K1", "K2", "K3", "K5", "K6")}
+    paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
+             "unet_training": unet_train_counts, "ncc_op": ncc_counts}
+    by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
+               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {
         "K1": ("local_correlation", "csof_tpu_torch/csrc/corr.cu",
                "csof_tpu/ops/pallas/corr.py:131", None),
@@ -798,12 +1196,18 @@ def main() -> int:
         "K3": ("fused_skip_fuse", "csof_tpu_torch/csrc/skipfuse.cu",
                "csof_tpu/ops/pallas/skipfuse.py:236",
                "F.conv2d over the (2C+81)-channel concat: K3's conv pass only"),
+        "K4": ("ncc_map", "csof_tpu_torch/csrc/ncc.cu", "csof_tpu/ops/pallas/ncc.py:49",
+               "none: no one PyTorch call computes the map (on no path of the JAX package; "
+               "driven alone through ncc_loss_kernel)"),
         "K5": ("instance_norm_leaky_relu", "csof_tpu_torch/csrc/norm_act.cu",
                "csof_tpu/ops/pallas/norm_act.py:34",
                "none: no one PyTorch call; library_note_ms times F.instance_norm + "
                "F.leaky_relu"),
         "K6": ("conv3x3", "csof_tpu_torch/csrc/conv3x3.cu", "csof_tpu/ops/pallas/conv.py:175",
                "F.conv2d(x, w, b, padding=1)"),
+        "K6_dx": ("conv3x3_dx", "csof_tpu_torch/csrc/conv3x3.cu",
+                  "csof_tpu/ops/pallas/conv.py:229",
+                  "torch.nn.grad.conv2d_input(x.shape, w, dy, padding=1) (cuDNN dgrad)"),
     }
     line = {"kernels": [
         {"name": f"{k} {name}", "route": "cuda", "source": src, "replaces": rep,

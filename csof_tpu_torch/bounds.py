@@ -31,6 +31,13 @@ UNET_K5_SHAPES = [((32, 320, 256), 4), ((64, 160, 128), 4), ((128, 80, 64), 4),
                   ((256, 40, 32), 4), ((480, 20, 16), 4), ((480, 10, 8), 4), ((480, 5, 4), 2)]
 UNET_K6_SHAPES = [((1, 32, 320, 256), 1), ((32, 32, 320, 256), 2), ((64, 32, 320, 256), 1),
                   ((64, 64, 160, 128), 2), ((128, 64, 160, 128), 1)]
+#: one training step of the same U-Net at its training batch: K6 forward at
+#: the shapes above, and K6's dx (the kernel on dy with the flipped weight,
+#: no bias) for each of them but the first conv, whose input is the data, as
+#: ((Ci', Co', H, W) of the dx launch = (Co, Ci, H, W) of its conv, launches)
+UNET_TRAIN_BATCH = 40
+UNET_K6_DX_SHAPES = [((32, 32, 320, 256), 2), ((32, 64, 320, 256), 1),
+                     ((64, 64, 160, 128), 2), ((64, 128, 160, 128), 1)]
 
 
 def bound_ms(nbytes: float, fp32_flops: float, tc_flops: float = 0.0) -> tuple[float, str]:
@@ -75,14 +82,14 @@ def norm_act_work(n: int, c: int, h: int, w: int, itemsize: int) -> tuple[float,
     return 2 * el * itemsize, 7 * el, 0.0
 
 
-def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int,
-                 itemsize: int) -> tuple[float, float, float]:
-    """K6: a stride-1 3x3 SAME conv + bias, x and the float32 weight and
-    bias -> y. bf16 multiply-adds count on the tensor cores, float32 ones on
+def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int, itemsize: int,
+                 bias: bool = True) -> tuple[float, float, float]:
+    """K6: a stride-1 3x3 SAME conv (+ bias), x and the float32 weight (and
+    bias) -> y. bf16 multiply-adds count on the tensor cores, float32 ones on
     the FP32 cores."""
     px = n * h * w
     flops = 2 * 9 * cin * cout * px
-    nbytes = px * (cin + cout) * itemsize + (9 * cin + 1) * cout * 4
+    nbytes = px * (cin + cout) * itemsize + (9 * cin + bias) * cout * 4
     return (nbytes, 0.0, flops) if itemsize == 2 else (nbytes, flops, 0.0)
 
 
@@ -96,6 +103,17 @@ def unet_forward_work(kernel: str, itemsize: int) -> tuple[float, float, float]:
         else:
             ci, co, h, w = shape
             work = conv3x3_work(UNET_BATCH, h, w, ci, co, itemsize)
+        total = [t + count * x for t, x in zip(total, work)]
+    return tuple(total)
+
+
+def unet_train_work(kernel: str, itemsize: int = 4) -> tuple[float, float, float]:
+    """(bytes, FP32 FLOPs, tensor-core FLOPs) of K6's forward ("K6") or its
+    dx ("K6_dx") summed over the launches of one Task002 2d U-Net training
+    step at batch 40."""
+    total = [0.0, 0.0, 0.0]
+    for (ci, co, h, w), count in UNET_K6_SHAPES if kernel == "K6" else UNET_K6_DX_SHAPES:
+        work = conv3x3_work(UNET_TRAIN_BATCH, h, w, ci, co, itemsize, bias=kernel == "K6")
         total = [t + count * x for t, x in zip(total, work)]
     return tuple(total)
 
@@ -130,6 +148,9 @@ def rows() -> list[tuple[str, str, float, str]]:
     for name, n in (("K5", 26), ("K6", 7)):
         out.append((name, f"f32, the {n} launches of one Task002 2d U-Net serving forward "
                     "(batch 32, 320x256)", *bound_ms(*unet_forward_work(name, 4))))
+    for name, what in (("K6", "forward"), ("K6_dx", "dx")):
+        out.append((name, f"f32, the {what} launches of one Task002 2d U-Net training step "
+                    "(batch 40, 320x256)", *bound_ms(*unet_train_work(name))))
     # the training shapes the first table used, kept as a note
     out.append(("K5", "note: bf16, (40, 32, 320, 256) (Task002 2d U-Net training batch, "
                 "first stage)", *bound_ms(*norm_act_work(40, 32, 320, 256, 2))))
@@ -146,6 +167,12 @@ def main() -> int:
     print(f"U-Net: one Task002 2d serving forward (batch 32, 320x256) does {total / 1e9:.3f} "
           f"GFLOP of convolutions, {k6 / 1e9:.3f} of them in K6; float32 on the FP32 cores: "
           f"{bound_ms(0.0, total)[0]:.6f} ms")
+    train = unet_forward_conv_flops(UNET_TRAIN_BATCH)
+    k6_train = unet_train_work("K6")[1] + unet_train_work("K6_dx")[1]
+    print(f"U-Net training step (batch 40, 320x256): {train / 1e9:.3f} GFLOP of convolutions "
+          f"forward, about {3 * train / 1e9:.3f} with the backward (dx and dw each as the "
+          f"forward); K6 forward + dx {k6_train / 1e9:.3f}; float32 on the FP32 cores: "
+          f"{bound_ms(0.0, 3 * train)[0]:.6f} ms")
     return 0
 
 

@@ -1,4 +1,5 @@
-// K6: stride-1 3x3 convolution with zero padding (1, 1), NCHW, forward only.
+// K6: stride-1 3x3 convolution with zero padding (1, 1), NCHW, and its
+// backward's dx, the same convolution of dy with the flipped weight.
 //
 //   acc[n, o, y, x] = sum_{ci, ky, kx} x[n, ci, y + ky - 1, x + kx - 1] * w[o, ci, ky, kx]
 //   out = round_to_dtype(acc)  (+ round_to_dtype(bias[o]), added in the dtype)
@@ -8,7 +9,10 @@
 // / _conv_cols_kernel (entries conv3x3_cols, conv3x3_cols_vb), with its
 // numerics: x and the weight taken in x's dtype (the float32 weight is
 // rounded to it here), the 9*Ci taps summed in float32, one rounding to x's
-// dtype or a float32 output. The TPU kernel adds no bias; its caller
+// dtype or a float32 output. The TPU kernel's VJP (_conv3x3_cols_vjp_bwd)
+// computes dx with the same kernel on dy (cast to x's dtype) and the
+// spatially flipped, in/out-transposed weight; conv3x3_dx_kernel is that
+// launch, the same code under another name. The TPU kernel adds no bias; its caller
 // (csof_tpu/models/blocks.py PallasConv) adds the bias afterwards in the
 // dtype, which this kernel's epilogue does instead, in the same order and
 // with the same roundings, to save a pass over the output.
@@ -26,6 +30,8 @@
 // kernel row. The shared input rows are 37 floats apart, so the 32 threads
 // of a warp (4 rows x 8 pixel groups) read 32 different banks. Any N, Ci,
 // H, W and Co are taken; the ragged tile edge and Ci, Co tails are masked.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace csof {
@@ -44,12 +50,13 @@ constexpr int kStride = 37;               // shared row stride: kCols <= 37, 37 
 static_assert(kThreads == 256, "thread layout");
 static_assert(kStride >= kCols && kStride % 4 == 1, "row stride");
 
-// grid (tiles, ceil(Co / 32), N), block 256
+// One block's work; grid (tiles, ceil(Co / 32), N), block 256
 template <typename T, typename OutT>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, OutT* __restrict__ out, int Ci, int H, int W,
-               int Co) {
+__device__ __forceinline__ void conv3x3_block(const T* __restrict__ x,
+                                              const float* __restrict__ w,
+                                              const float* __restrict__ bias,
+                                              OutT* __restrict__ out, int Ci, int H, int W,
+                                              int Co) {
   __shared__ float xs[kCiChunk][kRows][kStride];
   __shared__ __align__(16) float ws[kCiChunk][9][kCoBlk];
 
@@ -136,11 +143,34 @@ conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// The forward, and the same code launched as the backward (dx on dy with
+// the flipped weight) under its own name, so that a profile tells them apart
+template <typename T, typename OutT>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, OutT* __restrict__ out, int Ci, int H, int W,
+               int Co) {
+  conv3x3_block<T, OutT>(x, w, bias, out, Ci, H, W, Co);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+conv3x3_dx_kernel(const T* __restrict__ dy, const float* __restrict__ wflip, T* __restrict__ dx,
+                  int Ci, int H, int W, int Co) {
+  conv3x3_block<T, T>(dy, wflip, nullptr, dx, Ci, H, W, Co);
+}
+
 template <typename T, typename OutT>
 cudaError_t launch_conv3x3(const T* x, const float* w, const float* bias, OutT* out, int N,
-                           int Ci, int H, int W, int Co, cudaStream_t stream) {
+                           int Ci, int H, int W, int Co, bool dx, cudaStream_t stream) {
   const int tiles = ((H + kTH - 1) / kTH) * ((W + kTW - 1) / kTW);
   const dim3 grid(tiles, (Co + kCoBlk - 1) / kCoBlk, N);
+  if constexpr (std::is_same_v<T, OutT>) {
+    if (dx) {
+      conv3x3_dx_kernel<T><<<grid, kThreads, 0, stream>>>(x, w, out, Ci, H, W, Co);
+      return cudaGetLastError();
+    }
+  }
   conv3x3_kernel<T, OutT><<<grid, kThreads, 0, stream>>>(x, w, bias, out, Ci, H, W, Co);
   return cudaGetLastError();
 }
@@ -150,23 +180,25 @@ cudaError_t launch_conv3x3(const T* x, const float* w, const float* bias, OutT* 
 
 // x: (N, Ci, H, W) contiguous in the dtype; w: (Co, Ci, 3, 3) float32; bias:
 // (Co,) float32 or null; out: (N, Co, H, W) in the dtype, or float32 when
-// out_f32 is 1.
+// out_f32 is 1. dx = 1 launches the backward's copy of the kernel (x is dy,
+// w the flipped weight; no bias, no out_f32).
 extern "C" int csof_conv3x3_forward(const void* x, const float* w, const float* bias, void* out,
                                     int N, int Ci, int H, int W, int Co, int dtype_code,
-                                    int out_f32, void* stream) {
+                                    int out_f32, int dx, void* stream) {
   using namespace csof;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N <= 0 || Ci <= 0 || H <= 0 || W <= 0 || Co <= 0 || N > 65535 || Co > 65535 * kCoBlk)
+  if (N <= 0 || Ci <= 0 || H <= 0 || W <= 0 || Co <= 0 || N > 65535 || Co > 65535 * kCoBlk ||
+      (dx && (bias != nullptr || out_f32)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e;
   if (dtype_code == kFloat32) {
     e = launch_conv3x3(static_cast<const float*>(x), w, bias, static_cast<float*>(out), N, Ci, H,
-                       W, Co, s);
+                       W, Co, dx, s);
   } else if (dtype_code == kBFloat16) {
     using bf = __nv_bfloat16;
     const bf* xb = static_cast<const bf*>(x);
-    e = out_f32 ? launch_conv3x3(xb, w, bias, static_cast<float*>(out), N, Ci, H, W, Co, s)
-                : launch_conv3x3(xb, w, bias, static_cast<bf*>(out), N, Ci, H, W, Co, s);
+    e = out_f32 ? launch_conv3x3(xb, w, bias, static_cast<float*>(out), N, Ci, H, W, Co, false, s)
+                : launch_conv3x3(xb, w, bias, static_cast<bf*>(out), N, Ci, H, W, Co, dx, s);
   } else {
     e = cudaErrorInvalidValue;
   }

@@ -1,1 +1,1 @@
-"""Host-side data loading (cine video chunks)."""
+"""Host-side data: cropping, preprocessing, dataset files, patch and video loaders."""

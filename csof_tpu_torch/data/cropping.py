@@ -1,10 +1,11 @@
-"""Nonzero-bounding-box cropping of raw cases: ``crop_case`` and its helpers
-from ``csof_tpu/data/cropping.py`` (numpy/scipy), carried here so that the
-port never imports the JAX package. The folder-level ``run_cropping`` is not
-carried."""
+"""Nonzero-bounding-box cropping of raw cases: ``crop_case``, its helpers and
+the folder writer ``run_cropping`` from ``csof_tpu/data/cropping.py``
+(numpy/scipy), carried here so that the port never imports the JAX package.
+``run_cropping`` runs in one process."""
 
 from __future__ import annotations
 
+import pickle
 from pathlib import Path
 
 import numpy as np
@@ -73,3 +74,20 @@ def crop_case(data_files: list[str | Path], seg_file: str | Path | None = None):
     properties["size_after_cropping"] = data[0].shape
     seg[seg < -1] = 0
     return data, seg, properties
+
+
+def run_cropping(cases: list[tuple[str, list[str], str | None]],
+                 out_dir: str | Path) -> list[str]:
+    """Crop each (case_id, modality files, seg file) into
+    ``out_dir/<case_id>.npz`` (data and seg stacked, float32) and
+    ``<case_id>.pkl`` (properties), one case after another. Returns the case
+    ids."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for case_id, data_files, seg_file in cases:
+        data, seg, props = crop_case(data_files, seg_file)
+        np.savez_compressed(out_dir / f"{case_id}.npz",
+                            data=np.vstack([data, seg]).astype(np.float32))
+        with open(out_dir / f"{case_id}.pkl", "wb") as f:
+            pickle.dump(props, f)
+    return [case_id for case_id, _, _ in cases]

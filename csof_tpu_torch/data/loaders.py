@@ -1,11 +1,160 @@
-"""Cardiac cine video chunks for SegFlow training (port of the video part of
-``csof_tpu/data/loaders.py``): ED/ES-anchored frame sampling, a centre crop
-and per-frame min-max normalisation, on the host with numpy.
+"""Host data loaders (port of ``csof_tpu/data/loaders.py``), numpy only:
+
+- ``SegPatchLoader``: random patches of preprocessed cases with nnU-Net's
+  foreground oversampling, for the U-Net;
+- ``VideoChunkLoader``: cardiac cine chunks for SegFlow (ED/ES-anchored
+  frame sampling, a centre crop, per-frame min-max normalisation);
+- ``Prefetcher``: a background thread that assembles the next batches while
+  the device runs.
+
+Batches are channels-last numpy arrays, as the JAX package's loaders yield
+them, drawn from one seeded ``np.random.RandomState`` in the same order of
+calls, so that one seed gives the same batches in both packages.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from typing import Iterator
+
 import numpy as np
+
+from csof_tpu_torch.data.dataset import load_case
+
+
+def extract_patches(src: np.ndarray, centers, patch) -> np.ndarray:
+    """src ``(c, *spatial)``; centers ``(n, nd)``; -> ``(n, c, *patch)``
+    float32: the window ``[center - patch // 2, + patch)`` of each center,
+    zero where it leaves the volume. The numpy branch of
+    ``csof_tpu/native/bindings.py`` ``extract_patches_2d`` / ``_3d``, for 2D
+    and 3D alike."""
+    src = np.ascontiguousarray(src, np.float32)
+    patch = [int(p) for p in patch]
+    out = np.zeros((len(centers), src.shape[0], *patch), np.float32)
+    for i, center in enumerate(np.asarray(centers, np.int64)):
+        src_sl, dst_sl = [slice(None)], [slice(None)]
+        for size, c, p in zip(src.shape[1:], center, patch):
+            lo = int(c) - p // 2
+            s0, s1 = max(lo, 0), min(lo + p, size)
+            if s0 >= s1:
+                break
+            src_sl.append(slice(s0, s1))
+            dst_sl.append(slice(s0 - lo, s1 - lo))
+        else:
+            out[i][tuple(dst_sl)] = src[tuple(src_sl)]
+    return out
+
+
+class SegPatchLoader:
+    """Random patch batches from preprocessed cases (``load_dataset``'s
+    dict). Yields {"data": (B, *patch, C) float32, "seg": (B, *patch)
+    int32}. Item i of a batch is centred on a foreground voxel iff
+    ``i >= round(B * (1 - oversample_foreground_percent))``; a 2D loader
+    takes one slice of the volume, chosen by that voxel when it has one."""
+
+    def __init__(self, dataset: dict[str, dict], patch_size, batch_size: int,
+                 oversample_foreground_percent: float = 0.33, num_modalities: int = 1,
+                 seed: int = 0, twod: bool | None = None):
+        self.dataset = dataset
+        self.cases = sorted(dataset)
+        self.patch_size = tuple(patch_size)
+        self.batch_size = batch_size
+        self.oversample = oversample_foreground_percent
+        self.num_modalities = num_modalities
+        self.rng = np.random.RandomState(seed)
+        self.twod = len(self.patch_size) == 2 if twod is None else twod
+
+    def _oversample_this(self, item_idx: int) -> bool:
+        return item_idx >= round(self.batch_size * (1 - self.oversample))
+
+    def _sample_patch(self, data: np.ndarray, props: dict, oversample: bool):
+        """data ``(C + 1, z, y, x)``, seg last -> (patch data, patch seg)."""
+        if self.twod:
+            z = self.rng.randint(data.shape[1])
+            center = None
+            voxel = self._draw_class_voxel(props) if oversample else None
+            if voxel is not None:  # one voxel gives the slice and the centre
+                z, center = voxel[0], voxel[1:]
+            return self._crop_nd(data[:, z], center)
+        voxel = self._draw_class_voxel(props) if oversample else None
+        return self._crop_nd(data, None if voxel is None else voxel[-len(self.patch_size):])
+
+    def _draw_class_voxel(self, props: dict):
+        """A present class drawn uniformly, then one of its stored voxels;
+        None without foreground locations."""
+        locations = props.get("class_locations")
+        if not locations:
+            return None
+        classes = [c for c, locs in locations.items() if len(locs)]
+        if not classes:
+            return None
+        locs = locations[classes[self.rng.randint(len(classes))]]
+        return locs[self.rng.randint(len(locs))]
+
+    def _crop_nd(self, arr: np.ndarray, center=None):
+        if center is None:
+            center = [self.rng.randint(0, max(1, s)) for s in arr.shape[1:]]
+        out = extract_patches(arr, [center], self.patch_size)[0]
+        seg = np.maximum(out[-1], 0)  # the -1 outside the nonzero mask -> background
+        return out[: self.num_modalities], seg.astype(np.int32)
+
+    def __iter__(self) -> Iterator[dict]:
+        return self
+
+    def __next__(self) -> dict:
+        datas, segs = [], []
+        for i in range(self.batch_size):
+            case = self.cases[self.rng.randint(len(self.cases))]
+            data, props = load_case(self.dataset[case])
+            d, s = self._sample_patch(np.asarray(data), props, self._oversample_this(i))
+            datas.append(np.moveaxis(d, 0, -1))
+            segs.append(s)
+        return {"data": np.stack(datas), "seg": np.stack(segs)}
+
+
+class Prefetcher:
+    """Batches of ``loader`` assembled ahead on a background thread, at most
+    ``depth`` waiting. An error in the loader is raised by the next
+    ``next()``. ``close()`` stops the thread."""
+
+    def __init__(self, loader, depth: int = 3):
+        self.loader = loader
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._work, daemon=True)
+        self.thread.start()
+
+    def _work(self):
+        it = iter(self.loader)
+        while not self._stop.is_set():
+            try:
+                item = next(it)
+            except Exception as e:  # handed to the consumer, which raises it
+                item = e
+            # put the same batch until it fits: regenerating it would move the
+            # loader's random stream
+            while not self._stop.is_set():
+                try:
+                    self.q.put(item, timeout=0.5)
+                    break
+                except queue.Full:
+                    continue
+            if isinstance(item, Exception):
+                return
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        item = self.q.get()
+        if isinstance(item, Exception):
+            raise item
+        return item
+
+    def close(self, timeout: float = 5.0) -> None:
+        self._stop.set()
+        self.thread.join(timeout)
 
 
 def minmax_normalize(data: np.ndarray, eps: float = 1e-8) -> np.ndarray:

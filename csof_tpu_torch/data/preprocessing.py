@@ -1,11 +1,15 @@
-"""Preprocessor of one case: crop -> transpose -> resample -> normalize.
+"""Preprocessor: crop -> transpose -> resample -> normalize -> save.
 
-``Preprocessor.run_case`` / ``run_case_from_files`` of
-``csof_tpu/data/preprocessing.py`` (numpy/scipy), carried here so that the
-port never imports the JAX package. The folder-level ``run`` is not carried.
+``Preprocessor`` of ``csof_tpu/data/preprocessing.py`` (numpy/scipy),
+carried here so that the port never imports the JAX package. The
+folder-level ``run`` writes the same ``<case>.npz`` (data and seg stacked,
+float32) and ``<case>.pkl`` (properties) per case, one process only.
 """
 
 from __future__ import annotations
+
+import pickle
+from pathlib import Path
 
 import numpy as np
 
@@ -63,3 +67,25 @@ class Preprocessor:
     def run_case_from_files(self, data_files, seg_file, force_separate_z=None):
         data, seg, properties = crop_case(data_files, seg_file)
         return self.run_case(data, seg, properties, force_separate_z)
+
+    def _one(self, case_id: str, cropped_dir: Path, out_dir: Path) -> str:
+        arr = np.load(cropped_dir / f"{case_id}.npz")["data"]
+        with open(cropped_dir / f"{case_id}.pkl", "rb") as f:
+            properties = pickle.load(f)
+        nmod = self.plans.num_modalities
+        data, seg, properties = self.run_case(arr[:nmod], arr[nmod:], properties)
+        np.savez_compressed(out_dir / f"{case_id}.npz",
+                            data=np.vstack([data, seg]).astype(np.float32))
+        with open(out_dir / f"{case_id}.pkl", "wb") as f:
+            pickle.dump(properties, f)
+        return case_id
+
+    def run(self, cropped_dir: str | Path, out_dir: str | Path) -> list[str]:
+        """Preprocess every cropped case of ``cropped_dir`` (``<case>.npz``
+        with data and seg stacked, ``<case>.pkl`` properties, as
+        ``run_cropping`` writes them) into ``out_dir`` in the same two files,
+        one case after another. Returns the case ids."""
+        cropped_dir, out_dir = Path(cropped_dir), Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        return [self._one(p.stem, cropped_dir, out_dir)
+                for p in sorted(cropped_dir.glob("*.npz"))]

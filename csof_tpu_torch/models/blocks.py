@@ -199,7 +199,8 @@ class ConvNormAct(nn.Module):
 
     - ``conv_impl="pallas"`` (``CSOF_CONV2D_IMPL=pallas``) runs the conv as
       kernel K6 where the JAX package runs its Pallas conv: stride-1 3x3,
-      Co < 128, an input at least 32 wide;
+      Co < 128, an input at least 32 wide; its gradient runs K6 too (dx), as
+      ``Conv3x3Function``;
     - ``fused_norm_act=True`` (``CSOF_FUSED_NORM=1``) runs InstanceNorm +
       LeakyReLU as kernel K5 (GroupNorm blocks ignore it, as in JAX).
     """

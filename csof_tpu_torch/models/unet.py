@@ -89,9 +89,12 @@ class GenericUNet(nn.Module):
         seg_outputs = seg_outputs[::-1]  # full resolution first
         return tuple(seg_outputs) if self.deep_supervision else seg_outputs[0]
 
-    def kernel_launches(self, width: int) -> dict[str, int]:
+    def kernel_launches(self, width: int, backward: bool = False) -> dict[str, int]:
         """K5 and K6 launches of one forward of an input ``width`` pixels
-        wide, counted from the modules without running them."""
+        wide, counted from the modules without running them. With
+        ``backward``, also ``K6_dx``: the K6 launches of the backward, one
+        dx for each K6 conv whose input needs a gradient (every one but a
+        first conv on the data)."""
         n = self.num_pool
         widths = [width]  # per level; level d's first conv has stride pool[d-1]
         for d in range(1, n + 1):
@@ -99,12 +102,14 @@ class GenericUNet(nn.Module):
         stages = [(f"StackedConvs_{d}", widths[max(d - 1, 0)], widths[d]) for d in range(n + 1)]
         stages += [(f"StackedConvs_{n + 1 + u}", widths[n - 1 - u], widths[n - 1 - u])
                    for u in range(n)]
-        k5 = k6 = 0
+        k5 = k6 = dx = 0
         for name, w_in, w_out in stages:
             for i, block in enumerate(getattr(self, name).children()):
                 k5 += block.fused_norm_act
-                k6 += block.uses_k6(w_in if i == 0 else w_out)
-        return {"K5": k5, "K6": k6}
+                uses = block.uses_k6(w_in if i == 0 else w_out)
+                k6 += uses
+                dx += uses and (name, i) != ("StackedConvs_0", 0)
+        return {"K5": k5, "K6": k6, **({"K6_dx": dx} if backward else {})}
 
 
 def unet_from_plans(plans: Plans, stage: int | None = None, deep_supervision: bool = True,

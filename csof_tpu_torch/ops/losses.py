@@ -1,16 +1,18 @@
-"""The SegFlow training losses (port of ``csof_tpu/ops/losses.py``).
+"""The SegFlow and U-Net training losses (port of ``csof_tpu/ops/losses.py``).
 
 Conventions as in the JAX package: logits are channels-last
 ``(N, *spatial, C)``; targets are integer label maps ``(N, *spatial)`` unless
 stated; reductions return scalars. Ported: the soft confusion statistics,
-soft Dice, cross-entropy with an ignore index, the windowed NCC and the
-spatial and temporal flow-smoothness penalties.
+soft Dice, cross-entropy with an ignore index, nnU-Net's Dice + CE and its
+deep-supervision weighting, the windowed NCC and the spatial and temporal
+flow-smoothness penalties.
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -75,6 +77,49 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
         valid = (target != ignore_index).to(logits.dtype)
         return (nll * valid).sum() / valid.sum().clamp_min(1.0)
     return nll.mean()
+
+
+def dice_and_ce_loss(logits: torch.Tensor, target: torch.Tensor, weight_ce: float = 1.0,
+                     weight_dice: float = 1.0, batch_dice: bool = True,
+                     smooth: float = 1e-5) -> torch.Tensor:
+    """nnU-Net's Dice + CE: mean cross-entropy plus batch soft Dice
+    (the 2D recipe's default, smooth 1e-5), channels-last."""
+    return (weight_ce * cross_entropy_loss(logits, target)
+            + weight_dice * soft_dice_loss(logits, target, batch_dice=batch_dice, smooth=smooth))
+
+
+def deep_supervision_weights(num_outputs: int, mask_last: bool = True) -> np.ndarray:
+    """Host weights 1/2^i over the deep-supervision scales, full resolution
+    first, normalized to sum 1; with ``mask_last`` and more than two scales
+    the lowest-resolution scale gets 0."""
+    w = np.array([1 / (2 ** i) for i in range(num_outputs)])
+    if mask_last and num_outputs > 2:
+        w[-1] = 0.0
+    return w / np.sum(w)
+
+
+def deep_supervision_loss(outputs: Sequence[torch.Tensor], targets: Sequence[torch.Tensor],
+                          loss_fn, weights=None) -> torch.Tensor:
+    """Weighted sum of ``loss_fn`` over the scales. The weights are host
+    values and a zero-weight scale is skipped: its head gets no gradient
+    (the optimizer still decays it, as optax does)."""
+    if weights is None:
+        weights = deep_supervision_weights(len(outputs))
+    total = 0.0
+    for wt, o, t in zip(np.asarray(weights), outputs, targets):
+        if float(wt) != 0.0:
+            total = total + float(wt) * loss_fn(o, t)
+    return total
+
+
+def downsample_seg_for_ds(seg: torch.Tensor, pool_kernel_sizes) -> list[torch.Tensor]:
+    """An integer seg map ``(N, *spatial)`` at every deep-supervision scale,
+    by strided slicing with each pool's strides; one map per head (the
+    bottleneck's scale is dropped)."""
+    out = [seg]
+    for strides in pool_kernel_sizes:
+        out.append(out[-1][(slice(None),) + tuple(slice(None, None, s) for s in strides)])
+    return out[:-1]
 
 
 def _box_sum(x: torch.Tensor, window: int) -> torch.Tensor:

@@ -63,12 +63,15 @@ def device_summary(prof, wall_ms: float, what: str) -> tuple[str, str]:
     return summary, table
 
 
-def report(summary: str, table: str) -> None:
-    """Print the summary and the table; also write them to argv[1] if given."""
+def report(summary: str, table: str, path: str | None = None) -> None:
+    """Print the summary and the table; also write them to ``path``, by
+    default argv[1] if given."""
     print(summary)
     print(table)
-    if len(sys.argv) > 1:
-        with open(sys.argv[1], "w") as f:
+    if path is None and len(sys.argv) > 1:
+        path = sys.argv[1]
+    if path:
+        with open(path, "w") as f:
             f.write(summary + "\n" + table + "\n")
 
 

@@ -1,23 +1,40 @@
 #!/usr/bin/env python3
-"""Profile one nnU-Net Task002 2d serving forward of the PyTorch port on a
-CUDA device.
+"""Profile one nnU-Net Task002 2d serving forward, or one training step, of
+the PyTorch port on a CUDA device.
 
     python3 -m csof_tpu_torch.profile_unet [out.txt]
+    python3 -m csof_tpu_torch.profile_unet --train [out.txt]
 
-The forward ``predict_2d_stack`` runs: batch 32 (8 tiles x 4 mirrors) of
-320x256, float32, the full-width U-Net of ``task002_heart_2d`` (2 classes,
-random weights from a seed) with kernels K5 and K6 on (``fused_norm_act``,
-``conv_impl="pallas"``). Prints the device-time table (torch.profiler) and
-the summary line of ``profile_serving``: the forward's host-clock time
-without the profiler (median of 10 after 3 warm-up forwards), the device
-events of one profiled forward, their summed time, the device's busy time
-and the busy share. The summary and the table also go to out.txt.
+Serving: the forward ``predict_2d_stack`` runs, batch 32 (8 tiles x 4
+mirrors) of 320x256, float32, the full-width U-Net of ``task002_heart_2d``
+(2 classes, random weights from a seed) with kernels K5 and K6 on
+(``fused_norm_act``, ``conv_impl="pallas"``).
+
+Training (``--train``): ``Trainer.run_iteration`` of the same U-Net at its
+training batch, 40 of 320x256, float32, SGD-Nesterov + poly, clip 12, K6
+forward and dx on (``CSOF_CONV2D_IMPL=pallas``; K5 has no backward and stays
+off), on a batch drawn from a seed. Besides the table it prints the device
+time of the step's kernels in groups by kernel name (K6 forward, K6 dx,
+cuDNN dgrad and wgrad, other convolutions, elementwise, reductions, the
+optimizer) and the CUDA-event time of the step's phases (forward + loss,
+backward, clip + SGD) in one unprofiled step.
+
+Both print the device-time table (torch.profiler) and the summary line of
+``profile_serving``: the host-clock time without the profiler (median of 10
+after 3 warm-ups), the device events of one profiled run, their summed time,
+the device's busy time and the busy share. The summary and the table also go
+to out.txt.
 """
 
+import os
+import statistics
 import sys
+import tempfile
+import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from csof_tpu_torch.config.plans import task002_heart_2d
@@ -25,13 +42,107 @@ from csof_tpu_torch.models.unet import unet_from_plans
 from csof_tpu_torch.profile_serving import device_summary, forward_ms, report
 
 BATCH, PATCH = 32, (320, 256)
+TRAIN_BATCH = 40
+#: device kernels grouped by the first name fragment they contain
+TRAIN_GROUPS = [
+    ("K6 dx (conv3x3_dx_kernel)", ("conv3x3_dx_kernel",)),
+    ("K6 forward (conv3x3_kernel)", ("conv3x3_kernel",)),
+    ("cuDNN dgrad", ("dgrad",)),
+    ("cuDNN wgrad", ("wgrad",)),
+    ("other convolutions (cuDNN forward, FFT, transposed)",
+     ("fprop", "fft", "convolve", "conv", "gemm", "xmma")),
+    ("optimizer (multi-tensor apply)", ("multi_tensor", "foreach")),
+    ("reductions (norm statistics, loss, clip norm)", ("reduce",)),
+    ("elementwise (norms, LeakyReLU, loss, casts)", ("elementwise", "vectorized", "unrolled")),
+]
+
+
+def grouped_device_time(prof) -> list[tuple[str, float, int]]:
+    """(group, ms, kernels) of the profile's device kernels by TRAIN_GROUPS,
+    the rest as "other"."""
+    sums = {name: [0.0, 0] for name, _ in TRAIN_GROUPS}
+    sums["other"] = [0.0, 0]
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
+            continue
+        group = next((name for name, keys in TRAIN_GROUPS if any(k in e.name for k in keys)),
+                     "other")
+        sums[group][0] += e.time_range.elapsed_us() / 1e3
+        sums[group][1] += 1
+    return [(name, ms, n) for name, (ms, n) in sums.items()]
+
+
+def phase_ms(trainer, batch) -> dict[str, float]:
+    """CUDA-event time of the phases of one train step, as run_iteration
+    runs them."""
+    names = ("forward + loss", "backward", "clip + SGD")
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+    b = trainer._to_device(batch)
+    ev[0].record()
+    loss, _ = trainer.loss_fn(trainer.model, b)
+    ev[1].record()
+    trainer.optimizer.zero_grad()
+    loss.backward()
+    ev[2].record()
+    trainer.optimizer.step()
+    ev[3].record()
+    torch.cuda.synchronize()
+    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
+
+
+def train_main(out_path) -> int:
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig, OptimConfig
+    from csof_tpu_torch.training.trainer import Trainer
+
+    os.environ["CSOF_CONV2D_IMPL"] = "pallas"
+    os.environ.pop("CSOF_FUSED_NORM", None)
+    config = ExperimentConfig(model="unet2d", optim=OptimConfig(
+        optimizer="sgd", scheduler="poly", initial_lr=1e-2, weight_decay=3e-5),
+        data=DataConfig(do_data_aug=False))
+    rng = np.random.RandomState(0)
+    seg = np.zeros((TRAIN_BATCH, *PATCH), np.int32)
+    seg[:, 100:200, 80:170] = 1
+    batch = {"data": (rng.randn(TRAIN_BATCH, *PATCH, 1) + seg[..., None]).astype(np.float32),
+             "seg": seg}
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = Trainer(config, tmp, plans=task002_heart_2d(), device="cuda").initialize()
+        for _ in range(3):
+            trainer.run_iteration(batch)
+        times = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.run_iteration(batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        phases = phase_ms(trainer, batch)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            trainer.run_iteration(batch)
+            torch.cuda.synchronize()
+    wall = statistics.median(times)
+    summary, table = device_summary(prof, wall, "train step")
+    groups = grouped_device_time(prof)
+    lines = [f"{summary}; {TRAIN_BATCH / wall * 1e3:.2f} train slices/s unprofiled "
+             f"({torch.cuda.get_device_name(0)})",
+             "device time by kernel group (ms, kernels): "
+             + "; ".join(f"{name} {ms:.3f} ({n})" for name, ms, n in groups),
+             "CUDA-event phases of one unprofiled step (ms): "
+             + "; ".join(f"{k} {v:.3f}" for k, v in phases.items())]
+    report("\n".join(lines), table, out_path)
+    return 0
 
 
 def main() -> int:
+    args = sys.argv[1:]
+    train = "--train" in args
+    args = [a for a in args if a != "--train"]
+    out_path = args[0] if args else None
     if not torch.cuda.is_available():
         print("profile_unet: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
+    if train:
+        return train_main(out_path)
     net = unet_from_plans(task002_heart_2d(), fused_norm_act=True, conv_impl="pallas",
                           generator=torch.Generator().manual_seed(0)).cuda().eval()
     x = torch.from_numpy(np.random.RandomState(0).randn(BATCH, 1, *PATCH)
@@ -44,7 +155,7 @@ def main() -> int:
             net(x)
             torch.cuda.synchronize()
     summary, table = device_summary(prof, wall, "forward")
-    report(f"{summary} ({torch.cuda.get_device_name(0)})", table)
+    report(f"{summary} ({torch.cuda.get_device_name(0)})", table, out_path)
     return 0
 
 

@@ -6,6 +6,8 @@ reproduces the JAX package's optax chain: clip by global norm, then AdamW
 (optax.adamw: b1 0.9, b2 0.999, eps 1e-8, decoupled decay on every
 parameter) or SGD with Nesterov momentum behind ``add_decayed_weights``, with
 the learning rate read at the count before each update, as optax reads it.
+Every parameter is updated at every step, with a zero gradient where
+autograd gave none, as optax updates every leaf.
 """
 
 from __future__ import annotations
@@ -84,7 +86,13 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        # a parameter without a gradient (a zero-weight deep-supervision
+        # head) takes a zero one: optax still decays it and moves its
+        # momentum, where torch's optimizers would skip it
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         clip_by_global_norm_(grads, self.cfg.grad_clip_norm)
         for group in self.inner.param_groups:
             group["lr"] = self.schedule(self.count)

@@ -1,19 +1,26 @@
-"""SegFlow training: the loss, the train step and the epoch loop (port of
-``csof_tpu/training/trainer.py`` for ``model="segflow"``).
+"""Training: the losses, the train step and the epoch loop (port of
+``csof_tpu/training/trainer.py`` for ``model="segflow"`` and
+``model="unet2d"``).
 
-One step is: batch to the device, the batched SegFlow forward, the loss of
-each video (means over the batch of per-video losses, as the JAX package's
-``vmap`` gives), backward (K1 forward, K2 backward in every skip fuse on
-CUDA tensors), clip by global norm, AdamW under the warm-up cosine schedule.
-The epoch loop keeps the JAX trainer's best-criterion EMA, patience and
-checkpoint cadence. Not ported: the other model kinds,
-augmentation, deep supervision, rematerialisation, sharding over a mesh,
-compile-draw autotuning, TensorBoard and progress plots.
+A SegFlow step is: batch to the device, the batched SegFlow forward, the
+loss of each video (means over the batch of per-video losses, as the JAX
+package's ``vmap`` gives), backward (K1 forward, K2 backward in every skip
+fuse on CUDA tensors), clip by global norm, AdamW under the warm-up cosine
+schedule. A U-Net step is nnU-Net's 2D recipe: the channels-last patch batch
+moved to NCHW on the device, the deep-supervision Dice + CE over the heads,
+backward (K6 forward and dx where ``CSOF_CONV2D_IMPL=pallas`` routes a conv
+to it), clip 12, SGD with Nesterov momentum under the poly schedule; the
+validation batches' Dice statistics give the online foreground Dice. The
+epoch loop keeps the JAX trainer's best-criterion EMA, patience and
+checkpoint cadence. Not ported: the other model kinds, augmentation, SegFlow
+deep supervision, rematerialisation, sharding over a mesh, compile-draw
+autotuning, TensorBoard and progress plots.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -24,32 +31,80 @@ import torch
 
 from csof_tpu_torch.config.experiment import ExperimentConfig
 from csof_tpu_torch.models.segflow import SegFlow
+from csof_tpu_torch.models.unet import GenericUNet, unet_from_plans
 from csof_tpu_torch.ops import losses as L
 from csof_tpu_torch.ops.warp import warp_image_cm
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.schedules import build_optimizer
 
 TRAINED_CORR_FUSE = ("concat", "concat_cm")
+TRAINED_KINDS = ("segflow", "unet2d")
 
 
 def build_model(config: ExperimentConfig, num_classes: int | None = None,
-                generator: torch.Generator | None = None) -> SegFlow:
-    """The model of ``config``; only ``segflow`` is ported."""
-    if config.model != "segflow":
-        raise NotImplementedError(f"model {config.model!r} is not ported (ported: segflow)")
-    return SegFlow(config.segflow, num_classes or 4, generator=generator)
+                generator: torch.Generator | None = None, plans=None) -> torch.nn.Module:
+    """The model of ``config``: SegFlow, or the 2D U-Net of ``plans`` (without
+    plans the JAX package's default: base 16, 4 (2, 2) pools). The U-Net's
+    kernel switches are read from the environment as the JAX package reads
+    them (``CSOF_CONV2D_IMPL``, ``CSOF_FUSED_NORM``)."""
+    kind = config.model
+    if kind == "segflow":
+        return SegFlow(config.segflow, num_classes or 4, generator=generator)
+    if kind == "unet2d":
+        if plans is not None:
+            return unet_from_plans(plans, deep_supervision=config.deep_supervision,
+                                   generator=generator)
+        return GenericUNet(num_classes=num_classes or 4, base_num_features=16,
+                           pool_kernel_sizes=((2, 2),) * 4, conv_kernel_sizes=((3, 3),) * 5,
+                           deep_supervision=config.deep_supervision,
+                           fused_norm_act=os.environ.get("CSOF_FUSED_NORM", "0") == "1",
+                           conv_impl=os.environ.get("CSOF_CONV2D_IMPL", "native"),
+                           generator=generator)
+    raise NotImplementedError(f"model {kind!r} is not ported (ported: {TRAINED_KINDS})")
 
 
 def _check_trainable(config: ExperimentConfig) -> None:
-    cfg = config.segflow
-    if cfg.corr_fuse not in TRAINED_CORR_FUSE:
-        raise NotImplementedError(f"training with corr_fuse={cfg.corr_fuse!r} is not ported "
-                                  f"(ported: {TRAINED_CORR_FUSE})")
-    if cfg.remat:
-        raise NotImplementedError("training with remat is not ported")
+    if config.model not in TRAINED_KINDS:
+        raise NotImplementedError(f"training model {config.model!r} is not ported "
+                                  f"(ported: {TRAINED_KINDS})")
     if config.data.do_data_aug:
         raise NotImplementedError("augmentation not ported (ROADMAP item 11): set "
                                   "config.data.do_data_aug=False")
+    if config.model == "segflow":
+        cfg = config.segflow
+        if cfg.corr_fuse not in TRAINED_CORR_FUSE:
+            raise NotImplementedError(f"training with corr_fuse={cfg.corr_fuse!r} is not ported "
+                                      f"(ported: {TRAINED_CORR_FUSE})")
+        if cfg.remat:
+            raise NotImplementedError("training with remat is not ported")
+    elif os.environ.get("CSOF_FUSED_NORM", "0") == "1":
+        raise NotImplementedError(
+            "CSOF_FUSED_NORM=1 (fused_norm_act) runs kernel K5, which has no backward: the "
+            "JAX package uses it for 2D inference only. Unset it to train the U-Net.")
+
+
+def make_seg_loss(config: ExperimentConfig):
+    """loss_fn(model, batch) -> (loss, {"tp", "fp", "fn"}) of the U-Net:
+    the deep-supervision Dice + CE over the heads against the seg map
+    downsampled to each head's scale, and the soft Dice statistics of the
+    full-resolution head summed over the batch (per class). batch: "data"
+    (B, C, H, W) float32 and "seg" (B, H, W) int, on the model's device.
+    The JAX loss fences the heads with an XLA scheduling barrier
+    (``fence_outputs``); it computes the identity and has no counterpart
+    here."""
+
+    def loss_fn(model: torch.nn.Module, batch: dict):
+        outs = model(batch["data"])
+        if not isinstance(outs, tuple):
+            outs = (outs,)
+        outs = [o.movedim(1, -1) for o in outs]  # channels last at the loss boundary
+        seg = batch["seg"]
+        targets = L.downsample_seg_for_ds(seg, model.pool_kernel_sizes)[: len(outs)]
+        loss = L.deep_supervision_loss(outs, targets, L.dice_and_ce_loss)
+        tp, fp, fn, _ = L.get_tp_fp_fn_tn(torch.softmax(outs[0], -1), seg)
+        return loss, {"tp": tp.sum(0), "fp": fp.sum(0), "fn": fn.sum(0)}
+
+    return loss_fn
 
 
 def make_segflow_loss(config: ExperimentConfig):
@@ -114,6 +169,15 @@ def make_segflow_loss(config: ExperimentConfig):
     return loss_fn
 
 
+def make_loss_fn(config: ExperimentConfig):
+    """The loss of ``config.model``: loss_fn(model, batch) -> (loss, aux)."""
+    if config.model == "unet2d":
+        return make_seg_loss(config)
+    if config.model == "segflow":
+        return make_segflow_loss(config)
+    raise NotImplementedError(f"the loss of model {config.model!r} is not ported")
+
+
 @dataclass
 class TrainerHistory:
     train_losses: list = field(default_factory=list)
@@ -137,9 +201,12 @@ class _TrainingLog:
 
 
 class Trainer:
-    """Config-driven SegFlow trainer on one device (``"cuda"`` unless told
-    otherwise). ``train_iter`` / ``val_iter`` yield host (numpy) batch dicts
-    with a leading batch axis, as :class:`csof_tpu_torch.data.loaders.VideoChunkLoader`."""
+    """Config-driven trainer of SegFlow or the 2D U-Net on one device
+    (``"cuda"`` unless told otherwise). ``train_iter`` / ``val_iter`` yield
+    host (numpy) batch dicts with a leading batch axis, as
+    :class:`csof_tpu_torch.data.loaders.VideoChunkLoader` and
+    :class:`csof_tpu_torch.data.loaders.SegPatchLoader` do. ``plans`` builds
+    the U-Net of a plans file."""
 
     # EMA / patience constants of the JAX trainer
     val_eval_criterion_alpha = 0.9
@@ -149,27 +216,28 @@ class Trainer:
     #: raise on a non-finite loss
     nan_guard: bool = True
 
-    def __init__(self, config: ExperimentConfig, output_folder: str | Path,
+    def __init__(self, config: ExperimentConfig, output_folder: str | Path, plans=None,
                  num_classes: int | None = None, device: torch.device | str = "cuda"):
         _check_trainable(config)
         self.config = config
         self.output_folder = Path(output_folder)
         self.output_folder.mkdir(parents=True, exist_ok=True)
+        self.plans = plans
         self.num_classes = num_classes
         self.device = torch.device(device)
-        self.loss_fn = make_segflow_loss(config)
+        self.loss_fn = make_loss_fn(config)
         self.history = TrainerHistory()
         self.epoch = 0
-        self.model: SegFlow | None = None
+        self.model: torch.nn.Module | None = None
         self.optimizer = None
 
     @property
     def total_steps(self) -> int:
         return self.config.max_num_epochs * self.config.num_batches_per_epoch
 
-    def _new_model(self, seed: int) -> SegFlow:
+    def _new_model(self, seed: int) -> torch.nn.Module:
         gen = torch.Generator().manual_seed(seed)
-        return build_model(self.config, self.num_classes, gen).to(self.device)
+        return build_model(self.config, self.num_classes, gen, self.plans).to(self.device)
 
     def initialize(self, example_batch: dict | None = None):
         """Draw the weights from ``config.seed`` and build the optimizer. The
@@ -181,8 +249,15 @@ class Trainer:
         return self
 
     def _to_device(self, batch: dict) -> dict:
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items() if v is not None}
+        out = {}
+        for k, v in batch.items():
+            if v is None:
+                continue
+            t = torch.as_tensor(v).to(self.device, non_blocking=True)
+            if k == "data" and self.config.model == "unet2d":
+                t = t.movedim(-1, 1).contiguous()  # channels-last patches -> NCHW
+            out[k] = t
+        return out
 
     def run_iteration(self, batch: dict, train: bool = True):
         """One train step (or a loss evaluation); returns (loss, metrics)."""
@@ -205,6 +280,22 @@ class Trainer:
             raise FloatingPointError(f"non-finite loss {loss} at epoch {self.epoch}: check data/LR")
         return loss, aux
 
+    def _validate(self, val_iter: Iterator[dict]) -> None:
+        """Mean validation loss, and the foreground Dice of the summed
+        tp/fp/fn where the loss reports them (the U-Net's)."""
+        losses, stats = [], None
+        for _ in range(self.config.num_val_batches_per_epoch):
+            loss, aux = self.run_iteration(next(val_iter), train=False)
+            losses.append(loss)
+            if "tp" in aux:
+                s = tuple(aux[k].cpu().numpy() for k in ("tp", "fp", "fn"))
+                stats = s if stats is None else tuple(a + b for a, b in zip(stats, s))
+        self.history.val_losses.append(float(np.mean(losses)))
+        if stats is not None:
+            tp, fp, fn = (a[1:] for a in stats)
+            fg_dice = (2 * tp / np.maximum(2 * tp + fp + fn, 1e-8)).mean()
+            self.history.eval_metrics.append(float(fg_dice))
+
     def run_training(self, train_iter: Iterator[dict], val_iter: Iterator[dict] | None = None,
                      max_epochs: int | None = None,
                      log_fn: Callable[[str], None] | None = None) -> TrainerHistory:
@@ -222,9 +313,7 @@ class Trainer:
                          for _ in range(cfg.num_batches_per_epoch)]
             self.history.train_losses.append(float(np.mean(ep_losses)))
             if val_iter is not None:
-                v_losses = [self.run_iteration(next(val_iter), train=False)[0]
-                            for _ in range(cfg.num_val_batches_per_epoch)]
-                self.history.val_losses.append(float(np.mean(v_losses)))
+                self._validate(val_iter)
             self.history.epoch_times.append(time.time() - t0)
             self.epoch += 1
             self._maybe_momentum_rescue(log_fn)
@@ -238,9 +327,11 @@ class Trainer:
                 self.save_checkpoint(ckpt.BEST)
             if self.epoch % self.checkpoint_every == 0:
                 self.save_checkpoint(ckpt.LATEST)
-            log_fn(f"epoch {self.epoch}: train {self.history.train_losses[-1]:.4f}"
-                   + (f" val {self.history.val_losses[-1]:.4f}" if self.history.val_losses else "")
-                   + f" ({self.history.epoch_times[-1]:.1f}s)")
+            hist = self.history
+            log_fn(f"epoch {self.epoch}: train {hist.train_losses[-1]:.4f}"
+                   + (f" val {hist.val_losses[-1]:.4f}" if hist.val_losses else "")
+                   + (f" fg-dice {hist.eval_metrics[-1]:.4f}" if hist.eval_metrics else "")
+                   + f" ({hist.epoch_times[-1]:.1f}s)")
             if self.epoch - best_epoch > self.patience:
                 log_fn(f"early stop: no improvement for {self.patience} epochs")
                 break
@@ -248,17 +339,19 @@ class Trainer:
         return self.history
 
     def _maybe_momentum_rescue(self, log_fn=print) -> bool:
-        """The SGD recipe's rescue: if the online foreground dice is still 0
-        once ``optim.momentum_rescue_epoch`` epochs are done, drop the
-        momentum to ``optim.momentum_rescue_value`` and draw the weights
-        anew (seed + epoch); the optimizer restarts with fresh buffers at the
-        same schedule position. It compares ``self.epoch`` as the JAX trainer
-        does, which fires one epoch before nnU-Net's recipe (ROADMAP fault
-        F5, left to the slice that ports a loss reporting dice). The SegFlow
-        loss reports no dice statistics, so for it the rescue never fires."""
+        """nnU-Net's SGD rescue: if the online foreground dice is still 0
+        when the epoch numbered ``optim.momentum_rescue_epoch`` from zero has
+        finished (``self.epoch``, the count of finished epochs, is one more),
+        drop the momentum to ``optim.momentum_rescue_value`` and draw the
+        weights anew (seed + epoch); the optimizer restarts with fresh
+        buffers at the same schedule position. nnUNetTrainerV2.on_epoch_end
+        compares its epoch counter before run_training increments it, so it
+        fires after 101 finished epochs at the default 100; the JAX trainer
+        compares after the increment and fires one epoch earlier (ROADMAP
+        fault F5). The port follows nnU-Net."""
         ocfg = self.config.optim
         if (ocfg.optimizer != "sgd" or ocfg.momentum_rescue_epoch <= 0
-                or self.epoch != ocfg.momentum_rescue_epoch
+                or self.epoch != ocfg.momentum_rescue_epoch + 1
                 or not self.history.eval_metrics or self.history.eval_metrics[-1] != 0):
             return False
         new_optim = dataclasses.replace(ocfg, sgd_momentum=ocfg.momentum_rescue_value)
@@ -267,9 +360,9 @@ class Trainer:
         self.model.load_state_dict(self._new_model(self.config.seed + self.epoch).state_dict())
         self.optimizer = build_optimizer(new_optim, self.total_steps, self.model.parameters())
         self.optimizer.count = count
-        log_fn(f"at epoch {self.epoch} the mean foreground Dice was 0: SGD momentum reduced "
-               f"{ocfg.sgd_momentum} -> {ocfg.momentum_rescue_value} and network weights "
-               "reinitialized")
+        log_fn(f"after epoch {self.epoch - 1} (numbered from 0) the mean foreground Dice was "
+               f"0: SGD momentum reduced {ocfg.sgd_momentum} -> {ocfg.momentum_rescue_value} "
+               "and network weights reinitialized")
         return True
 
     def save_checkpoint(self, name: str = ckpt.LATEST):

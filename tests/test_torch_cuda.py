@@ -40,7 +40,8 @@ def _inputs(device, dtype, c, h, w, seed=0):
 
 
 def _close(got, ref, tol):
-    np.testing.assert_allclose(got.float().cpu().numpy(), ref.float().cpu().numpy(),
+    np.testing.assert_allclose(got.detach().float().cpu().numpy(),
+                               ref.detach().float().cpu().numpy(),
                                atol=tol[0], rtol=tol[1])
 
 
@@ -263,6 +264,95 @@ def test_small_segflow_training_gradients_on_the_card_match_the_cpu(cuda):
     np.testing.assert_allclose(loss_gpu.item(), loss_cpu.item(), rtol=1e-5)
     ref = dict(cpu.named_parameters())
     for name, p in gpu.named_parameters():
+        r = ref[name].grad.numpy()
+        np.testing.assert_allclose(p.grad.cpu().numpy(), r, rtol=0,
+                                   atol=2e-3 * float(np.abs(r).max()) + 1e-6, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,ci,co,h,w", [
+    (2, 32, 32, 64, 64), (2, 64, 32, 40, 48), (1, 64, 128, 32, 40), (3, 13, 40, 17, 23),
+])
+def test_conv3x3_backward_kernel_matches_plain(cuda, n, ci, co, h, w, dtype):
+    """Conv3x3Function's gradients on the card: dx by K6 on the flipped
+    weight against the plain dx formula (float32: against autograd of the
+    plain forward too); dw and db as the plain version computes them."""
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.randn(n, ci, h, w).astype(np.float32)).to(cuda, dtype)
+    wt = torch.from_numpy((rng.randn(co, ci, 3, 3) * np.sqrt(2 / (9 * ci))).astype(np.float32))
+    wt, b = wt.to(cuda), torch.from_numpy(0.1 * rng.randn(co).astype(np.float32)).to(cuda)
+    dy = torch.from_numpy(rng.randn(n, co, h, w).astype(np.float32)).to(cuda, dtype)
+    x.requires_grad_(True)
+    wt.requires_grad_(True)
+    b.requires_grad_(True)
+    before = (k6.launches, k6.bwd_launches)
+    got = torch.autograd.grad(k6.Conv3x3Function.apply(x, wt, b, False), (x, wt, b), dy)
+    torch.cuda.synchronize()
+    assert (k6.launches, k6.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
+    _close(got[0], k6.conv3x3_dx_plain(dy, wt.detach()), CONV_TOL[dtype])
+    if dtype == torch.float32:
+        ref = torch.autograd.grad(k6.conv3x3_plain(x, wt, b), (x, wt, b), dy)
+        for a, r in zip(got, ref):
+            _close(a, r, (1e-4 * float(r.abs().max()), 1e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,window", [(20, 128, 128, 9), (3, 33, 70, 9), (2, 17, 9, 5),
+                                          (1, 40, 41, 15)])
+def test_ncc_kernel_matches_plain(cuda, n, h, w, window):
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    rng = np.random.RandomState(8)
+    i = rng.rand(n, h, w).astype(np.float32)
+    i[:, : h // 3, : w // 3] = 0.4  # a constant region
+    j = (0.7 * i + 0.3 * rng.rand(n, h, w)).astype(np.float32)
+    i, j = torch.from_numpy(i).to(cuda), torch.from_numpy(j).to(cuda)
+    before = k4.launches
+    got = k4.ncc_map_cuda(i, j, window)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1 and bool(torch.isfinite(got).all())
+    _close(got, k4.ncc_map_plain(i, j, window), (1e-4, 0))
+
+
+@pytest.mark.cuda
+def test_small_unet_train_step_on_the_card_matches_the_cpu(cuda):
+    """The U-Net training loss, Dice statistics and every parameter
+    gradient, float32, conv_impl="pallas": K6 forward and dx on the card
+    against their plain versions on the CPU."""
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
+    from csof_tpu_torch.models.unet import GenericUNet
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.training.trainer import make_seg_loss
+
+    kw = dict(num_classes=3, base_num_features=8, pool_kernel_sizes=((2, 2),) * 3,
+              conv_kernel_sizes=((3, 3),) * 4, conv_impl="pallas")
+    cpu = GenericUNet(generator=torch.Generator().manual_seed(0), **kw)
+    gpu = GenericUNet(**kw).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(9)
+    batch = {"data": torch.from_numpy(rng.randn(2, 1, 64, 64).astype(np.float32)),
+             "seg": torch.from_numpy(rng.randint(0, 3, (2, 64, 64)).astype(np.int32))}
+    loss_fn = make_seg_loss(ExperimentConfig(model="unet2d", data=DataConfig(do_data_aug=False)))
+    k6.launches = k6.bwd_launches = 0
+    loss_gpu, aux_gpu = loss_fn(gpu, {k: v.to(cuda) for k, v in batch.items()})
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    counts = gpu.kernel_launches(64, backward=True)
+    assert (k6.launches, k6.bwd_launches) == (counts["K6"], counts["K6_dx"]) == (7, 6)
+    loss_cpu, aux_cpu = loss_fn(cpu, batch)
+    loss_cpu.backward()
+    np.testing.assert_allclose(loss_gpu.item(), loss_cpu.item(), rtol=1e-5)
+    for k in ("tp", "fp", "fn"):
+        _close(aux_gpu[k], aux_cpu[k], (1e-3, 1e-5))
+    ref = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        if ref[name].grad is None:  # the zero-weight head
+            assert p.grad is None, name
+            continue
         r = ref[name].grad.numpy()
         np.testing.assert_allclose(p.grad.cpu().numpy(), r, rtol=0,
                                    atol=2e-3 * float(np.abs(r).max()) + 1e-6, err_msg=name)

@@ -506,7 +506,7 @@ def test_trainer_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path):
         with pytest.raises(NotImplementedError, match="not ported"):
             trainer.Trainer(cfg, tmp_path, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.build_model(dataclasses.replace(_torch_config(), model="unet2d"))
+        trainer.build_model(dataclasses.replace(_torch_config(), model="unet3d"))
 
 
 def test_nan_guard_raises_on_a_non_finite_loss(tmp_path):
@@ -519,24 +519,26 @@ def test_nan_guard_raises_on_a_non_finite_loss(tmp_path):
 
 def test_momentum_rescue_fires_after_the_epoch_numbered_from_zero(tmp_path):
     """SGD rescue: weights drawn anew, momentum lowered, schedule position
-    kept, after the epoch numbered momentum_rescue_epoch - 1 from zero
-    (self.epoch == momentum_rescue_epoch), as in the JAX trainer: fault F5
-    is mirrored, not repaired."""
+    kept, once the epoch numbered momentum_rescue_epoch from zero has
+    finished (self.epoch == momentum_rescue_epoch + 1 epochs done), as
+    nnU-Net's on_epoch_end fires: fault F5 repaired on the port's side (the
+    JAX trainer fires one epoch earlier; tests/test_torch_unet_train.py
+    shows both)."""
     config = _torch_config(optimizer="sgd", momentum_rescue_epoch=2)
     tr = trainer.Trainer(config, tmp_path, device="cpu").initialize()
     tr.optimizer.count = 7
     tr.history.eval_metrics = [0.0]
     weights = {k: v.clone() for k, v in tr.model.state_dict().items()}
-    for epoch in (1, 3):
+    for epoch in (1, 2, 4):
         tr.epoch = epoch
         assert not tr._maybe_momentum_rescue(log_fn=lambda m: None)
-    tr.epoch = 2
+    tr.epoch = 3
     tr.history.eval_metrics = [0.5]
     assert not tr._maybe_momentum_rescue(log_fn=lambda m: None)
     tr.history.eval_metrics = [0.0]
     assert tr._maybe_momentum_rescue(log_fn=lambda m: None)
     assert tr.config.optim.sgd_momentum == 0.95 and tr.optimizer.count == 7
     assert tr.optimizer.inner.param_groups[0]["momentum"] == 0.95
-    fresh = trainer.build_model(config, 4, torch.Generator().manual_seed(config.seed + 2))
+    fresh = trainer.build_model(config, 4, torch.Generator().manual_seed(config.seed + 3))
     assert all(torch.equal(v, fresh.state_dict()[k]) for k, v in tr.model.state_dict().items())
     assert any(not torch.equal(v, weights[k]) for k, v in tr.model.state_dict().items())

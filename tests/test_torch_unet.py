@@ -300,16 +300,20 @@ def test_conv3x3_plain_matches_the_pallas_kernel(n, ci, co, h, w, out_f32, dtype
 
 
 def test_kernel_wrappers_are_forward_only_and_use_plain_versions_on_the_cpu():
+    """K5 stays forward-only (its TPU kernel has no VJP); K6 takes gradients
+    since its backward is ported (Conv3x3Function). On CPU tensors both run
+    their plain versions and count no launch."""
     x = torch.randn(1, 4, 8, 8, requires_grad=True)
     with pytest.raises(RuntimeError, match="forward-only"):
-        k6.conv3x3(x, torch.randn(4, 4, 3, 3))
-    with pytest.raises(RuntimeError, match="forward-only"):
         k5.instance_norm_leaky_relu(x, torch.ones(4), torch.zeros(4))
-    k5.launches = k6.launches = 0
+    k5.launches = k6.launches = k6.bwd_launches = 0
+    w = torch.randn(4, 4, 3, 3, requires_grad=True)
+    y = k6.conv3x3(x, w, torch.zeros(4))
+    y.sum().backward()
+    assert x.grad is not None and w.grad is not None
     with torch.no_grad():
-        y = k6.conv3x3(x, torch.randn(4, 4, 3, 3), torch.zeros(4))
-        k5.instance_norm_leaky_relu(y, torch.ones(4), torch.zeros(4))
-    assert k5.launches == k6.launches == 0
+        k5.instance_norm_leaky_relu(k6.conv3x3(x, w), torch.ones(4), torch.zeros(4))
+    assert k5.launches == k6.launches == k6.bwd_launches == 0
 
 
 # -- the U-Net --------------------------------------------------------------
