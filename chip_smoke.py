@@ -10,7 +10,9 @@ Phases, each printed on its own line:
    float32 checks. Without a CUDA device the script exits non-zero.
 2. build: compile the CUDA kernels (K1 corr, K2 corr backward, K3 skip fuse,
    K4 NCC map, K5 norm + activation, K6 3x3 conv) from csof_tpu_torch/csrc,
-   one nvcc per source, all started together.
+   one nvcc per source, all started together; then count the tensor-core
+   instructions (HGMMA) of K6's forward and dx in the library's SASS
+   (csof_tpu_torch/sass_census.py): each must have some.
 3. kernels: each kernel against its plain PyTorch version at the three
    SegFlow level geometries (K1, K3: B=8; K2: the training batch, B=4;
    radius 4) and two ragged shapes, in float32 and bfloat16, with the median
@@ -27,10 +29,12 @@ Phases, each printed on its own line:
 7. train, 8. train parity: 14 steps of Trainer.run_training at full width,
    and the float32 loss and gradients GPU vs CPU.
 9. unet kernels: K5 and K6 against their plain versions at every distinct
-   shape of one Task002 2d U-Net forward (batch 32) and two ragged shapes, in
-   float32 and bfloat16, with the median time of kernel, plain version and
-   library call (K6: F.conv2d; K5: F.instance_norm + F.leaky_relu, a
-   two-call note).
+   shape of one Task002 2d U-Net forward (batch 32) and ragged shapes (K6:
+   across every tile edge of its tensor-core tiling, with and without bias,
+   out_f32 on bf16), in float32 and bfloat16, with the median time of
+   kernel, plain version and library call (K6: F.conv2d; K5:
+   F.instance_norm + F.leaky_relu, a two-call note); K6's bound as 3xTF32
+   (float32) and bf16 on the tensor cores, the FP32-core bound as a note.
 10. unet serving: the full-width Task002 2d U-Net (2 classes, float32,
    random weights, both kernel switches on) serves 2 synthetic cases
    (1, 40, 320, 320) at 1.25 mm in plane through predict_case; outputs
@@ -42,8 +46,9 @@ Phases, each printed on its own line:
 13. unet train kernels: K6's backward (Conv3x3Function: dx by K6 on the
    flipped weight, dw and db by the library) against autograd of the plain
    version at the 4 distinct dx shapes of a Task002 2d training step (batch
-   40) and two ragged shapes, float32 and bfloat16; the dx time beside the
-   plain version's and cuDNN's dgrad (torch.nn.grad.conv2d_input).
+   40) and ragged shapes across the tile edges, float32 and bfloat16; the
+   dx time beside the plain version's and cuDNN's dgrad
+   (torch.nn.grad.conv2d_input) and the bounds.
 14. unet train: 4 synthetic Task002-like cases (1, 40, 320, 320) through
    run_cropping -> Preprocessor.run -> unpack_dataset -> load_dataset ->
    do_split -> SegPatchLoader, then Trainer.run_training of the full-width
@@ -108,13 +113,21 @@ UNET_TOL = {
     ("K6", "float32"): (1e-4, 1e-4),
     ("K6", "bfloat16"): (2e-2, 1e-2),
 }
-#: ragged shapes beside the served ones: K5 (N, C, H, W), K6 (N, Ci, Co, H, W)
+#: ragged shapes beside the served ones: K5 (N, C, H, W), K6 (N, Ci, Co, H,
+#: W, bias, out_f32 on bf16): Ci 1, 13, 130 (not a multiple of the k step,
+#: more than one chunk), Co 5, 40, 128, 130 (more than one block), W 1, 23,
+#: 65, 70, 129 across the 64-pixel tiles, H 1 and 17
 K5_RAGGED = [(3, 7, 33, 129), (5, 3, 17, 9)]
-K6_RAGGED = [(3, 13, 40, 17, 23), (2, 1, 5, 9, 70)]
+K6_RAGGED = [(3, 13, 40, 17, 23, True, False), (2, 1, 5, 9, 70, True, False),
+             (2, 130, 130, 17, 129, True, False), (2, 1, 128, 1, 65, False, False),
+             (3, 13, 5, 17, 1, True, True), (2, 130, 40, 1, 70, False, True),
+             (2, 1, 130, 17, 23, False, False)]
 UNET_CASES, UNET_DEPTH, UNET_HW, UNET_SPACING = 2, 40, (320, 320), 1.25
 UNET_TILE_BATCH = 8  # PredictorConfig's default, which predict_case serves with
-#: K6's backward beside the training dx shapes: forward convs (N, Ci, Co, H, W)
-K6_BWD_RAGGED = [(3, 13, 40, 17, 23), (2, 5, 9, 9, 70)]
+#: K6's backward beside the training dx shapes: forward convs (N, Ci, Co, H,
+#: W), whose dx conv is (Co, Ci): Ci' 1, 13, 130 and Co' 5, 40, 128, 130
+K6_BWD_RAGGED = [(3, 13, 40, 17, 23), (2, 5, 9, 9, 70), (2, 130, 1, 17, 65),
+                 (1, 128, 130, 1, 129), (2, 40, 13, 17, 1), (2, 5, 130, 1, 70)]
 #: dx, dw, db (atol as a fraction of max|ref|, rtol): the same sums in another
 #: order (float32); bf16: dx rounds once as the plain version, dw is rounded
 #: to bf16 as the JAX VJP rounds it where autograd of the plain version is not
@@ -542,6 +555,7 @@ def check_unet_kernels(card: str) -> dict:
         UNET_K5_SHAPES,
         UNET_K6_SHAPES,
         bound_ms,
+        fp32_cores_note,
         unet_forward_work,
     )
     from csof_tpu_torch.ops.kernels import conv as k6
@@ -576,18 +590,22 @@ def check_unet_kernels(card: str) -> dict:
                     F.instance_norm(x, weight=sd, bias=bd, eps=1e-5), 0.01)
                 tag = f"{dname} (N, C, H, W)={shape}"
             else:
-                n, ci, co, h, w = shape
+                n, ci, co, h, w, *flags = shape
+                with_bias, out_f32 = flags or (True, False)
+                out_f32 = out_f32 and dtype == torch.bfloat16
                 x = rand(n, ci, h, w).to(dtype)
                 wt, bias = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5), rand(co, std=0.1)
-                kern = lambda: k6.conv3x3_cuda(x, wt, bias)  # noqa: E731
-                plain = lambda: k6.conv3x3_plain(x, wt, bias)  # noqa: E731
-                wd, bd = wt.to(dtype), bias.to(dtype)
+                bias = bias if with_bias else None
+                kern = lambda: k6.conv3x3_cuda(x, wt, bias, out_f32)  # noqa: E731
+                plain = lambda: k6.conv3x3_plain(x, wt, bias, out_f32)  # noqa: E731
+                wd, bd = wt.to(dtype), None if bias is None else bias.to(dtype)
                 lib = lambda: F.conv2d(x, wd, bd, padding=1)  # noqa: E731
-                tag = f"{dname} (N, Ci, Co, H, W)={shape}"
+                tag = (f"{dname} (N, Ci, Co, H, W)={(n, ci, co, h, w)}"
+                       + ("" if with_bias else " no bias") + (" out_f32" if out_f32 else ""))
             got = kern()
             torch.cuda.synchronize()
             err = compare("unet kernels", f"{kname} {tag}", got, plain(),
-                          *UNET_TOL[(kname, dname)])
+                          *UNET_TOL[(kname, "float32" if kname == "K6" and out_f32 else dname)])
             r = res[kname]
             r["max_abs_err"] = max(r["max_abs_err"], err)
             if not count:
@@ -606,11 +624,18 @@ def check_unet_kernels(card: str) -> dict:
                   f"plain {p:.4f} ms, {libname} {lib_ms:.4f} ms ({card})")
     for kname, r in res.items():
         r["bound_ms"], r["bound_by"] = bound_ms(*unet_forward_work(kname, 4))
-        for dname in ("float32", "bfloat16"):
+        for dname, size in (("float32", 4), ("bfloat16", 2)):
             t, p, lib_ms = per_dtype[(kname, dname)]
+            b, by = bound_ms(*unet_forward_work(kname, size))
+            note = ""
+            if kname == "K6" and size == 4:
+                fp32_note = fp32_cores_note(unet_forward_work(kname, 4))[0]
+                note = f", FP32-core bound (note) {fp32_note:.4f} ms"
+            if kname == "K6" and size == 2:
+                r["bf16_ms"], r["bf16_plain_ms"], r["bf16_library_ms"] = t, p, lib_ms
             phase("unet kernels", f"{kname} {dname}, one forward ({UNET_BATCH} x 320x256): kernel "
-                  f"{t:.4f} ms, plain {p:.4f} ms, library {lib_ms:.4f} ms; float32 bound "
-                  f"{r['bound_ms']:.4f} ms ({r['bound_by']}) ({card})")
+                  f"{t:.4f} ms, plain {p:.4f} ms, library {lib_ms:.4f} ms; {dname} bound "
+                  f"{b:.4f} ms ({by}){note} ({card})")
     torch.cuda.synchronize()
     return res
 
@@ -773,6 +798,7 @@ def check_unet_train_kernels(card: str) -> dict:
         UNET_K6_DX_SHAPES,
         UNET_TRAIN_BATCH,
         bound_ms,
+        fp32_cores_note,
         unet_train_work,
     )
     from csof_tpu_torch.ops.kernels import conv as k6
@@ -825,11 +851,15 @@ def check_unet_train_kernels(card: str) -> dict:
             phase("unet train kernels", f"K6 dx of {tag} x{count} per step: kernel {t:.4f} ms, "
                   f"plain {p:.4f} ms, torch.nn.grad.conv2d_input {lib_ms:.4f} ms ({card})")
     res["bound_ms"], res["bound_by"] = bound_ms(*unet_train_work("K6_dx"))
+    fp32_note = fp32_cores_note(unet_train_work("K6_dx"))[0]
+    bf16_bound, bf16_by = bound_ms(*unet_train_work("K6_dx", 2))
+    res["bf16_ms"], res["bf16_plain_ms"], res["bf16_library_ms"] = bf16_ms
     phase("unet train kernels", f"K6 dx, one training step ({UNET_TRAIN_BATCH} x 320x256), "
           f"float32: kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, conv2d_input "
-          f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']}); "
+          f"{res['library_ms']:.4f} ms, bound as 3xTF32 {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}), FP32-core bound (note) {fp32_note:.4f} ms; "
           f"bfloat16: kernel {bf16_ms[0]:.4f} ms, plain {bf16_ms[1]:.4f} ms, conv2d_input "
-          f"{bf16_ms[2]:.4f} ms ({card})")
+          f"{bf16_ms[2]:.4f} ms, bound {bf16_bound:.4f} ms ({bf16_by}) ({card})")
     torch.cuda.synchronize()
     return res
 
@@ -1152,6 +1182,17 @@ def main() -> int:
     _build.load_library()
     phase("build", f"{lib.name}: nvcc {_build.last_build_seconds:.1f} s, "
           f"ready in {time.perf_counter() - t0:.1f} s")
+    from csof_tpu_torch.sass_census import counts
+
+    hgmma = {}
+    for name, n in counts(lib).items():
+        for kern in ("conv3x3_kernel", "conv3x3_dx_kernel"):
+            if f"::{kern}<" in name:
+                hgmma.setdefault(kern, []).append(n)
+    expect(set(hgmma) == {"conv3x3_kernel", "conv3x3_dx_kernel"}
+           and all(min(v) > 0 for v in hgmma.values()),
+           f"K6 without tensor-core instructions: {hgmma}")
+    phase("build", f"HGMMA instructions per K6 instantiation (cuobjdump -sass): {hgmma}")
 
     kernels = check_kernels(card)
 
@@ -1216,8 +1257,8 @@ def main() -> int:
          "plain_ms": kernels[k]["plain_ms"], "bound_ms": kernels[k]["bound_ms"],
          "bound_by": kernels[k]["bound_by"], "library_ms": kernels[k]["library_ms"],
          **({"library_call": lib_call} if lib_call else {}),
-         **({"library_note_ms": kernels[k]["library_note_ms"]}
-            if "library_note_ms" in kernels[k] else {})}
+         **{key: kernels[k][key] for key in ("library_note_ms", "bf16_ms", "bf16_plain_ms",
+                                             "bf16_library_ms") if key in kernels[k]}}
         for k, (name, src, rep, lib_call) in sources.items()
     ]}
     print(json.dumps(line), flush=True)

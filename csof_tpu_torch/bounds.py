@@ -9,16 +9,19 @@ input read once, each output written once) over the HBM rate, and its
 operations over the peak rate of the fastest unit that can do them (a
 multiply-add is 2). bf16 work counts on the bf16 tensor cores: convolutions,
 and the correlation's window products too, which a kernel can run as one
-banded GEMM per window row. float32 work counts on the FP32 cores.
+banded GEMM per window row. float32 convolutions (K6) count on the tensor
+cores as 3xTF32, three TF32 products for float32 accuracy (3 x FLOPs at the
+TF32 peak), as K6 runs them; their FLOPs on the FP32 cores stay as a note.
+Other float32 work counts on the FP32 cores.
 Pure arithmetic: it needs no card. ``chip_smoke.py`` computes the bounds of
 the ported kernels with the same functions at the shapes it times.
 """
 
 from __future__ import annotations
 
-#: NVIDIA H100 SXM data sheet (dense, 700 W): HBM bytes/s, FP32-core and
-#: bf16 tensor-core FLOP/s
-HBM_BPS, FP32_FLOPS, BF16_TC_FLOPS = 3.35e12, 67e12, 989e12
+#: NVIDIA H100 SXM data sheet (dense, 700 W): HBM bytes/s, FP32-core,
+#: bf16 tensor-core and TF32 tensor-core FLOP/s
+HBM_BPS, FP32_FLOPS, BF16_TC_FLOPS, TF32_TC_FLOPS = 3.35e12, 67e12, 989e12, 495e12
 RADIUS = 4
 #: (C, H, W, stride) of the three SegFlow skip levels at the 128^2 ROI
 SEGFLOW_LEVELS = [(32, 128, 128, 2), (64, 64, 64, 1), (128, 32, 32, 1)]
@@ -40,10 +43,12 @@ UNET_K6_DX_SHAPES = [((32, 32, 320, 256), 2), ((32, 64, 320, 256), 1),
                      ((64, 64, 160, 128), 2), ((64, 128, 160, 128), 1)]
 
 
-def bound_ms(nbytes: float, fp32_flops: float, tc_flops: float = 0.0) -> tuple[float, str]:
-    """(ms, "bytes" or "operations")."""
+def bound_ms(nbytes: float, fp32_flops: float, tc_flops: float = 0.0,
+             tf32_flops: float = 0.0) -> tuple[float, str]:
+    """(ms, "bytes" or "operations"); tc_flops run at the bf16 tensor-core
+    peak, tf32_flops at the TF32 one."""
     t_bytes = nbytes / HBM_BPS
-    t_ops = fp32_flops / FP32_FLOPS + tc_flops / BF16_TC_FLOPS
+    t_ops = fp32_flops / FP32_FLOPS + tc_flops / BF16_TC_FLOPS + tf32_flops / TF32_TC_FLOPS
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -83,39 +88,47 @@ def norm_act_work(n: int, c: int, h: int, w: int, itemsize: int) -> tuple[float,
 
 
 def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int, itemsize: int,
-                 bias: bool = True) -> tuple[float, float, float]:
+                 bias: bool = True) -> tuple[float, float, float, float]:
     """K6: a stride-1 3x3 SAME conv (+ bias), x and the float32 weight (and
-    bias) -> y. bf16 multiply-adds count on the tensor cores, float32 ones on
-    the FP32 cores."""
+    bias) -> y, as (bytes, FP32 FLOPs, bf16 tensor-core FLOPs, TF32 FLOPs).
+    bf16 multiply-adds count on the bf16 tensor cores, float32 ones as
+    3xTF32 (three TF32 products each)."""
     px = n * h * w
     flops = 2 * 9 * cin * cout * px
     nbytes = px * (cin + cout) * itemsize + (9 * cin + bias) * cout * 4
-    return (nbytes, 0.0, flops) if itemsize == 2 else (nbytes, flops, 0.0)
+    return (nbytes, 0.0, flops, 0.0) if itemsize == 2 else (nbytes, 0.0, 0.0, 3 * flops)
 
 
-def unet_forward_work(kernel: str, itemsize: int) -> tuple[float, float, float]:
-    """(bytes, FP32 FLOPs, tensor-core FLOPs) of K5 or K6 summed over the
-    launches of one Task002 2d U-Net forward at the serving batch."""
-    total = [0.0, 0.0, 0.0]
-    for shape, count in UNET_K5_SHAPES if kernel == "K5" else UNET_K6_SHAPES:
-        if kernel == "K5":
-            work = norm_act_work(UNET_BATCH, *shape, itemsize)
-        else:
-            ci, co, h, w = shape
-            work = conv3x3_work(UNET_BATCH, h, w, ci, co, itemsize)
-        total = [t + count * x for t, x in zip(total, work)]
-    return tuple(total)
+def _summed(works) -> tuple[float, ...]:
+    """The sum over (work tuple, launches) pairs of launches x work."""
+    return tuple(sum(count * work[i] for work, count in works) for i in range(len(works[0][0])))
 
 
-def unet_train_work(kernel: str, itemsize: int = 4) -> tuple[float, float, float]:
-    """(bytes, FP32 FLOPs, tensor-core FLOPs) of K6's forward ("K6") or its
-    dx ("K6_dx") summed over the launches of one Task002 2d U-Net training
-    step at batch 40."""
-    total = [0.0, 0.0, 0.0]
-    for (ci, co, h, w), count in UNET_K6_SHAPES if kernel == "K6" else UNET_K6_DX_SHAPES:
-        work = conv3x3_work(UNET_TRAIN_BATCH, h, w, ci, co, itemsize, bias=kernel == "K6")
-        total = [t + count * x for t, x in zip(total, work)]
-    return tuple(total)
+def unet_forward_work(kernel: str, itemsize: int) -> tuple[float, ...]:
+    """K5's (bytes, FP32 FLOPs, tensor-core FLOPs), or K6's (bytes, FP32
+    FLOPs, bf16 tensor-core FLOPs, TF32 FLOPs), summed over the launches of
+    one Task002 2d U-Net forward at the serving batch."""
+    if kernel == "K5":
+        return _summed([(norm_act_work(UNET_BATCH, *shape, itemsize), count)
+                        for shape, count in UNET_K5_SHAPES])
+    return _summed([(conv3x3_work(UNET_BATCH, h, w, ci, co, itemsize), count)
+                    for (ci, co, h, w), count in UNET_K6_SHAPES])
+
+
+def unet_train_work(kernel: str, itemsize: int = 4) -> tuple[float, ...]:
+    """(bytes, FP32 FLOPs, bf16 tensor-core FLOPs, TF32 FLOPs) of K6's
+    forward ("K6") or its dx ("K6_dx") summed over the launches of one
+    Task002 2d U-Net training step at batch 40."""
+    return _summed([(conv3x3_work(UNET_TRAIN_BATCH, h, w, ci, co, itemsize, bias=kernel == "K6"),
+                     count)
+                    for (ci, co, h, w), count in (UNET_K6_SHAPES if kernel == "K6"
+                                                  else UNET_K6_DX_SHAPES)])
+
+
+def fp32_cores_note(work) -> tuple[float, str]:
+    """The bound of float32 K6 work (its 3xTF32 FLOPs / 3) on the FP32 cores,
+    where K6 ran before it moved to the tensor cores: a note beside its bound."""
+    return bound_ms(work[0], work[3] / 3)
 
 
 def unet_forward_conv_flops(batch: int = UNET_BATCH, patch=(320, 256), levels: int = 7,
@@ -146,11 +159,20 @@ def rows() -> list[tuple[str, str, float, str]]:
     out.append(("K4", "f32, 20 maps of 128x128 (one SegFlow train loss: B=4 x 5 frames)",
                 *bound_ms(*ncc_work(20, 128, 128))))
     for name, n in (("K5", 26), ("K6", 7)):
-        out.append((name, f"f32, the {n} launches of one Task002 2d U-Net serving forward "
-                    "(batch 32, 320x256)", *bound_ms(*unet_forward_work(name, 4))))
+        out.append((name, f"f32{' as 3xTF32' if name == 'K6' else ''}, the {n} launches of "
+                    "one Task002 2d U-Net serving forward (batch 32, 320x256)",
+                    *bound_ms(*unet_forward_work(name, 4))))
     for name, what in (("K6", "forward"), ("K6_dx", "dx")):
-        out.append((name, f"f32, the {what} launches of one Task002 2d U-Net training step "
-                    "(batch 40, 320x256)", *bound_ms(*unet_train_work(name))))
+        out.append((name, f"f32 as 3xTF32, the {what} launches of one Task002 2d U-Net "
+                    "training step (batch 40, 320x256)", *bound_ms(*unet_train_work(name))))
+    for name, what in (("K6", "serving forward"), ("K6", "training forward"),
+                       ("K6_dx", "training dx")):
+        work = unet_forward_work(name, 4) if what == "serving forward" else unet_train_work(name)
+        out.append((name, f"note: f32 on the FP32 cores, the {what} launches (the bound "
+                    "before K6 ran on the tensor cores)", *fp32_cores_note(work)))
+    for name, what in (("K6", "serving forward"), ("K6_dx", "training dx")):
+        work = unet_forward_work(name, 2) if name == "K6" else unet_train_work(name, 2)
+        out.append((name, f"note: bf16, the {what} launches", *bound_ms(*work)))
     # the training shapes the first table used, kept as a note
     out.append(("K5", "note: bf16, (40, 32, 320, 256) (Task002 2d U-Net training batch, "
                 "first stage)", *bound_ms(*norm_act_work(40, 32, 320, 256, 2))))
@@ -163,16 +185,18 @@ def rows() -> list[tuple[str, str, float, str]]:
 def main() -> int:
     for name, shapes, ms, by in rows():
         print(f"{name}: bound {ms:.6f} ms ({by}) at {shapes}")
-    total, k6 = unet_forward_conv_flops(), unet_forward_work("K6", 4)[1]
+    total, k6 = unet_forward_conv_flops(), unet_forward_work("K6", 4)[3] / 3
     print(f"U-Net: one Task002 2d serving forward (batch 32, 320x256) does {total / 1e9:.3f} "
           f"GFLOP of convolutions, {k6 / 1e9:.3f} of them in K6; float32 on the FP32 cores: "
-          f"{bound_ms(0.0, total)[0]:.6f} ms")
+          f"{bound_ms(0.0, total)[0]:.6f} ms; as 3xTF32 on the tensor cores: "
+          f"{bound_ms(0.0, 0.0, 0.0, 3 * total)[0]:.6f} ms")
     train = unet_forward_conv_flops(UNET_TRAIN_BATCH)
-    k6_train = unet_train_work("K6")[1] + unet_train_work("K6_dx")[1]
+    k6_train = sum(unet_train_work(k)[3] / 3 for k in ("K6", "K6_dx"))
     print(f"U-Net training step (batch 40, 320x256): {train / 1e9:.3f} GFLOP of convolutions "
           f"forward, about {3 * train / 1e9:.3f} with the backward (dx and dw each as the "
           f"forward); K6 forward + dx {k6_train / 1e9:.3f}; float32 on the FP32 cores: "
-          f"{bound_ms(0.0, 3 * train)[0]:.6f} ms")
+          f"{bound_ms(0.0, 3 * train)[0]:.6f} ms; as 3xTF32 on the tensor cores: "
+          f"{bound_ms(0.0, 0.0, 0.0, 9 * train)[0]:.6f} ms")
     return 0
 
 

@@ -40,8 +40,8 @@ _SIGNATURES = {
     "csof_skipfuse_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P],
     # x, scale, bias, out, partial, planes, C, HW, eps, slope, dtype_code, stream
     "csof_norm_act_forward": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P],
-    # x, w, bias, out, N, Ci, H, W, Co, dtype_code, out_f32, dx, stream
-    "csof_conv3x3_forward": [_P] * 4 + [_I] * 8 + [_P],
+    # x, packed w, bias, out, N, Ci, H, W, Co, nb, dtype_code, out_f32, dx, stream
+    "csof_conv3x3_forward": [_P] * 4 + [_I] * 9 + [_P],
     # pred, target, cc, N, H, W, window, eps, stream
     "csof_ncc_map_forward": [_P] * 3 + [_I] * 4 + [_F, _P],
 }

@@ -1,6 +1,7 @@
-"""K6: stride-1 3x3 SAME convolution on Hopper (``csrc/conv3x3.cu``), its
-plain PyTorch version, and the ``torch.autograd.Function`` that runs it in
-both directions.
+"""K6: stride-1 3x3 SAME convolution on Hopper's tensor cores
+(``csrc/conv3x3.cu``, an implicit GEMM on ``wgmma``: bf16 as it is, float32
+as 3xTF32), its plain PyTorch version, and the ``torch.autograd.Function``
+that runs it in both directions.
 
 Replaces ``csof_tpu/ops/pallas/conv.py`` ``conv3x3_cols`` /
 ``_conv3x3_cols_fwd_impl`` and its custom VJP: x and the weight taken in x's
@@ -15,6 +16,12 @@ dtype; dx is the same kernel on the spatially flipped, in/out-transposed
 weight (no bias, rounded to x's dtype); dw is the weight gradient of a plain
 convolution in x's dtype (left to the library, as the JAX package leaves it
 to XLA); db is the cotangent summed in the dtype, then cast to float32.
+
+The wrapper packs the weight once per call (``pack_weight``), as tensor ops,
+into the order the kernel's shared-memory descriptors read: in x's dtype
+(float32 as a tf32-rounded hi part and the exact rest), zero-padded to the
+kernel's channel chunk and block width, the dx's flip folded in. It is the
+counterpart of the JAX package's ``w2`` transpose outside its kernel.
 """
 
 from __future__ import annotations
@@ -59,15 +66,53 @@ def flipped_weight(weight: torch.Tensor) -> torch.Tensor:
     return weight.flip(2, 3).transpose(0, 1).contiguous()
 
 
+def block_n(co: int) -> int:
+    """The kernel's block width (its GEMM N) for Co output channels: one
+    block covers all of Co up to 128, blocks of 128 tile a larger Co."""
+    return 32 if co <= 32 else 64 if co <= 64 else 128
+
+
+def _tf32_hi(v: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to tf32 (10 mantissa bits), to nearest with ties away
+    from zero, as ``cvt.rna.tf32.f32`` rounds, into ``out``."""
+    torch.bitwise_and(v.view(torch.int32) + 0x1000, ~0x1FFF, out=out.view(torch.int32))
+    return out
+
+
+def pack_weight(weight: torch.Tensor, dtype: torch.dtype, dx: bool = False):
+    """(packed weight, block width) for the kernel. weight is the forward's
+    (Co, Ci, 3, 3) float32; with ``dx`` the conv is the flipped,
+    in/out-transposed weight's (``flipped_weight``). Layout: (Co blocks,
+    Ci chunks, [hi, lo for float32,] 9 taps, 2 groups, block width, 16 bytes
+    of channels), a chunk being 32 bytes of channels (8 float32, 16 bf16);
+    hi + lo is the float32 weight exactly. A few launches: the pad, then the
+    split or the cast straight into the packed layout."""
+    w = weight.flip(2, 3).transpose(0, 1) if dx else weight
+    co, ci = w.shape[:2]
+    nb, epc = block_n(co), 16 // torch.empty((), dtype=dtype).element_size()
+    nbk, nch = -(-co // nb), -(-ci // (2 * epc))
+    wp = F.pad(w, (0, 0, 0, 0, 0, nch * 2 * epc - ci, 0, nbk * nb - co))
+    v = wp.view(nbk, nb, nch, 2, epc, 9).permute(0, 2, 5, 3, 1, 4)
+    if dtype == torch.bfloat16:
+        return torch.empty(v.shape, dtype=dtype, device=w.device).copy_(v), nb
+    out = torch.empty((nbk, nch, 2, *v.shape[2:]), dtype=torch.float32, device=w.device)
+    hi = _tf32_hi(v, out[:, :, 0])
+    torch.sub(v, hi, out=out[:, :, 1])
+    return out, nb
+
+
 def _launch(x, weight, bias, out_f32, dx=False):
+    """K6 on x; with ``dx``, x is dy and the conv's weight the flipped
+    forward ``weight``."""
     if not x.is_cuda or x.dtype not in _DTYPE_CODES:
         raise TypeError(f"x must be a float32 or bfloat16 CUDA tensor, got {x.dtype} on {x.device}")
     if x.dim() != 4 or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous (N, Ci, H, W) tensor, got {tuple(x.shape)}")
     n, ci, h, w = x.shape
-    co = weight.shape[0]
+    co = weight.shape[1 if dx else 0]
     params = (weight,) if bias is None else (weight, bias)
-    if weight.shape != (co, ci, 3, 3) or (bias is not None and bias.shape != (co,)):
+    want = (ci, co, 3, 3) if dx else (co, ci, 3, 3)
+    if weight.shape != want or (bias is not None and bias.shape != (co,)):
         raise ValueError(f"weight must be (Co, {ci}, 3, 3) and bias (Co,), got "
                          f"{tuple(weight.shape)}, {None if bias is None else tuple(bias.shape)}")
     for p in params:
@@ -79,9 +124,10 @@ def _launch(x, weight, bias, out_f32, dx=False):
                       device=x.device)
     lib = _build.load_library()
     with torch.cuda.device(x.device):
+        packed, nb = pack_weight(weight, x.dtype, dx)
         err = lib.csof_conv3x3_forward(
-            x.data_ptr(), weight.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), n, ci, h, w, co, dtype_code(x), int(out_f32), int(dx),
+            x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
+            out.data_ptr(), n, ci, h, w, co, nb, dtype_code(x), int(out_f32), int(dx),
             torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "csof_conv3x3_forward")
@@ -97,10 +143,11 @@ def conv3x3_cuda(x, weight, bias=None, out_f32=False):
 
 
 def conv3x3_dx_cuda(dy, weight):
-    """dx of K6: K6 launched on dy (in x's dtype) with the flipped weight,
-    as ``conv3x3_dx_kernel`` (the same code under its own name)."""
+    """dx of K6: K6 launched on dy (in x's dtype) with the flipped weight
+    (folded into the packing), as ``conv3x3_dx_kernel`` (the same code under
+    its own name)."""
     global bwd_launches
-    out = _launch(dy, flipped_weight(weight), None, False, dx=True)
+    out = _launch(dy, weight, None, False, dx=True)
     bwd_launches += 1
     return out
 

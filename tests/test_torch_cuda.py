@@ -134,6 +134,12 @@ def test_norm_act_kernel_matches_plain(cuda, n, c, h, w, dtype):
     (2, 1, 32, 320, 256, True, False), (2, 32, 32, 64, 64, True, False),
     (2, 128, 64, 40, 32, False, False), (3, 13, 40, 17, 23, True, False),
     (2, 8, 16, 9, 70, False, True), (1, 3, 5, 1, 1, True, True),
+    # every tile edge of the tensor-core kernel: Ci not a multiple of the
+    # k step and over one chunk, Co over one block, W across 64-pixel tiles
+    (2, 1, 40, 17, 65, True, False), (1, 13, 130, 17, 129, False, False),
+    (2, 130, 5, 1, 23, True, True), (1, 130, 128, 17, 70, True, False),
+    (3, 13, 128, 1, 129, False, True), (2, 1, 130, 17, 1, True, True),
+    (1, 130, 40, 17, 65, False, False), (2, 13, 5, 1, 70, False, True),
 ])
 def test_conv3x3_kernel_matches_plain(cuda, n, ci, co, h, w, bias, out_f32, dtype):
     from csof_tpu_torch.ops.kernels import conv as k6
@@ -149,6 +155,27 @@ def test_conv3x3_kernel_matches_plain(cuda, n, ci, co, h, w, bias, out_f32, dtyp
     assert got.dtype == (torch.float32 if out_f32 else dtype)
     _close(got, k6.conv3x3_plain(x, wt.to(cuda), b, out_f32),
            CONV_TOL[torch.float32 if out_f32 else dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci", [8, 128, 256])
+def test_conv3x3_float32_error_stays_flat_in_ci(cuda, ci):
+    """float32 K6 against a float64 conv of the same inputs. Each chunk's
+    products start a fresh accumulator, so the error does not grow with the
+    27 * Ci / 8 tensor-core steps of the whole sum (in one accumulator it grew
+    linearly, to 6e-5 at Ci 128 and 1.2e-4 at Ci 256)."""
+    import torch.nn.functional as F
+
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(2, ci, 32, 80).astype(np.float32)).to(cuda)
+    wt = torch.from_numpy((rng.randn(64, ci, 3, 3) * np.sqrt(2 / (9 * ci))).astype(np.float32))
+    b = torch.from_numpy(0.1 * rng.randn(64).astype(np.float32)).to(cuda)
+    wt = wt.to(cuda)
+    got = k6.conv3x3_cuda(x, wt, b).double()
+    ref = F.conv2d(x.double(), wt.double(), b.double(), padding=1)
+    assert float((got - ref).abs().max()) < 2e-5
 
 
 @pytest.mark.cuda
@@ -273,6 +300,9 @@ def test_small_segflow_training_gradients_on_the_card_match_the_cpu(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,ci,co,h,w", [
     (2, 32, 32, 64, 64), (2, 64, 32, 40, 48), (1, 64, 128, 32, 40), (3, 13, 40, 17, 23),
+    # dx conv (Ci', Co') = (Co, Ci): Ci' 1, 13, 130 and Co' 5, 40, 128, 130
+    (2, 1, 40, 17, 65), (1, 130, 13, 17, 129), (2, 5, 130, 1, 23), (1, 128, 130, 17, 70),
+    (2, 40, 1, 17, 1), (1, 130, 130, 1, 129),
 ])
 def test_conv3x3_backward_kernel_matches_plain(cuda, n, ci, co, h, w, dtype):
     """Conv3x3Function's gradients on the card: dx by K6 on the flipped
