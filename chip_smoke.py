@@ -11,13 +11,18 @@ Phases, each printed on its own line:
 2. build: compile the CUDA kernels (K1 corr, K2 corr backward, K3 skip fuse,
    K4 NCC map, K5 norm + activation, K6 3x3 conv) from csof_tpu_torch/csrc,
    one nvcc per source, all started together; then count the tensor-core
-   instructions (HGMMA) of K6's forward and dx in the library's SASS
-   (csof_tpu_torch/sass_census.py): each must have some.
+   instructions (HGMMA) of K6's forward and dx and of K3's conv pass in the
+   library's SASS (csof_tpu_torch/sass_census.py): each must have some.
 3. kernels: each kernel against its plain PyTorch version at the three
    SegFlow level geometries (K1, K3: B=8; K2: the training batch, B=4;
-   radius 4) and two ragged shapes, in float32 and bfloat16, with the median
-   time of kernel and plain version; the correlation's autograd gradients on
-   the card (K1 forward, K2 backward) against autograd of the plain forward.
+   radius 4), two ragged shapes, and (K1, K3) shapes across the edges of
+   their tilings (W, H, C, F = 12 and 130, strides 1-3, radius 1-4, B 1 and
+   8), in float32 and bfloat16, with the median time of kernel and plain
+   version (bf16; K1 and K3 in float32 too), K3's library conv over the
+   concat and the whole K3 chain as library calls, K3's device time by pass
+   (torch.profiler); K3 twice on the same inputs must give the same bits;
+   the correlation's autograd gradients on the card (K1 forward, K2
+   backward) against autograd of the plain forward.
 4. serving: the flagship SegFlow (bench geometry, bfloat16, 4 classes, random
    weights from a seed) serves 3 synthetic cine requests through
    predict_and_export_case; the output files must exist, all outputs must be
@@ -85,6 +90,14 @@ TRAIN_BATCH, TRAIN_T, TRAIN_HW = 4, 6, 128
 #: (C, H, W, stride) of the three SegFlow skip levels at the 128^2 ROI
 LEVELS = [(32, 128, 128, 2), (64, 64, 64, 1), (128, 32, 32, 1)]
 RAGGED = [(32, 24, 24, 1), (16, 20, 36, 2)]
+#: K1 and K3 across their tilings' edges, (B, C, F, H, W, radius, stride):
+#: W 5, 23, 33, 65, 70, 129 (no multiple of K1's 32 or K3's 64 columns; 5,
+#: 23, 33, 65, 129 no multiple of K1's 16-byte group either), H 3, 9, 13,
+#: 17 (no multiple of the rows a block), C 7, 12, 20 (K3's channel chunks
+#: straddle q, m and corr), F 12 (6 groups) and 130 (two N blocks), strides
+#: 1, 2 and 3, radius 1 to 4, B 1 and 8
+TILING_RAGGED = [(1, 12, 12, 17, 70, 4, 1), (8, 12, 12, 9, 33, 4, 2), (2, 20, 40, 13, 65, 3, 3),
+                 (1, 32, 32, 5, 129, 1, 1), (8, 7, 130, 3, 23, 2, 2), (1, 64, 64, 17, 5, 4, 1)]
 #: (atol, rtol) per check. K1, K2: the kernel and the plain version round the
 #: same float32 sum taken in another order, so bfloat16 may differ by one
 #: unit in the last place (2^-7 relative; K2's sums of 81 terms are larger,
@@ -208,36 +221,50 @@ def timed_pair(kern, plain) -> tuple[float, float]:
     return (t1 + t2) / 2, (p1 + p2) / 2
 
 
+def k3_pass(name: str) -> str:
+    """K3's pass of a kernel it launches: K1, the conv pass, the apply pass,
+    or the rest (the wrapper's weight packing)."""
+    return ("k1_pass" if "corr_kernel" in name else "conv_pass" if "fuse_conv_kernel" in name
+            else "apply_pass" if "gn_apply_kernel" in name else "packing")
+
+
 def check_kernels(card: str) -> dict:
     """Phase 3. Returns per kernel: max abs error over all checks, the
     summed bf16 time of kernel and plain version over the three level shapes
     (one SegFlow step), its bound (csof_tpu_torch/bounds.py) at those shapes,
-    and (K3) the library conv's time."""
+    and (K3) the library conv's time and the whole chain as library calls;
+    K1 and K3 also in float32 (f32_* keys), and K3's passes by device time."""
     import torch
     import torch.nn.functional as F
 
     from csof_tpu_torch.bounds import bound_ms, corr_work
+    from csof_tpu_torch.kernel_times import device_ms
     from csof_tpu_torch.ops.kernels import corr as k1
     from csof_tpu_torch.ops.kernels import skipfuse as k3
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "bound_by": None, "library_ms": None, "bytes": 0.0, "fp32": 0.0, "tc": 0.0}
+    res = {k: {"max_abs_err": 0.0, "bound_by": None, "library_ms": None}
            for k in ("K1", "K2", "K3")}
-    res["K3"]["library_ms"] = 0.0
+    sums = {}  # (kernel, dtype) -> summed ms, plain ms, library ms, note ms, work
 
     def rand(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * std
 
+    def fuse_params(f, cin):
+        return (rand(f, cin, 3, 3, std=(2.0 / (9 * cin)) ** 0.5), rand(f, std=0.1),
+                1.0 + rand(f, std=0.1), rand(f, std=0.1))
+
+    def record(kname, err):
+        res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"], err)
+
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).removeprefix("torch.")
         for (c, h, w, s) in LEVELS + RAGGED:
-            timed = (c, h, w, s) in LEVELS and dtype == torch.bfloat16
+            level = (c, h, w, s) in LEVELS
             q = rand(BATCH, c, h, w).to(dtype)
             m = rand(BATCH, c, h, w).to(dtype)
             cin = 2 * c + (2 * RADIUS + 1) ** 2
-            wt = rand(c, cin, 3, 3, std=(2.0 / (9 * cin)) ** 0.5)
-            bias, gw, gb = rand(c, std=0.1), 1.0 + rand(c, std=0.1), rand(c, std=0.1)
+            wt, bias, gw, gb = fuse_params(c, cin)
             # K2 at the training batch, with a cotangent of the corr's shape
             qt, mt = q[:TRAIN_BATCH].contiguous(), m[:TRAIN_BATCH].contiguous()
             g = rand(TRAIN_BATCH, (2 * RADIUS + 1) ** 2, h, w).to(dtype)
@@ -260,26 +287,83 @@ def check_kernels(card: str) -> dict:
                               for name, a, r in zip(("dq", "dm"), got, ref))
                 else:
                     err = compare("kernels", f"{kname} {tag}", got, ref, atol, rtol)
-                r = res[kname]
-                r["max_abs_err"] = max(r["max_abs_err"], err)
-                if timed:
-                    t, p = timed_pair(kern, plain)
-                    r["ms"] += t
-                    r["plain_ms"] += p
-                    work = corr_work(kname, b, c, h, w, 2)
-                    for key, v in zip(("bytes", "fp32", "tc"), work):
-                        r[key] += v
-                    extra = ""
-                    if kname == "K3":
-                        x = torch.cat([q, m, k1.corr_cuda(q, m, RADIUS, s)], 1)
-                        wb = wt.to(dtype)
-                        lib = median_ms(lambda: F.conv2d(x, wb, padding=1))
-                        r["library_ms"] += lib
-                        extra = f", library F.conv2d over the {cin}-channel concat {lib:.4f} ms"
-                    phase("kernels", f"{kname} {tag}: kernel {t:.4f} ms, plain {p:.4f} ms"
-                          f"{extra} ({card})")
-    for r in res.values():
-        r["bound_ms"], r["bound_by"] = bound_ms(r.pop("bytes"), r.pop("fp32"), r.pop("tc"))
+                record(kname, err)
+                # times at the level shapes: every kernel in bf16, K1 and K3
+                # in float32 too
+                if not level or (kname == "K2" and dtype != torch.bfloat16):
+                    continue
+                t, p = timed_pair(kern, plain)
+                acc = sums.setdefault((kname, dname), {"ms": 0.0, "plain_ms": 0.0,
+                                                        "work": [0.0] * 4})
+                acc["ms"] += t
+                acc["plain_ms"] += p
+                work = corr_work(kname, b, c, h, w, dtype.itemsize)
+                acc["work"] = [a + v for a, v in zip(acc["work"], work)]
+                extra = ""
+                if kname == "K3":
+                    x = torch.cat([q, m, k1.corr_cuda(q, m, RADIUS, s)], 1)
+                    wb, bb = wt.to(dtype), bias.to(dtype)
+                    lib = median_ms(lambda: F.conv2d(x, wb, padding=1))
+                    groups = k3.num_groups_for(c)
+
+                    def chain():  # the whole function as library calls, K1's corr
+                        xc = torch.cat([q, m, k1.corr_cuda(q, m, RADIUS, s)], 1)
+                        yc = F.group_norm(F.conv2d(xc, wb, bb, padding=1), groups,
+                                          gw.to(dtype), gb.to(dtype))
+                        return F.leaky_relu(yc, 0.01)
+
+                    note = median_ms(chain)
+                    passes = device_ms(kern, group=k3_pass)
+                    for key, v in (("library_ms", lib), ("library_note_ms", note),
+                                   *((f"{k}_ms", v) for k, v in passes.items())):
+                        acc[key] = acc.get(key, 0.0) + v
+                    extra = (f", library F.conv2d over the {cin}-channel concat {lib:.4f} ms, "
+                             f"library chain (K1, cat, conv2d, group_norm, leaky_relu) "
+                             f"{note:.4f} ms; device ms a call by pass: "
+                             + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+                phase("kernels", f"{kname} {tag}: kernel {t:.4f} ms, plain {p:.4f} ms"
+                      f"{extra} ({card})")
+        # across the tiling edges of K1 (32 x 4 or 8 tiles, 16-byte groups)
+        # and K3's conv (64 x 2 or 4 tiles, N blocks of 32/64/128, 16- or
+        # 8-channel chunks straddling q, m and corr)
+        for (b, c, f, h, w, r, s) in TILING_RAGGED:
+            tag = f"{dname} B={b} C={c} F={f} {h}x{w} r={r} s={s}"
+            q = rand(b, c, h, w).to(dtype)
+            m = rand(b, c, h, w).to(dtype)
+            params = fuse_params(f, 2 * c + (2 * r + 1) ** 2)
+            got = k1.corr_cuda(q, m, r, s)
+            torch.cuda.synchronize()
+            record("K1", compare("kernels", f"K1 {tag}", got, k1.corr_plain(q, m, r, s),
+                                 *TOL[("K1", dname)]))
+            got = k3.skip_fuse_cuda(q, m, *params, r, s)
+            torch.cuda.synchronize()
+            record("K3", compare("kernels", f"K3 {tag}", got,
+                                 k3.skip_fuse_plain(q, m, *params, r, s), *TOL[("K3", dname)]))
+    # determinism: K3 twice on the same inputs, the same bits
+    for dtype in (torch.float32, torch.bfloat16):
+        c, h, w, s = LEVELS[0]
+        q, m = (rand(BATCH, c, h, w).to(dtype) for _ in range(2))
+        params = fuse_params(c, 2 * c + (2 * RADIUS + 1) ** 2)
+        a = k3.skip_fuse_cuda(q, m, *params, RADIUS, s)
+        b = k3.skip_fuse_cuda(q, m, *params, RADIUS, s)
+        torch.cuda.synchronize()
+        expect(torch.equal(a, b), f"K3 {dtype}: two runs on the same inputs differ")
+    phase("kernels", "K3 twice on the same inputs (float32, bfloat16): bit-identical")
+
+    for kname in ("K1", "K2", "K3"):
+        r = res[kname]
+        for dname, prefix in (("bfloat16", ""), ("float32", "f32_")):
+            acc = sums.get((kname, dname))
+            if acc is None:
+                continue
+            bound, by = bound_ms(*acc.pop("work"))
+            r.update({prefix + k: v for k, v in acc.items()})
+            r[prefix + "bound_ms"], r[prefix + "bound_by"] = bound, by
+        phase("kernels", f"{kname} summed over the three levels: bf16 {r['ms']:.4f} ms"
+              + (f", f32 {r['f32_ms']:.4f} ms" if "f32_ms" in r else "")
+              + f"; bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
+              + (f", f32 {r['f32_bound_ms']:.6f}" if "f32_bound_ms" in r else "")
+              + f" ({card})")
 
     # the autograd path: CorrFunction (K1 forward, K2 backward) against
     # autograd of the plain forward, float32
@@ -1155,6 +1239,11 @@ def check_ncc(card: str) -> tuple[dict, dict]:
     return res, counts
 
 
+#: the keys every kernel has in the kernels line; a kernel's other measured
+#: numbers (bf16 or float32 times, library notes, K3's passes) follow them
+_MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+
 def main() -> int:
     import torch
 
@@ -1185,14 +1274,15 @@ def main() -> int:
     from csof_tpu_torch.sass_census import counts
 
     hgmma = {}
+    tc_kernels = ("conv3x3_kernel", "conv3x3_dx_kernel", "fuse_conv_kernel")
     for name, n in counts(lib).items():
-        for kern in ("conv3x3_kernel", "conv3x3_dx_kernel"):
+        for kern in tc_kernels:
             if f"::{kern}<" in name:
                 hgmma.setdefault(kern, []).append(n)
-    expect(set(hgmma) == {"conv3x3_kernel", "conv3x3_dx_kernel"}
-           and all(min(v) > 0 for v in hgmma.values()),
-           f"K6 without tensor-core instructions: {hgmma}")
-    phase("build", f"HGMMA instructions per K6 instantiation (cuobjdump -sass): {hgmma}")
+    expect(set(hgmma) == set(tc_kernels) and all(min(v) > 0 for v in hgmma.values()),
+           f"K6 or K3's conv pass without tensor-core instructions: {hgmma}")
+    phase("build", "HGMMA instructions per K6 and K3-conv instantiation (cuobjdump -sass): "
+          f"{hgmma}")
 
     kernels = check_kernels(card)
 
@@ -1236,7 +1326,9 @@ def main() -> int:
                "csof_tpu/ops/pallas/corr.py:409", None),
         "K3": ("fused_skip_fuse", "csof_tpu_torch/csrc/skipfuse.cu",
                "csof_tpu/ops/pallas/skipfuse.py:236",
-               "F.conv2d over the (2C+81)-channel concat: K3's conv pass only"),
+               "F.conv2d over the (2C+81)-channel concat: K3's conv pass only; "
+               "library_note_ms: the whole function as library calls (K1's corr, "
+               "torch.cat, F.conv2d, F.group_norm, F.leaky_relu)"),
         "K4": ("ncc_map", "csof_tpu_torch/csrc/ncc.cu", "csof_tpu/ops/pallas/ncc.py:49",
                "none: no one PyTorch call computes the map (on no path of the JAX package; "
                "driven alone through ncc_loss_kernel)"),
@@ -1257,8 +1349,7 @@ def main() -> int:
          "plain_ms": kernels[k]["plain_ms"], "bound_ms": kernels[k]["bound_ms"],
          "bound_by": kernels[k]["bound_by"], "library_ms": kernels[k]["library_ms"],
          **({"library_call": lib_call} if lib_call else {}),
-         **{key: kernels[k][key] for key in ("library_note_ms", "bf16_ms", "bf16_plain_ms",
-                                             "bf16_library_ms") if key in kernels[k]}}
+         **{key: v for key, v in kernels[k].items() if key not in _MAIN_KEYS}}
         for k, (name, src, rep, lib_call) in sources.items()
     ]}
     print(json.dumps(line), flush=True)

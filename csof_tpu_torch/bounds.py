@@ -53,22 +53,27 @@ def bound_ms(nbytes: float, fp32_flops: float, tc_flops: float = 0.0,
 
 
 def corr_work(kernel: str, b: int, c: int, h: int, w: int,
-              itemsize: int) -> tuple[float, float, float]:
-    """(bytes, FP32 FLOPs, tensor-core FLOPs) of one call of K1 (q, m ->
-    corr), K2 (q, m, g -> dq, dm) or K3 (q, m, float32 conv and norm
-    parameters -> out) at one level, radius 4, in float32 (itemsize 4) or
-    bf16 (itemsize 2). The window products of a bf16 call count as
-    tensor-core FLOPs, those of a float32 call as FP32 FLOPs."""
+              itemsize: int) -> tuple[float, float, float, float]:
+    """(bytes, FP32 FLOPs, bf16 tensor-core FLOPs, TF32 FLOPs) of one call
+    of K1 (q, m -> corr), K2 (q, m, g -> dq, dm) or K3 (q, m, float32 conv
+    and norm parameters -> out) at one level, radius 4, in float32 (itemsize
+    4) or bf16 (itemsize 2). The window products of a bf16 call count as
+    tensor-core FLOPs, those of a float32 call as FP32 FLOPs; K3's float32
+    conv counts as 3xTF32, as K3 runs it."""
     k2, hw = (2 * RADIUS + 1) ** 2, h * w
     corr_flops = 2 * k2 * c * hw * b * (2 if kernel == "K2" else 1)
     fp32, tc = (0.0, corr_flops) if itemsize == 2 else (corr_flops, 0.0)
     if kernel == "K1":
-        return (2 * b * c * hw + b * k2 * hw) * itemsize, fp32, tc
+        return (2 * b * c * hw + b * k2 * hw) * itemsize, fp32, tc, 0.0
     if kernel == "K2":
-        return (4 * b * c * hw + b * k2 * hw) * itemsize, fp32, tc
+        return (4 * b * c * hw + b * k2 * hw) * itemsize, fp32, tc, 0.0
     cin = 2 * c + k2
     params = (c * cin * 9 + 3 * c) * 4
-    return 3 * b * c * hw * itemsize + params, fp32, tc + 2 * cin * 9 * c * hw * b
+    conv = 2 * cin * 9 * c * hw * b
+    nbytes = 3 * b * c * hw * itemsize + params
+    if itemsize == 2:
+        return nbytes, fp32, tc + conv, 0.0
+    return nbytes, fp32, tc, 3 * conv
 
 
 def ncc_work(n: int, h: int, w: int, window: int = 9) -> tuple[float, float, float]:
@@ -156,6 +161,11 @@ def rows() -> list[tuple[str, str, float, str]]:
         total = [sum(x) for x in zip(*work)]
         out.append((name, f"bf16, B={b}, summed over the three SegFlow levels",
                     *bound_ms(*total)))
+    for name in ("K1", "K3"):
+        work = [corr_work(name, 8, c, h, w, 4) for c, h, w, _ in SEGFLOW_LEVELS]
+        out.append((name, "note: f32, B=8, summed over the three SegFlow levels"
+                    f"{' (the conv as 3xTF32)' if name == 'K3' else ''}",
+                    *bound_ms(*[sum(x) for x in zip(*work)])))
     out.append(("K4", "f32, 20 maps of 128x128 (one SegFlow train loss: B=4 x 5 frames)",
                 *bound_ms(*ncc_work(20, 128, 128))))
     for name, n in (("K5", 26), ("K6", 7)):

@@ -10,6 +10,12 @@ after the flax scopes, so a leaf ``a/b/Conv_0/kernel`` fills the parameter
 - Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
 - norm ``scale`` -> ``weight``; ``bias`` -> ``bias``.
 
+A ``bottleneck_dual`` scope (SegFlow with ``attn_fused``: the two
+cross-attention bottlenecks' parameters stacked on a leading axis of 2,
+``csof_tpu/models/segflow.py`` ``fuse_bottleneck_params``) is first split
+into ``bottleneck_prev`` (index 0) and ``bottleneck_ed`` (index 1), the
+scopes of the unfused layout that the port runs.
+
 The map is built by walking the flax tree, so flax's auto-numbered scopes
 (``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``; the U-Net's
 ``StackedConvs_0..2n`` in call order with ``ConvNormAct_i/Conv_0`` and
@@ -36,6 +42,36 @@ def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()):
             yield prefix + (str(key),), value
 
 
+def _map_leaves(fn, tree: Mapping) -> dict:
+    return {k: _map_leaves(fn, v) if isinstance(v, Mapping) else fn(v) for k, v in tree.items()}
+
+
+def unstack_bottleneck_dual(tree: Mapping) -> dict:
+    """``tree`` with every ``bottleneck_dual`` subtree (leading axis 2)
+    replaced by ``bottleneck_prev`` (index 0) and ``bottleneck_ed`` (index
+    1); the input is not changed."""
+    out = {}
+    for key, value in tree.items():
+        if not isinstance(value, Mapping):
+            out[key] = value
+        elif key != "bottleneck_dual":
+            out[key] = unstack_bottleneck_dual(value)
+        else:
+            for i, name in enumerate(("bottleneck_prev", "bottleneck_ed")):
+                if name in tree:
+                    raise KeyError(f"both bottleneck_dual and {name} in one scope")
+
+                def pick(a, i=i):
+                    a = np.asarray(a)
+                    if a.ndim == 0 or a.shape[0] != 2:
+                        raise ValueError(f"bottleneck_dual leaf of shape {a.shape}: "
+                                         "no leading pair axis of 2")
+                    return a[i]
+
+                out[name] = _map_leaves(pick, value)
+    return out
+
+
 def _convert(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if name == "kernel":
         if isinstance(module, ConvTranspose):
@@ -58,7 +94,7 @@ def load_flax_params(module: nn.Module, params: Mapping) -> None:
     that no leaf fills."""
     targets = dict(module.named_parameters())
     filled: set[str] = set()
-    for path, leaf in _leaves(params):
+    for path, leaf in _leaves(unstack_bottleneck_dual(params)):
         scope, name = path[:-1], path[-1]
         where = "/".join(path)
         try:

@@ -12,132 +12,111 @@
 // channel means (:195-218), the affine coefficients cast to the dtype and
 // applied in it (:219-229), the LeakyReLU predicate taken in f32 (:232-233).
 // Weight channel order is [q (0:C), m (C:2C), corr (2C:2C+K2)], as in the
-// flax (3, 3, Cin, F) kernel; this kernel reads the torch (F, Cin, 3, 3)
-// layout of the same parameter.
+// flax (3, 3, Cin, F) kernel; the wrapper packs the torch (F, Cin, 3, 3)
+// layout of the same parameter once per call, with K6's packing
+// (ops/kernels/conv.py pack_weight).
 //
-// What bounds it on the H100: the conv's multiply-adds (2C+81)*9*F per
-// pixel, about 25 GFLOP per SegFlow step at B=8, which dominate the bytes
-// moved. This first version runs them on the FP32 cores (no tensor cores) as
-// an implicit GEMM: a block owns a 16x16 pixel tile and 32 output channels,
-// stages 8 input channels of the haloed tile (read straight from the three
-// input pointers, no concat in device memory) and their 9x8x32 weights in
-// shared memory, and each thread keeps 32 float32 accumulators for its pixel.
+// What bounds it on the H100: operations. The conv's multiply-adds,
+// (2C + 81) * 9 * F a pixel, are about 19.8 GFLOP over the three SegFlow
+// levels at B = 8 (C = F = 32, 64, 128), far above the bytes moved: 0.02 ms
+// on the bf16 tensor cores, 0.30 ms on the FP32 cores. So the conv pass is
+// K6's implicit GEMM on wgmma (igemm3x3.cuh): M = 64 output pixels of a tile
+// row per warpgroup, N = F (32, 64 or 128: all output channels in one block,
+// so each haloed input tile is staged once), K = 9 taps x (2C + 81) channels
+// in 32-byte chunks; bf16 m64nNk16, float32 as 3xTF32 with a fresh
+// accumulator a chunk. Its source reads each channel row of the chunk from
+// whichever of q, m and corr holds that channel (chosen per channel, so a
+// chunk may straddle two tensors when C is not a multiple of the chunk), by
+// 16-byte cp.async in a 2-stage ring; there is no concat in device memory.
 //
 // What differs from the TPU kernel: the TPU carries the GroupNorm statistics
 // across its sequential grid steps in scratch. Hopper blocks run in parallel
-// and in no order, so the work is split into passes: (1) K1, launched by the
-// caller, writes the corr volume to device memory (keeping it on chip is
-// later work); (2) the conv pass writes the pre-norm y and one partial (sum,
-// sum of squares) per block and channel; (3) the apply pass reduces the partials of
-// its sample and group in a fixed order (deterministic, no float atomics)
-// and applies the affine and the activation. Any H x W is taken.
-#include "common.cuh"
+// and in no order, so the work is three launches: (1) K1 (corr.cu), launched
+// by the wrapper, writes the corr volume to device memory; (2) the conv pass
+// writes the rounded y once and, in its epilogue, one (sum, sum of squares)
+// of the rounded y per block and channel: each warp reduces a channel of the
+// block's output tile from shared memory, its lanes over the pixels in a
+// fixed order and then a butterfly, so the partials are the same run to run
+// (no float atomics); (3) the apply pass reduces the partials of its sample
+// and group in a fixed order and applies the affine and the activation. Any
+// H x W is taken.
+//
+// What it leaves on the table: the corr volume goes through device memory
+// (about 28 MB written and read over the three levels at B = 8 bf16, 0.017
+// ms at 3.35 TB/s; keeping it on chip would make the conv block stage m over
+// a +-8-row halo at the stride-2 level, more than shared memory holds); at
+// the 32-wide level a warpgroup's m64 row holds 32 pixels, so half of that
+// level's products are padding. That level does run slower per useful FLOP
+// than the 64-wide one, but at B = 8 its grid is 128 blocks, one wave on
+// 132 SMs, so its time is one block's chain of 22 channel chunks (each a
+// copy, a restage, two barriers and 9 wgmma, about 4 us on the H100) and not
+// the padding: packing two output rows into one m64 would halve the blocks
+// and keep the chain. A 3-stage ring did not shorten it (PERF.md), so the
+// copies are not what the chain waits on; splitting the channels over two
+// blocks or two warpgroups is the lever left. The apply pass re-reads y once.
+#include "igemm3x3.cuh"
 
 namespace csof {
 namespace {
 
-constexpr int kConvTile = 16;                  // pixel tile edge
-constexpr int kConvF = 32;                     // output channels per block
-constexpr int kConvChunk = 8;                  // input channels staged per pass
-constexpr int kConvThreads = kConvTile * kConvTile;
-constexpr int kApplyPerBlock = 1024;           // elements per apply block
+constexpr int kApplyPerBlock = 1024;  // elements per apply block
 
-// grid (tiles, ceil(F/32), B), block 256.  partial: (B, tiles, F, 2) float32
+// The conv's input: channel c of the concat [q, m, corr]
 template <typename T>
-__global__ void __launch_bounds__(kConvThreads)
+struct ConcatSource {
+  const T* q;
+  const T* m;
+  const T* corr;
+  int C, K2;
+  size_t plane;
+  __device__ __forceinline__ const T* channel(int n, int c) const {
+    return c < C       ? q + ((size_t)n * C + c) * plane
+           : c < 2 * C ? m + ((size_t)n * C + c - C) * plane
+                       : corr + ((size_t)n * K2 + c - 2 * C) * plane;
+  }
+};
+
+// grid (tiles, ceil(F / NB), B) as Tiling<T, NB> gives it; partial: (B,
+// tiles, F, 2) float32
+template <typename T, int NB>
+__global__ void __launch_bounds__(Tiling<T, NB>::kThreads, Tiling<T, NB>::kMinBlocks)
 fuse_conv_kernel(const T* __restrict__ q, const T* __restrict__ m, const T* __restrict__ corr,
-                 const float* __restrict__ w, const float* __restrict__ bias,
-                 T* __restrict__ y, float* __restrict__ partial,
-                 int C, int K2, int H, int W, int F) {
-  __shared__ float xs[kConvChunk][kConvTile + 2][kConvTile + 2];
-  __shared__ __align__(16) float ws[9][kConvChunk][kConvF];
-  __shared__ float red[kConvThreads / 32][kConvF][2];
+                 const uint8_t* __restrict__ wpk, const float* __restrict__ bias,
+                 T* __restrict__ y, float* __restrict__ partial, int C, int K2, int H, int W,
+                 int F) {
+  using Tl = Tiling<T, NB>;
+  constexpr int kNwg = Tl::kNwg, kWarps = Tl::kThreads / 32;
+  float acc[NB / 2];
+  igemm3x3_mainloop<T, NB>(ConcatSource<T>{q, m, corr, C, K2, (size_t)H * W}, wpk,
+                           2 * C + K2, H, W, acc);
+  const float* ot = igemm3x3_epilogue<T, T, NB>(acc, bias, F);
 
-  const int cin = 2 * C + K2;
-  const int tiles_w = (W + kConvTile - 1) / kConvTile;
-  const int ntiles = tiles_w * ((H + kConvTile - 1) / kConvTile);
-  const int tile = blockIdx.x;
-  const int ty0 = (tile / tiles_w) * kConvTile, tx0 = (tile % tiles_w) * kConvTile;
-  const int f0 = blockIdx.y * kConvF;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int py = tid / kConvTile, px = tid % kConvTile;
-  const size_t plane = (size_t)H * W;
-
-  float acc[kConvF];
-#pragma unroll
-  for (int f = 0; f < kConvF; ++f) acc[f] = 0.f;
-
-  constexpr int kPatch = (kConvTile + 2) * (kConvTile + 2);
-  for (int ci0 = 0; ci0 < cin; ci0 += kConvChunk) {
-    for (int i = tid; i < kConvChunk * kPatch; i += kConvThreads) {
-      const int cc = i / kPatch, p = i % kPatch;
-      const int ci = ci0 + cc;
-      const int yy = ty0 - 1 + p / (kConvTile + 2), xx = tx0 - 1 + p % (kConvTile + 2);
-      float v = 0.f;
-      if (ci < cin && yy >= 0 && yy < H && xx >= 0 && xx < W) {
-        const size_t off = (size_t)yy * W + xx;
-        if (ci < C) v = to_float(q[((size_t)b * C + ci) * plane + off]);
-        else if (ci < 2 * C) v = to_float(m[((size_t)b * C + ci - C) * plane + off]);
-        else v = to_float(corr[((size_t)b * K2 + ci - 2 * C) * plane + off]);
-      }
-      xs[cc][p / (kConvTile + 2)][p % (kConvTile + 2)] = v;
-    }
-    // tap fastest, then channel: consecutive threads read consecutive floats
-    // of the (F, Cin, 3, 3) weight
-    for (int i = tid; i < 9 * kConvChunk * kConvF; i += kConvThreads) {
-      const int tap = i % 9, cc = (i / 9) % kConvChunk, f = i / (9 * kConvChunk);
-      const int ci = ci0 + cc;
-      ws[tap][cc][f] = (f0 + f < F && ci < cin)
-                           ? round_to<T>(w[((size_t)(f0 + f) * cin + ci) * 9 + tap])
-                           : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int cc = 0; cc < kConvChunk; ++cc) {
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const float v = xs[cc][py + tap / 3][px + tap % 3];
-        const float4* wrow = reinterpret_cast<const float4*>(&ws[tap][cc][0]);
-#pragma unroll
-        for (int f4 = 0; f4 < kConvF / 4; ++f4) {
-          const float4 wv = wrow[f4];
-          acc[4 * f4 + 0] = fmaf(v, wv.x, acc[4 * f4 + 0]);
-          acc[4 * f4 + 1] = fmaf(v, wv.y, acc[4 * f4 + 1]);
-          acc[4 * f4 + 2] = fmaf(v, wv.z, acc[4 * f4 + 2]);
-          acc[4 * f4 + 3] = fmaf(v, wv.w, acc[4 * f4 + 3]);
-        }
+  // the GroupNorm partials of the block: a warp a channel, over the valid
+  // pixels of the tile's rows, from the rounded y in shared memory
+  const int tiles_w = (W + kTW - 1) / kTW;
+  const int y0 = (blockIdx.x / tiles_w) * kNwg, x0 = (blockIdx.x % tiles_w) * kTW;
+  const int rows = min(kNwg, H - y0), cols = min(kTW, W - x0);
+  const int co0 = blockIdx.y * NB, n = blockIdx.z;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  for (int nn = warp; nn < NB && co0 + nn < F; nn += kWarps) {
+    float s1 = 0.f, s2 = 0.f;
+    for (int r = 0; r < rows; ++r) {
+      const float* row = ot + (r * NB + nn) * kOs;
+      for (int x = lane; x < cols; x += 32) {
+        const float v = row[x];
+        s1 += v;
+        s2 += v * v;
       }
     }
-    __syncthreads();
-  }
-
-  const int yy = ty0 + py, xx = tx0 + px;
-  const bool inside = yy < H && xx < W;
-  const int warp = tid / 32, lane = tid % 32;
-#pragma unroll
-  for (int f = 0; f < kConvF; ++f) {
-    const bool live = inside && f0 + f < F;
-    float yv = 0.f;
-    if (live) {
-      yv = round_to<T>(round_to<T>(acc[f]) + round_to<T>(bias[f0 + f]));
-      y[((size_t)b * F + f0 + f) * plane + (size_t)yy * W + xx] = from_float<T>(yv);
-    }
-    const float s1 = warp_sum(yv), s2 = warp_sum(yv * yv);
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
     if (lane == 0) {
-      red[warp][f][0] = s1;
-      red[warp][f][1] = s2;
+      float* p = partial + (((size_t)n * gridDim.x + blockIdx.x) * F + co0 + nn) * 2;
+      p[0] = s1;
+      p[1] = s2;
     }
   }
-  __syncthreads();
-  if (tid < 2 * kConvF) {
-    const int f = tid / 2, k = tid % 2;
-    if (f0 + f < F) {
-      float s = 0.f;
-      for (int wi = 0; wi < kConvThreads / 32; ++wi) s += red[wi][f][k];
-      partial[(((size_t)b * ntiles + tile) * F + f0 + f) * 2 + k] = s;
-    }
-  }
+  igemm3x3_store<T, T, NB>(ot, y, H, W, F);
 }
 
 // grid (ceil(H*W/1024), F, B), block 256
@@ -188,49 +167,78 @@ gn_apply_kernel(const T* __restrict__ y, const float* __restrict__ partial,
   }
 }
 
-template <typename T>
-cudaError_t launch_skipfuse(const T* q, const T* m, const T* corr, const float* w,
-                            const float* bias, const float* gn_scale, const float* gn_bias,
-                            T* y, float* partial, T* out, int B, int C, int K2, int H, int W,
-                            int F, int groups, float eps, float slope, cudaStream_t stream) {
-  const int ntiles = ((H + kConvTile - 1) / kConvTile) * ((W + kConvTile - 1) / kConvTile);
-  const dim3 cgrid(ntiles, (F + kConvF - 1) / kConvF, B);
-  fuse_conv_kernel<T><<<cgrid, kConvThreads, 0, stream>>>(q, m, corr, w, bias, y, partial, C,
-                                                         K2, H, W, F);
-  cudaError_t e = cudaGetLastError();
+template <typename T, int NB>
+cudaError_t launch_nb(const T* q, const T* m, const T* corr, const uint8_t* w,
+                      const float* bias, const float* gn_scale, const float* gn_bias, T* y,
+                      float* partial, T* out, int B, int C, int K2, int H, int W, int F,
+                      int groups, float eps, float slope, cudaStream_t stream) {
+  using Tl = Tiling<T, NB>;
+  const int ntiles = ((H + Tl::kNwg - 1) / Tl::kNwg) * ((W + kTW - 1) / kTW);
+  cudaError_t e = allow_smem(fuse_conv_kernel<T, NB>, Tl::kSmem);
   if (e != cudaSuccess) return e;
+  const dim3 cgrid(ntiles, (F + NB - 1) / NB, B);
+  fuse_conv_kernel<T, NB><<<cgrid, Tl::kThreads, Tl::kSmem, stream>>>(
+      q, m, corr, w, bias, y, partial, C, K2, H, W, F);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
   const dim3 agrid((H * W + kApplyPerBlock - 1) / kApplyPerBlock, F, B);
   gn_apply_kernel<T><<<agrid, 256, 0, stream>>>(y, partial, gn_scale, gn_bias, out, H, W, F,
                                                 groups, ntiles, eps, slope);
   return cudaGetLastError();
 }
 
+template <typename T>
+cudaError_t launch_skipfuse(const T* q, const T* m, const T* corr, const uint8_t* w,
+                            const float* bias, const float* gn_scale, const float* gn_bias,
+                            T* y, float* partial, T* out, int B, int C, int K2, int H, int W,
+                            int F, int groups, int nb, float eps, float slope,
+                            cudaStream_t stream) {
+  switch (nb) {
+    case 32:
+      return launch_nb<T, 32>(q, m, corr, w, bias, gn_scale, gn_bias, y, partial, out, B, C,
+                              K2, H, W, F, groups, eps, slope, stream);
+    case 64:
+      return launch_nb<T, 64>(q, m, corr, w, bias, gn_scale, gn_bias, y, partial, out, B, C,
+                              K2, H, W, F, groups, eps, slope, stream);
+    default:
+      return launch_nb<T, 128>(q, m, corr, w, bias, gn_scale, gn_bias, y, partial, out, B, C,
+                               K2, H, W, F, groups, eps, slope, stream);
+  }
+}
+
 }  // namespace
 }  // namespace csof
 
-// Inputs q, m (B, C, H, W) and corr (B, K2, H, W) in the dtype; scratch y
-// (B, F, H, W) in the dtype and partial (B, tiles, F, 2) float32 with
-// tiles = ceil(H/16) * ceil(W/16).
+// Inputs q, m (B, C, H, W) and corr (B, K2, H, W) in the dtype; w: the
+// (F, 2C + K2, 3, 3) weight packed by ops/kernels/conv.py pack_weight for
+// block width nb (32 if F <= 32, 64 if F <= 64, else 128); bias and the
+// GroupNorm parameters (F,) float32; scratch y (B, F, H, W) in the dtype
+// and partial (B, tiles, F, 2) float32, tiles = ceil(H / rows) * ceil(W /
+// 64) with 2 or 4 rows a block (ceil(H / 2) * ceil(W / 64) holds either).
 extern "C" int csof_skipfuse_forward(const void* q, const void* m, const void* corr,
-                                     const float* w, const float* bias, const float* gn_scale,
+                                     const void* w, const float* bias, const float* gn_scale,
                                      const float* gn_bias, void* y, float* partial, void* out,
                                      int B, int C, int K2, int H, int W, int F, int groups,
-                                     float eps, float slope, int dtype_code, void* stream) {
+                                     int nb, float eps, float slope, int dtype_code,
+                                     void* stream) {
   using namespace csof;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (groups <= 0 || F % groups != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int want_nb = F <= 32 ? 32 : (F <= 64 ? 64 : 128);
+  if (B <= 0 || B > 65535 || C <= 0 || K2 <= 0 || H <= 0 || W <= 0 || F <= 0 ||
+      groups <= 0 || F % groups != 0 || nb != want_nb)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const uint8_t* wp = static_cast<const uint8_t*>(w);
   cudaError_t e;
   if (dtype_code == kFloat32) {
     e = launch_skipfuse(static_cast<const float*>(q), static_cast<const float*>(m),
-                        static_cast<const float*>(corr), w, bias, gn_scale, gn_bias,
+                        static_cast<const float*>(corr), wp, bias, gn_scale, gn_bias,
                         static_cast<float*>(y), partial, static_cast<float*>(out), B, C, K2,
-                        H, W, F, groups, eps, slope, s);
+                        H, W, F, groups, nb, eps, slope, s);
   } else if (dtype_code == kBFloat16) {
     using bf = __nv_bfloat16;
     e = launch_skipfuse(static_cast<const bf*>(q), static_cast<const bf*>(m),
-                        static_cast<const bf*>(corr), w, bias, gn_scale, gn_bias,
+                        static_cast<const bf*>(corr), wp, bias, gn_scale, gn_bias,
                         static_cast<bf*>(y), partial, static_cast<bf*>(out), B, C, K2, H, W, F,
-                        groups, eps, slope, s);
+                        groups, nb, eps, slope, s);
   } else {
     e = cudaErrorInvalidValue;
   }

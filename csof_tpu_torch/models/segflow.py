@@ -228,9 +228,12 @@ class SegFlow(nn.Module):
     def __init__(self, cfg: SegFlowModelConfig = SegFlowModelConfig(), num_classes: int = 4,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.attn_fused or cfg.deep_supervision or cfg.dec_upsample != "expand":
-            raise ValueError("attn_fused, deep_supervision and dec_upsample='linear' "
-                             "are not ported")
+        # attn_fused is a program form of the same math (the JAX package
+        # stacks the two bottlenecks' parameters under bottleneck_dual):
+        # it runs the two CrossAttentionLayers, and load_flax_params unstacks
+        # its checkpoints
+        if cfg.deep_supervision or cfg.dec_upsample != "expand":
+            raise ValueError("deep_supervision and dec_upsample='linear' are not ported")
         if cfg.out_encoder_dims[-1] != cfg.d_model:
             raise ValueError("SegFlow carries the bottleneck features as the next step's "
                              "attention input, so out_encoder_dims[-1] must equal d_model")

@@ -35,9 +35,9 @@ _SIGNATURES = {
     "csof_corr_forward": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, m, g, dq, dm, B, C, H, W, radius, stride, dtype_code, stream
     "csof_corr_backward": [_P] * 5 + [_I] * 7 + [_P],
-    # q, m, corr, w, bias, gn_scale, gn_bias, y, partial, out,
-    # B, C, K2, H, W, F, groups, eps, slope, dtype_code, stream
-    "csof_skipfuse_forward": [_P] * 10 + [_I] * 7 + [_F, _F, _I, _P],
+    # q, m, corr, packed w, bias, gn_scale, gn_bias, y, partial, out,
+    # B, C, K2, H, W, F, groups, nb, eps, slope, dtype_code, stream
+    "csof_skipfuse_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
     # x, scale, bias, out, partial, planes, C, HW, eps, slope, dtype_code, stream
     "csof_norm_act_forward": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P],
     # x, packed w, bias, out, N, Ci, H, W, Co, nb, dtype_code, out_f32, dx, stream

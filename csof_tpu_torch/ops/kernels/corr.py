@@ -95,21 +95,26 @@ def dtype_code(t: torch.Tensor) -> int:
     return _DTYPE_CODES[t.dtype]
 
 
-def corr_cuda(q: torch.Tensor, m: torch.Tensor, radius: int, stride: int) -> torch.Tensor:
-    """Launch K1 on the current stream of q's device."""
+def launch_corr(q: torch.Tensor, m: torch.Tensor, radius: int, stride: int) -> torch.Tensor:
+    """K1 on checked inputs (``check_pair``), on the current stream, with q's
+    device current."""
     global launches
-    check_pair(q, m, radius, stride)
     b, c, h, w = q.shape
     out = torch.empty((b, (2 * radius + 1) ** 2, h, w), dtype=q.dtype, device=q.device)
-    lib = _build.load_library()
-    with torch.cuda.device(q.device):
-        err = lib.csof_corr_forward(
-            q.data_ptr(), m.data_ptr(), out.data_ptr(), b, c, h, w, radius, stride,
-            dtype_code(q), torch.cuda.current_stream().cuda_stream,
-        )
+    err = _build.load_library().csof_corr_forward(
+        q.data_ptr(), m.data_ptr(), out.data_ptr(), b, c, h, w, radius, stride,
+        dtype_code(q), torch.cuda.current_stream().cuda_stream,
+    )
     _build.check(err, "csof_corr_forward")
     launches += 1
     return out
+
+
+def corr_cuda(q: torch.Tensor, m: torch.Tensor, radius: int, stride: int) -> torch.Tensor:
+    """Launch K1 on the current stream of q's device."""
+    check_pair(q, m, radius, stride)
+    with torch.cuda.device(q.device):
+        return launch_corr(q, m, radius, stride)
 
 
 def corr_bwd_cuda(q: torch.Tensor, m: torch.Tensor, g: torch.Tensor, radius: int,

@@ -7,6 +7,12 @@ LeakyReLU, forward only. q, m are ``(B, C, H, W)``; the parameters are the
 ``ConvNormAct_0`` parameters of the SkipFuse module in torch layout (conv
 weight ``(F, 2C + (2r+1)^2, 3, 3)`` and bias, GroupNorm weight and bias, all
 float32). The output is ``(B, F, H, W)`` in the input dtype.
+
+The kernel's passes: K1 (``corr.py``) writes the corr volume; the conv
+pass, K6's implicit GEMM on the tensor cores reading [q, m, corr] from the
+three tensors, writes y and the GroupNorm partials; the apply pass
+normalizes. The wrapper packs the conv weight once per call with K6's
+``pack_weight`` (the order the kernel's shared-memory descriptors read).
 """
 
 from __future__ import annotations
@@ -15,12 +21,18 @@ import torch
 import torch.nn.functional as F
 
 from csof_tpu_torch.ops.kernels import _build
-from csof_tpu_torch.ops.kernels.corr import check_pair, corr_cuda, corr_plain, dtype_code
+from csof_tpu_torch.ops.kernels.conv import pack_weight
+from csof_tpu_torch.ops.kernels.corr import check_pair, corr_plain, dtype_code, launch_corr
 
 #: launches of the CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
 
-_TILE = 16  # pixel tile edge of the conv pass (csrc/skipfuse.cu kConvTile)
+
+def partial_tiles(h: int, w: int) -> int:
+    """Tiles of the conv pass that the GroupNorm partials buffer must hold:
+    a tile is 64 columns x 2 or 4 rows (csrc/igemm3x3.cuh Tiling), so the
+    2-row count bounds both."""
+    return -(-h // 2) * -(-w // 64)
 
 
 def forward_only(name: str, *tensors: torch.Tensor,
@@ -66,8 +78,8 @@ def skip_fuse_plain(q, m, weight, bias, gn_weight, gn_bias, radius, stride,
 
 def skip_fuse_cuda(q, m, weight, bias, gn_weight, gn_bias, radius, stride,
                    num_groups=8, eps=1e-5, negative_slope=0.01):
-    """Launch K3 (corr, conv+stats, norm+activation passes) on the current
-    stream of q's device."""
+    """Launch K3 (corr, conv+stats, norm+activation passes; the weight packed
+    on the way) on the current stream of q's device."""
     global launches
     check_pair(q, m, radius, stride)
     b, c, h, w = q.shape
@@ -85,17 +97,17 @@ def skip_fuse_cuda(q, m, weight, bias, gn_weight, gn_bias, radius, stride,
     if b > 65535 or f > 65535:
         raise ValueError(f"batch {b} or features {f} too large for one launch")
     groups = num_groups_for(f, num_groups)
-    ntiles = -(-h // _TILE) * -(-w // _TILE)
-    corr = corr_cuda(q, m, radius, stride)  # pass 1: K1, staged in device memory
     y = torch.empty((b, f, h, w), dtype=q.dtype, device=q.device)
-    partial = torch.empty((b, ntiles, f, 2), dtype=torch.float32, device=q.device)
+    partial = torch.empty((b, partial_tiles(h, w), f, 2), dtype=torch.float32,
+                          device=q.device)
     out = torch.empty((b, f, h, w), dtype=q.dtype, device=q.device)
-    lib = _build.load_library()
     with torch.cuda.device(q.device):
-        err = lib.csof_skipfuse_forward(
-            q.data_ptr(), m.data_ptr(), corr.data_ptr(), weight.data_ptr(),
+        corr = launch_corr(q, m, radius, stride)  # pass 1: K1, staged in device memory
+        packed, nb = pack_weight(weight, q.dtype)
+        err = _build.load_library().csof_skipfuse_forward(
+            q.data_ptr(), m.data_ptr(), corr.data_ptr(), packed.data_ptr(),
             bias.data_ptr(), gn_weight.data_ptr(), gn_bias.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), b, c, k2, h, w, f, groups,
+            partial.data_ptr(), out.data_ptr(), b, c, k2, h, w, f, groups, nb,
             eps, negative_slope, dtype_code(q), torch.cuda.current_stream().cuda_stream,
         )
     _build.check(err, "csof_skipfuse_forward")

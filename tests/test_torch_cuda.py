@@ -81,6 +81,72 @@ def test_corr_backward_kernel_matches_plain(cuda, c, h, w, radius, stride, dtype
     _close(dm, rm, CORR_TOL[dtype])
 
 
+def _fuse_inputs(device, dtype, b, c, f, h, w, radius, seed=3):
+    """q, m (B, C, H, W) and K3's parameters for F output channels."""
+    rng = np.random.RandomState(seed)
+    q, m = (torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(device, dtype)
+            for _ in range(2))
+    cin = 2 * c + (2 * radius + 1) ** 2
+    params = [torch.from_numpy(a.astype(np.float32)).to(device) for a in (
+        rng.randn(f, cin, 3, 3) * np.sqrt(2.0 / (9 * cin)), 0.1 * rng.randn(f),
+        1 + 0.1 * rng.randn(f), 0.1 * rng.randn(f))]
+    return q, m, params
+
+
+# K1's tile is 32 columns x 4 (float32) or 8 (bf16) rows; K3's conv tile 64
+# columns x 2 or 4 rows: W 5, 23, 33, 70, 130 and H 3, 9, 13, 17 cross their
+# edges; W 23, 33 and 5 are no multiple of K1's 16-byte group (element path);
+# C 7, 12, 20 no multiple of its 8-channel chunk nor K3's 16 (bf16) / 8
+# (float32) channel chunk, so K3's chunks straddle q, m and corr
+RAGGED_CORR = [(1, 12, 17, 70, 4, 1), (8, 12, 9, 33, 4, 2), (1, 20, 13, 40, 3, 3),
+               (8, 7, 3, 24, 1, 1), (1, 16, 9, 130, 2, 2), (1, 5, 3, 5, 4, 3),
+               (8, 32, 17, 23, 4, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w,radius,stride", RAGGED_CORR)
+def test_corr_kernel_across_its_tiling_edges(cuda, b, c, h, w, radius, stride, dtype):
+    q, m, _ = _fuse_inputs(cuda, dtype, b, c, c, h, w, radius)
+    before = k1.launches
+    got = k1.corr_cuda(q, m, radius, stride)
+    torch.cuda.synchronize()
+    assert k1.launches == before + 1
+    _close(got, k1.corr_plain(q, m, radius, stride), CORR_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,f,h,w,radius,stride", [
+    (1, 12, 12, 17, 70, 4, 1),   # F = 12: 6 groups, N block 32 with 20 idle columns
+    (8, 12, 12, 9, 33, 4, 2),
+    (2, 20, 40, 13, 65, 3, 3),
+    (1, 32, 32, 5, 129, 1, 1),
+    (8, 7, 130, 3, 23, 2, 2),    # F = 130: two N blocks (128 + 2), 5 groups
+    (1, 64, 64, 17, 5, 4, 1),
+])
+def test_skip_fuse_kernel_across_its_tiling_edges(cuda, b, c, f, h, w, radius, stride, dtype):
+    q, m, params = _fuse_inputs(cuda, dtype, b, c, f, h, w, radius)
+    before = (k1.launches, k3.launches)
+    got = k3.skip_fuse_cuda(q, m, *params, radius, stride)
+    torch.cuda.synchronize()
+    assert (k1.launches, k3.launches) == (before[0] + 1, before[1] + 1)
+    _close(got, k3.skip_fuse_plain(q, m, *params, radius, stride), SKIP_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_skip_fuse_kernel_is_deterministic(cuda, dtype):
+    """The GroupNorm partials are reduced in a fixed order (no atomics): two
+    runs of K3 at the first SegFlow level give the same bits."""
+    q, m, params = _fuse_inputs(cuda, dtype, 8, 32, 32, 128, 128, 4)
+    a = k3.skip_fuse_cuda(q, m, *params, 4, 2)
+    b = k3.skip_fuse_cuda(q, m, *params, 4, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    _close(a, k3.skip_fuse_plain(q, m, *params, 4, 2), SKIP_TOL[dtype])
+
+
 @pytest.mark.cuda
 def test_corr_function_gradients_on_the_card(cuda):
     """K1 forward + K2 backward through autograd against autograd of the

@@ -53,6 +53,14 @@ def params():
     return small_params(JaxConfig(corr_fuse="concat_cm", dtype="float32", **SMALL))
 
 
+@pytest.fixture(scope="module")
+def fused_params():
+    """The small SegFlow's tree with attn_fused: the two bottlenecks stacked
+    under bottleneck_dual."""
+    return small_params(JaxConfig(corr_fuse="concat_cm", dtype="float32", attn_fused=True,
+                                  **SMALL))
+
+
 def _video(seed=0, b=2, t=3, hw=16):
     return np.random.RandomState(seed).rand(b, t, hw, hw, 1).astype(np.float32)
 
@@ -87,11 +95,50 @@ def test_segflow_matches_jax(params, mode, dtype):
                                    err_msg=k)
 
 
-def test_converter_consumes_every_leaf_once_and_fills_every_parameter(params):
-    model = SegFlow(SegFlowModelConfig(**SMALL), num_classes=4)
+def test_attn_fused_matches_jax(fused_params):
+    """attn_fused (P1): the JAX model runs both bottlenecks as one
+    pair-batched call on parameters stacked under bottleneck_dual; the port
+    runs the two unfused layers on the unstacked halves, at the unfused
+    tolerance."""
+    step = fused_params["ScanSegFlowStep_0"]
+    assert "bottleneck_dual" in step and "bottleneck_prev" not in step
+    cfg_kw = dict(SMALL, corr_fuse="fused_cm", dtype="float32", attn_fused=True)
+    video = _video(seed=4)
+    ref = _jax_forward(cfg_kw, fused_params, video)
+    model = SegFlow(SegFlowModelConfig(**cfg_kw), num_classes=4)
+    load_flax_params(model, fused_params)
+    with torch.no_grad():
+        out = model(torch.from_numpy(video))
+    assert float(np.abs(ref["flow"]).max()) > 0.1
+    atol, rtol = TOL["float32"]
+    for k in KEYS:
+        np.testing.assert_allclose(out[k].float().numpy(), ref[k], atol=atol, rtol=rtol,
+                                   err_msg=k)
+
+
+@pytest.mark.parametrize("layout", ["unfused", "attn_fused"])
+def test_converter_consumes_every_leaf_once_and_fills_every_parameter(request, layout):
+    params = request.getfixturevalue("params" if layout == "unfused" else "fused_params")
+    model = SegFlow(SegFlowModelConfig(**SMALL, attn_fused=layout == "attn_fused"),
+                    num_classes=4)
     n_leaves = len(jax.tree_util.tree_leaves(params))
-    assert n_leaves == len(list(model.parameters()))
+    step = model.ScanSegFlowStep_0
+    per_bottleneck = len(list(step.bottleneck_ed.parameters()))
+    # the stacked tree holds each bottleneck leaf once, for both layers
+    assert n_leaves + (per_bottleneck if layout == "attn_fused" else 0) == len(
+        list(model.parameters()))
     load_flax_params(model, params)
+    if layout == "attn_fused":
+        dual = params["ScanSegFlowStep_0"]["bottleneck_dual"]
+        for i, layer in enumerate((step.bottleneck_prev, step.bottleneck_ed)):
+            assert np.array_equal(layer.LayerNorm_0.weight.detach().numpy(),
+                                  np.asarray(dual["LayerNorm_0"]["scale"])[i])
+        short = jax.tree_util.tree_map(lambda x: x, params)
+        del short["ScanSegFlowStep_0"]["bottleneck_dual"]["LayerNorm_0"]["bias"]
+        # both layers miss the leaf (the message lists them sorted)
+        with pytest.raises(KeyError, match=r"bottleneck_ed\.LayerNorm_0\.bias.*"
+                                           r"bottleneck_prev\.LayerNorm_0\.bias"):
+            load_flax_params(model, short)
     extra = dict(params, stray={"kernel": np.zeros((1, 1), np.float32)})
     with pytest.raises(KeyError, match="stray"):
         load_flax_params(model, extra)
@@ -121,7 +168,7 @@ def test_config_mirrors_the_jax_fields_and_defaults(name):
 
 
 def test_unported_modes_are_refused():
-    for kw in (dict(corr_fuse="split"), dict(attn_fused=True), dict(dec_upsample="linear"),
+    for kw in (dict(corr_fuse="split"), dict(dec_upsample="linear"),
                dict(corr_fuse="fused_cm", norm="instance"), dict(d_model=32)):
         with pytest.raises(ValueError):
             SegFlow(SegFlowModelConfig(**dict(SMALL, **kw)))
