@@ -15,14 +15,16 @@ Phases, each printed on its own line:
    library's SASS (csof_tpu_torch/sass_census.py): each must have some.
 3. kernels: each kernel against its plain PyTorch version at the three
    SegFlow level geometries (K1, K3: B=8; K2: the training batch, B=4;
-   radius 4), two ragged shapes, and (K1, K3) shapes across the edges of
-   their tilings (W, H, C, F = 12 and 130, strides 1-3, radius 1-4, B 1 and
-   8), in float32 and bfloat16, with the median time of kernel and plain
-   version (bf16; K1 and K3 in float32 too), K3's library conv over the
-   concat and the whole K3 chain as library calls, K3's device time by pass
-   (torch.profiler); K3 twice on the same inputs must give the same bits;
-   the correlation's autograd gradients on the card (K1 forward, K2
-   backward) against autograd of the plain forward.
+   radius 4), two ragged shapes, and shapes across the edges of their
+   tilings (K1, K3: W, H, C, F = 12 and 130, strides 1-3, radius 1-4, B 1
+   and 8; K2: C 1-130, W 1-129, H 1 and 17, strides 1-3, radius 1-4, B 1
+   and 4, and tensors off the 16-byte grid), in float32 and bfloat16, with
+   the median time of kernel and plain version in both dtypes, K3's library
+   conv over the concat and the whole K3 chain as library calls, K3's
+   device time by pass and K2's by level (torch.profiler); K3 and K2 twice
+   on the same inputs must give the same bits; the correlation's autograd
+   gradients on the card (K1 forward, K2 backward) against autograd of the
+   plain forward.
 4. serving: the flagship SegFlow (bench geometry, bfloat16, 4 classes, random
    weights from a seed) serves 3 synthetic cine requests through
    predict_and_export_case; the output files must exist, all outputs must be
@@ -34,12 +36,15 @@ Phases, each printed on its own line:
 7. train, 8. train parity: 14 steps of Trainer.run_training at full width,
    and the float32 loss and gradients GPU vs CPU.
 9. unet kernels: K5 and K6 against their plain versions at every distinct
-   shape of one Task002 2d U-Net forward (batch 32) and ragged shapes (K6:
-   across every tile edge of its tensor-core tiling, with and without bias,
-   out_f32 on bf16), in float32 and bfloat16, with the median time of
-   kernel, plain version and library call (K6: F.conv2d; K5:
-   F.instance_norm + F.leaky_relu, a two-call note); K6's bound as 3xTF32
-   (float32) and bf16 on the tensor cores, the FP32-core bound as a note.
+   shape of one Task002 2d U-Net forward (batch 32) and ragged shapes (K5:
+   each side of every threshold of its plan, warp, block and clusters of 2,
+   4 and 8, also off the 16-byte grid; K6: across every tile edge of its
+   tensor-core tiling, with and without bias, out_f32 on bf16), in float32
+   and bfloat16, with the median time of kernel, plain version and library
+   call (K6: F.conv2d; K5: F.instance_norm + F.leaky_relu, a two-call note)
+   and K5's device time (torch.profiler); K5 twice on the same inputs must
+   give the same bits; K6's bound as 3xTF32 (float32) and bf16 on the
+   tensor cores, the FP32-core bound as a note.
 10. unet serving: the full-width Task002 2d U-Net (2 classes, float32,
    random weights, both kernel switches on) serves 2 synthetic cases
    (1, 40, 320, 320) at 1.25 mm in plane through predict_case; outputs
@@ -98,6 +103,13 @@ RAGGED = [(32, 24, 24, 1), (16, 20, 36, 2)]
 #: 1, 2 and 3, radius 1 to 4, B 1 and 8
 TILING_RAGGED = [(1, 12, 12, 17, 70, 4, 1), (8, 12, 12, 9, 33, 4, 2), (2, 20, 40, 13, 65, 3, 3),
                  (1, 32, 32, 5, 129, 1, 1), (8, 7, 130, 3, 23, 2, 2), (1, 64, 64, 17, 5, 4, 1)]
+#: K2 across its tiling's edges (32 x 4 tiles, 32 channels a block in
+#: stages of 32 / 16 / 8), (B, C, H, W, radius, stride): C 1, 8, 13, 40, 130,
+#: W 1, 17, 33, 129 (element copies) and 48, 64 (16-byte copies), H 1 and
+#: 17, strides 1-3, radius 1-4, B 1 and 4
+K2_TILING_RAGGED = [(1, 1, 17, 33, 4, 2), (4, 8, 1, 129, 4, 1), (1, 13, 17, 17, 3, 3),
+                    (4, 130, 17, 1, 1, 1), (1, 13, 1, 1, 2, 2), (4, 8, 17, 129, 2, 3),
+                    (1, 130, 17, 33, 4, 2), (4, 40, 17, 48, 3, 1), (1, 64, 17, 64, 4, 2)]
 #: (atol, rtol) per check. K1, K2: the kernel and the plain version round the
 #: same float32 sum taken in another order, so bfloat16 may differ by one
 #: unit in the last place (2^-7 relative; K2's sums of 81 terms are larger,
@@ -131,6 +143,13 @@ UNET_TOL = {
 #: more than one chunk), Co 5, 40, 128, 130 (more than one block), W 1, 23,
 #: 65, 70, 129 across the 64-pixel tiles, H 1 and 17
 K5_RAGGED = [(3, 7, 33, 129), (5, 3, 17, 9)]
+#: K5 on each side of every threshold of norm_act_plan (N, C, H, W): 4 KB
+#: planes (warp / block), then slices of 80 KB (float32: a block / 2 / 4 / 8;
+#: bf16: a block / 2 / 4); 1025, 2049, 20481, 40961, 81983 elements put
+#: planes off the 16-byte grid
+K5_PLAN_EDGES = [(2, 3, 32, 32), (2, 3, 1, 1025), (2, 3, 1, 2049), (2, 3, 128, 160),
+                 (2, 3, 1, 20481), (1, 3, 160, 256), (1, 3, 40961, 1), (1, 2, 320, 256),
+                 (1, 2, 257, 319)]
 K6_RAGGED = [(3, 13, 40, 17, 23, True, False), (2, 1, 5, 9, 70, True, False),
              (2, 130, 130, 17, 129, True, False), (2, 1, 128, 1, 65, False, False),
              (3, 13, 5, 17, 1, True, True), (2, 130, 40, 1, 70, False, True),
@@ -213,6 +232,17 @@ def compare(label: str, name: str, got, ref, atol: float, rtol: float) -> float:
     return max_abs
 
 
+def unaligned(t):
+    """t's values in a contiguous tensor that starts one element past a
+    16-byte boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def timed_pair(kern, plain) -> tuple[float, float]:
     """Median ms of kernel and plain version, in the order plain, kernel,
     kernel, plain, so that drift cancels in the pair."""
@@ -233,7 +263,8 @@ def check_kernels(card: str) -> dict:
     summed bf16 time of kernel and plain version over the three level shapes
     (one SegFlow step), its bound (csof_tpu_torch/bounds.py) at those shapes,
     and (K3) the library conv's time and the whole chain as library calls;
-    K1 and K3 also in float32 (f32_* keys), and K3's passes by device time."""
+    every kernel also in float32 (f32_* keys), K3's passes and K2's levels
+    by device time."""
     import torch
     import torch.nn.functional as F
 
@@ -288,9 +319,8 @@ def check_kernels(card: str) -> dict:
                 else:
                     err = compare("kernels", f"{kname} {tag}", got, ref, atol, rtol)
                 record(kname, err)
-                # times at the level shapes: every kernel in bf16, K1 and K3
-                # in float32 too
-                if not level or (kname == "K2" and dtype != torch.bfloat16):
+                # times at the level shapes, in both dtypes
+                if not level:
                     continue
                 t, p = timed_pair(kern, plain)
                 acc = sums.setdefault((kname, dname), {"ms": 0.0, "plain_ms": 0.0,
@@ -321,6 +351,11 @@ def check_kernels(card: str) -> dict:
                              f"library chain (K1, cat, conv2d, group_norm, leaky_relu) "
                              f"{note:.4f} ms; device ms a call by pass: "
                              + ", ".join(f"{k} {v:.4f}" for k, v in passes.items()))
+                if kname == "K2":  # device time by level: one launch, dq and dm
+                    dev = device_ms(kern)["all"]
+                    acc["device_ms"] = acc.get("device_ms", 0.0) + dev
+                    acc.setdefault("device_ms_by_level", []).append(dev)
+                    extra = f", device {dev:.4f} ms"
                 phase("kernels", f"{kname} {tag}: kernel {t:.4f} ms, plain {p:.4f} ms"
                       f"{extra} ({card})")
         # across the tiling edges of K1 (32 x 4 or 8 tiles, 16-byte groups)
@@ -339,6 +374,26 @@ def check_kernels(card: str) -> dict:
             torch.cuda.synchronize()
             record("K3", compare("kernels", f"K3 {tag}", got,
                                  k3.skip_fuse_plain(q, m, *params, r, s), *TOL[("K3", dname)]))
+        # across the edges of K2's tiling (32 x 4 tiles, 32-channel blocks,
+        # element copies where W is no multiple of the 16-byte group)
+        for (b, c, h, w, r, s) in K2_TILING_RAGGED:
+            tag = f"{dname} B={b} C={c} {h}x{w} r={r} s={s}"
+            q, m = (rand(b, c, h, w).to(dtype) for _ in range(2))
+            g = rand(b, (2 * r + 1) ** 2, h, w).to(dtype)
+            got = k1.corr_bwd_cuda(q, m, g, r, s)
+            torch.cuda.synchronize()
+            ref = k1.corr_bwd_plain(q, m, g, r, s)
+            record("K2", max(compare("kernels", f"K2 {name} {tag}", a, rf, *TOL[("K2", dname)])
+                             for name, a, rf in zip(("dq", "dm"), got, ref)))
+        # tensors off the 16-byte grid: K2's element copies and stores
+        q, m = (rand(2, 20, 24, 64).to(dtype) for _ in range(2))
+        g = rand(2, (2 * RADIUS + 1) ** 2, 24, 64).to(dtype)
+        got = k1.corr_bwd_cuda(unaligned(q), unaligned(m), unaligned(g), RADIUS, 2)
+        torch.cuda.synchronize()
+        ref = k1.corr_bwd_plain(q, m, g, RADIUS, 2)
+        record("K2", max(compare("kernels", f"K2 {name} {dname} unaligned B=2 C=20 24x64 s=2",
+                                 a, rf, *TOL[("K2", dname)])
+                         for name, a, rf in zip(("dq", "dm"), got, ref)))
     # determinism: K3 twice on the same inputs, the same bits
     for dtype in (torch.float32, torch.bfloat16):
         c, h, w, s = LEVELS[0]
@@ -348,7 +403,15 @@ def check_kernels(card: str) -> dict:
         b = k3.skip_fuse_cuda(q, m, *params, RADIUS, s)
         torch.cuda.synchronize()
         expect(torch.equal(a, b), f"K3 {dtype}: two runs on the same inputs differ")
-    phase("kernels", "K3 twice on the same inputs (float32, bfloat16): bit-identical")
+        # K2 at the training batch: each output summed by one thread, in order
+        g = rand(TRAIN_BATCH, (2 * RADIUS + 1) ** 2, h, w).to(dtype)
+        qt, mt = q[:TRAIN_BATCH].contiguous(), m[:TRAIN_BATCH].contiguous()
+        a = k1.corr_bwd_cuda(qt, mt, g, RADIUS, s)
+        b = k1.corr_bwd_cuda(qt, mt, g, RADIUS, s)
+        torch.cuda.synchronize()
+        expect(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+               f"K2 {dtype}: two runs on the same inputs differ")
+    phase("kernels", "K3 and K2 twice on the same inputs (float32, bfloat16): bit-identical")
 
     for kname in ("K1", "K2", "K3"):
         r = res[kname]
@@ -361,6 +424,8 @@ def check_kernels(card: str) -> dict:
             r[prefix + "bound_ms"], r[prefix + "bound_by"] = bound, by
         phase("kernels", f"{kname} summed over the three levels: bf16 {r['ms']:.4f} ms"
               + (f", f32 {r['f32_ms']:.4f} ms" if "f32_ms" in r else "")
+              + (f"; device bf16 {r['device_ms']:.4f} ms, f32 {r['f32_device_ms']:.4f} ms"
+                 if "device_ms" in r else "")
               + f"; bound {r['bound_ms']:.6f} ms ({r['bound_by']})"
               + (f", f32 {r['f32_bound_ms']:.6f}" if "f32_bound_ms" in r else "")
               + f" ({card})")
@@ -642,6 +707,7 @@ def check_unet_kernels(card: str) -> dict:
         fp32_cores_note,
         unet_forward_work,
     )
+    from csof_tpu_torch.kernel_times import device_ms
     from csof_tpu_torch.ops.kernels import conv as k6
     from csof_tpu_torch.ops.kernels import norm_act as k5
 
@@ -656,7 +722,7 @@ def check_unet_kernels(card: str) -> dict:
         return torch.randn(*shape, generator=gen, device="cuda") * std + mean
 
     runs = [("K5", (UNET_BATCH, *shape), count) for shape, count in UNET_K5_SHAPES]
-    runs += [("K5", shape, 0) for shape in K5_RAGGED]
+    runs += [("K5", shape, 0) for shape in K5_RAGGED + K5_PLAN_EDGES]
     runs += [("K6", (UNET_BATCH, *shape), count) for shape, count in UNET_K6_SHAPES]
     runs += [("K6", shape, 0) for shape in K6_RAGGED]
     for dtype in (torch.float32, torch.bfloat16):
@@ -672,7 +738,14 @@ def check_unet_kernels(card: str) -> dict:
                 sd, bd = scale.to(dtype), bias.to(dtype)
                 lib = lambda: F.leaky_relu(  # noqa: E731
                     F.instance_norm(x, weight=sd, bias=bd, eps=1e-5), 0.01)
-                tag = f"{dname} (N, C, H, W)={shape}"
+                plan = k5.norm_act_plan(n, c, h, w, dtype)
+                tag = f"{dname} (N, C, H, W)={shape} {plan.path} {plan.cluster}"
+                if not count:  # off the 16-byte grid: element copies and stores
+                    got = k5.norm_act_cuda(unaligned(x), scale, bias)
+                    torch.cuda.synchronize()
+                    res[kname]["max_abs_err"] = max(res[kname]["max_abs_err"], compare(
+                        "unet kernels", f"K5 {tag} unaligned", got, plain(),
+                        *UNET_TOL[("K5", dname)]))
             else:
                 n, ci, co, h, w, *flags = shape
                 with_bias, out_f32 = flags or (True, False)
@@ -703,9 +776,25 @@ def check_unet_kernels(card: str) -> dict:
                 r["ms"] += count * t
                 r["plain_ms"] += count * p
                 r["library_note_ms" if kname == "K5" else "library_ms"] += count * lib_ms
+            dev = ""
+            if kname == "K5":  # device time without the wrapper's host work
+                d = device_ms(kern)["all"]
+                key = "device_ms" if dtype == torch.float32 else "bf16_device_ms"
+                r[key] = r.get(key, 0.0) + count * d
+                dev = f", device {d:.4f} ms"
             libname = "F.instance_norm + F.leaky_relu (note)" if kname == "K5" else "F.conv2d"
-            phase("unet kernels", f"{kname} {tag} x{count} per forward: kernel {t:.4f} ms, "
-                  f"plain {p:.4f} ms, {libname} {lib_ms:.4f} ms ({card})")
+            phase("unet kernels", f"{kname} {tag} x{count} per forward: kernel {t:.4f} ms"
+                  f"{dev}, plain {p:.4f} ms, {libname} {lib_ms:.4f} ms ({card})")
+    # determinism: K5 twice on the largest planes (a cluster each), the same bits
+    for dtype in (torch.float32, torch.bfloat16):
+        c, h, w = UNET_K5_SHAPES[0][0]
+        x = rand(UNET_BATCH, c, h, w, std=2.0, mean=0.5).to(dtype)
+        scale, bias = 1.0 + rand(c, std=0.2), rand(c, std=0.2)
+        a, b = k5.norm_act_cuda(x, scale, bias), k5.norm_act_cuda(x, scale, bias)
+        torch.cuda.synchronize()
+        expect(torch.equal(a, b), f"K5 {dtype}: two runs on the same inputs differ")
+        del x, a, b
+    phase("unet kernels", "K5 twice on the same inputs (float32, bfloat16): bit-identical")
     for kname, r in res.items():
         r["bound_ms"], r["bound_by"] = bound_ms(*unet_forward_work(kname, 4))
         for dname, size in (("float32", 4), ("bfloat16", 2)):

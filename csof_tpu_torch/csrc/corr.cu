@@ -75,50 +75,6 @@ inline size_t corr_smem_bytes(int r, int s, int ch) {
   return 2 * (size_t)ch * (CorrGeom<T>::kTH * kCorrTW + g.rows * g.cols) * sizeof(T);
 }
 
-// P values of shared memory as float32 (one vector load), and P float32
-// values to the dtype (one vector store; bf16 rounds to nearest even)
-template <int P>
-__device__ __forceinline__ void load_p(const float* p, float* v) {
-  static_assert(P == 4, "float32: 16 bytes");
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
-}
-template <int P>
-__device__ __forceinline__ void load_p(const __nv_bfloat16* p, float* v) {
-  static_assert(P == 4 || P == 8, "bf16: 8 or 16 bytes");
-  uint32_t w[P / 2];
-  if constexpr (P == 8) {
-    const uint4 t = *reinterpret_cast<const uint4*>(p);
-    w[0] = t.x, w[1] = t.y, w[2] = t.z, w[3] = t.w;
-  } else {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    w[0] = t.x, w[1] = t.y;
-  }
-#pragma unroll
-  for (int k = 0; k < P / 2; ++k) {
-    v[2 * k] = __uint_as_float(w[k] << 16);
-    v[2 * k + 1] = __uint_as_float(w[k] & 0xFFFF0000u);
-  }
-}
-template <int P>
-__device__ __forceinline__ void store_p(float* p, const float* v) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
-  const __nv_bfloat16 a = __float2bfloat16_rn(lo), b = __float2bfloat16_rn(hi);
-  return *reinterpret_cast<const uint16_t*>(&a) |
-         (uint32_t(*reinterpret_cast<const uint16_t*>(&b)) << 16);
-}
-template <int P>
-__device__ __forceinline__ void store_p(__nv_bfloat16* p, const float* v) {
-  if constexpr (P == 8) {
-    *reinterpret_cast<uint4*>(p) = make_uint4(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]),
-                                              bf16_pair(v[4], v[5]), bf16_pair(v[6], v[7]));
-  } else {
-    *reinterpret_cast<uint2*>(p) = make_uint2(bf16_pair(v[0], v[1]), bf16_pair(v[2], v[3]));
-  }
-}
-
 // grid (row tiles x column tiles, B), block 32 * K: warp j = window row j.
 // S = the stride when it is a template constant (1, 2), else 0 (read from
 // `stride`); CH = channels a chunk; vec = 1 when W is a multiple of P and

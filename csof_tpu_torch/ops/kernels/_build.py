@@ -38,8 +38,9 @@ _SIGNATURES = {
     # q, m, corr, packed w, bias, gn_scale, gn_bias, y, partial, out,
     # B, C, K2, H, W, F, groups, nb, eps, slope, dtype_code, stream
     "csof_skipfuse_forward": [_P] * 10 + [_I] * 8 + [_F, _F, _I, _P],
-    # x, scale, bias, out, partial, planes, C, HW, eps, slope, dtype_code, stream
-    "csof_norm_act_forward": [_P] * 5 + [_I] * 3 + [_F, _F, _I, _P],
+    # x, scale, bias, out, planes, C, HW, cluster, slice, smem, eps, slope,
+    # dtype_code, stream
+    "csof_norm_act_forward": [_P] * 4 + [_I] * 6 + [_F, _F, _I, _P],
     # x, packed w, bias, out, N, Ci, H, W, Co, nb, dtype_code, out_f32, dx, stream
     "csof_conv3x3_forward": [_P] * 4 + [_I] * 9 + [_P],
     # pred, target, cc, N, H, W, window, eps, stream

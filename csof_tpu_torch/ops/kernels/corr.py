@@ -21,7 +21,7 @@ from csof_tpu_torch.ops.kernels import _build
 
 #: launches of the K1 CUDA kernel since the last reset (set to 0 to reset)
 launches = 0
-#: launches of the K2 CUDA kernel pair since the last reset, one per backward
+#: launches of the K2 CUDA kernel since the last reset, one per backward
 bwd_launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -117,10 +117,38 @@ def corr_cuda(q: torch.Tensor, m: torch.Tensor, radius: int, stride: int) -> tor
         return launch_corr(q, m, radius, stride)
 
 
+#: K2's tiling (csrc/corr_bwd.cu): output tile columns, channels a block
+BWD_TILE_W, BWD_BLOCK_CHANNELS = 32, 32
+#: shared memory a block may ask for on the H100
+MAX_SMEM_BYTES = 227 * 1024
+
+
+def corr_bwd_geometry(dtype: torch.dtype, radius: int, stride: int) -> dict:
+    """K2's tile and shared-memory layout, as ``bwd_layout`` in
+    csrc/corr_bwd.cu computes it: pixels a thread, tile rows, the halo r*s
+    and its columns rounded up to 16-byte copy groups, the g rows a buffer
+    holds (tile rows + r*s), the channels a ring stage holds (bf16 32,
+    float32 16 at strides 1 and 2, else 8), and the bytes a block asks for
+    (two ring stages of q and m rows, two g buffers)."""
+    item = dtype.itemsize
+    group = 16 // item
+    rows = 32 // (BWD_TILE_W // 4)
+    halo = radius * stride
+    a = -(-halo // group) * group
+    cols = BWD_TILE_W + 2 * a
+    grows = rows + halo
+    stage_channels = (32 if item == 2 else 16) if stride <= 2 else 8
+    qm = 2 * stage_channels * rows * cols
+    gbuf = (2 * radius + 1) * grows * cols
+    return {"pixels": 4, "rows": rows, "halo": halo, "a": a, "cols": cols,
+            "grows": grows, "stage_channels": stage_channels,
+            "smem_bytes": 2 * (qm + gbuf) * item}
+
+
 def corr_bwd_cuda(q: torch.Tensor, m: torch.Tensor, g: torch.Tensor, radius: int,
                   stride: int) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch K2 (its dq and dm kernels) on the current stream of q's device.
-    g must be contiguous ``(B, (2r+1)^2, H, W)`` in the dtype of q."""
+    """Launch K2 on the current stream of q's device: one kernel computes dq
+    and dm. g must be contiguous ``(B, (2r+1)^2, H, W)`` in the dtype of q."""
     global bwd_launches
     check_pair(q, m, radius, stride)
     b, c, h, w = q.shape
@@ -130,8 +158,12 @@ def corr_bwd_cuda(q: torch.Tensor, m: torch.Tensor, g: torch.Tensor, radius: int
                          f"{tuple(g.shape)} {g.dtype} on {g.device}")
     if not g.is_contiguous():
         raise ValueError("g must be contiguous")
-    if b * -(-c // 8) > 65535:
-        raise ValueError(f"batch {b} x channels {c} too large for one launch")
+    if -(-c // BWD_BLOCK_CHANNELS) > 65535:
+        raise ValueError(f"{c} channels too many for one launch")
+    smem = corr_bwd_geometry(q.dtype, radius, stride)["smem_bytes"]
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"radius {radius} x stride {stride}: a halo too wide to stage "
+                         f"({smem} bytes of shared memory a block)")
     dq = torch.empty_like(q)
     dm = torch.empty_like(m)
     lib = _build.load_library()

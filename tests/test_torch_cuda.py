@@ -163,6 +163,72 @@ def test_corr_function_gradients_on_the_card(cuda):
         _close(a, b, (1e-4, 1e-4))
 
 
+def _unaligned(t):
+    """t's values in a contiguous tensor that starts one element past a
+    16-byte boundary (the kernels' element paths)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _bwd_inputs(device, dtype, b, c, h, w, radius, seed=4):
+    rng = np.random.RandomState(seed)
+    q, m = (torch.from_numpy(rng.randn(b, c, h, w).astype(np.float32)).to(device, dtype)
+            for _ in range(2))
+    g = torch.from_numpy(rng.randn(b, (2 * radius + 1) ** 2, h, w).astype(np.float32))
+    return q, m, g.to(device, dtype)
+
+
+# K2's block is 32 columns x 4 (float32) or 8 (bf16) rows and 32 channels,
+# staged 8 channels a ring stage: C 1, 8, 13, 40 and 130 leave a block or a
+# stage partly empty; W 1, 17, 33, 129 are no multiple of the 16-byte group
+# (element copies and stores) and cross the 32-column tile, W 48 and 64
+# take the 16-byte path at a ragged H; H 1 and 17 cross the row tiles;
+# strides 1-3 (3 indexes shared memory per FMA), radius 1-4, B 1 and 4
+RAGGED_CORR_BWD = [(1, 1, 17, 33, 4, 2), (4, 8, 1, 129, 4, 1), (1, 13, 17, 17, 3, 3),
+                   (4, 130, 17, 1, 1, 1), (1, 13, 1, 1, 2, 2), (4, 8, 17, 129, 2, 3),
+                   (1, 130, 17, 33, 4, 2), (4, 40, 17, 48, 3, 1), (1, 64, 17, 64, 4, 2),
+                   (1, 8, 17, 33, 4, 3)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w,radius,stride", RAGGED_CORR_BWD)
+def test_corr_backward_kernel_across_its_tiling_edges(cuda, b, c, h, w, radius, stride, dtype):
+    q, m, g = _bwd_inputs(cuda, dtype, b, c, h, w, radius)
+    before = k1.bwd_launches
+    dq, dm = k1.corr_bwd_cuda(q, m, g, radius, stride)
+    torch.cuda.synchronize()
+    assert k1.bwd_launches == before + 1
+    rq, rm = k1.corr_bwd_plain(q, m, g, radius, stride)
+    _close(dq, rq, CORR_TOL[dtype])
+    _close(dm, rm, CORR_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_corr_backward_kernel_on_unaligned_tensors(cuda, dtype):
+    """Tensors off the 16-byte grid take K2's element copies and stores."""
+    q, m, g = _bwd_inputs(cuda, dtype, 2, 20, 24, 64, 4)
+    dq, dm = k1.corr_bwd_cuda(*(_unaligned(t) for t in (q, m, g)), 4, 2)
+    rq, rm = k1.corr_bwd_plain(q, m, g, 4, 2)
+    _close(dq, rq, CORR_TOL[dtype])
+    _close(dm, rm, CORR_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_corr_backward_kernel_is_deterministic(cuda, dtype):
+    """Each output is summed by one thread in a fixed order (no atomics):
+    two runs of K2 at the first SegFlow level give the same bits."""
+    q, m, g = _bwd_inputs(cuda, dtype, 4, 32, 128, 128, 4)
+    a = k1.corr_bwd_cuda(q, m, g, 4, 2)
+    b = k1.corr_bwd_cuda(q, m, g, 4, 2)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 # K5: the kernel and the plain version take the same float32 sums in another
 # order, so the statistics differ by a few float32 ulps, which the
 # normalization scales by 1/std; bf16 rounds once: one bf16 ulp (2^-8).
@@ -192,6 +258,56 @@ def test_norm_act_kernel_matches_plain(cuda, n, c, h, w, dtype):
     assert k5.launches == before + 1
     assert bool(torch.isfinite(got).all())
     _close(got, k5.norm_act_plain(x, scale, bias), NORM_TOL[dtype])
+
+
+def _norm_inputs(device, dtype, n, c, h, w, seed=3):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(n, c, h, w) * 2 + 0.5).astype(np.float32)).to(device, dtype)
+    x[0, 0] = 0.25  # a constant plane stays finite
+    scale = torch.from_numpy(1 + 0.2 * rng.randn(c).astype(np.float32)).to(device)
+    bias = torch.from_numpy(0.2 * rng.randn(c).astype(np.float32)).to(device)
+    return x, scale, bias
+
+
+# each side of every threshold of norm_act_plan: 4 KB planes (a warp a plane
+# / a block: float32 1024 / 1025 elements, bf16 2048 / 2049), then slices of
+# 80 KB: 20480 elements (float32: a block / a cluster of 2), 40960 (float32:
+# 2 / 4; bf16: a block / 2), 81920 (float32: 4 / 8; bf16: 2 / 4); plane
+# sizes 1025, 2049, 20481, 40961, 81983 and 4257 put planes off the 16-byte
+# grid (element copies for a head and tail)
+NORM_PLAN_EDGES = [(2, 3, 32, 32), (2, 3, 1, 1025), (2, 3, 1, 2049), (2, 3, 64, 64),
+                   (2, 3, 128, 160), (2, 3, 1, 20481), (1, 3, 160, 256), (1, 3, 40961, 1),
+                   (1, 2, 320, 256), (1, 2, 257, 319), (3, 7, 33, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,c,h,w", NORM_PLAN_EDGES)
+def test_norm_act_kernel_across_its_plan_edges(cuda, n, c, h, w, dtype):
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    x, scale, bias = _norm_inputs(cuda, dtype, n, c, h, w)
+    ref = k5.norm_act_plain(x, scale, bias)
+    for xin in (x, _unaligned(x)):
+        before = k5.launches
+        got = k5.norm_act_cuda(xin, scale, bias)
+        torch.cuda.synchronize()
+        assert k5.launches == before + 1
+        _close(got, ref, NORM_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_norm_act_kernel_is_deterministic(cuda, dtype):
+    """Sums in a fixed order, the cluster's partials in rank order: two runs
+    of K5 on the U-Net's largest planes give the same bits."""
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    x, scale, bias = _norm_inputs(cuda, dtype, 4, 32, 320, 256)
+    a = k5.norm_act_cuda(x, scale, bias)
+    b = k5.norm_act_cuda(x, scale, bias)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -260,6 +376,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         k1.corr_bwd_cuda(q, m, g.bfloat16(), 2, 1)
     with pytest.raises(ValueError, match="contiguous"):
         k1.corr_bwd_cuda(q, m, g.transpose(2, 3), 2, 1)
+    with pytest.raises(ValueError, match="halo"):
+        k1.corr_bwd_cuda(q, m, torch.zeros(2, 81, 12, 12, device=cuda), 4, 7)
     from csof_tpu_torch.ops.kernels import conv as k6
     from csof_tpu_torch.ops.kernels import norm_act as k5
 
