@@ -68,9 +68,18 @@ Phases, each printed on its own line:
    the checkpoint triad written and reloaded; train slices/s.
 15. unet train parity: full width, batch 2 of 320x256, float32: the GPU
    loss and every parameter gradient against the CPU's.
-16. ncc: K4 against its plain version at 20 x 128^2 (the SegFlow loss's
-   B=4 x 5 planes) and two ragged shapes, with times; then ncc_loss_kernel,
-   the op's entry point, on the same planes against the port's ncc_loss.
+16. ncc: K4 against its plain version at 20 and 88 planes of 128^2 (the
+   SegFlow loss at its training batch, B=4 x 5 frames, and at the bench
+   geometry, 8 cines x 11 frames), ragged H and W (1, 17, 33, 129), planes
+   wider than a block (column tiles), windows 1, 4, 8, 9, 15, 21, 31 (even,
+   above 15, one wider than the plane), and tensors off the 16-byte grid in
+   float32 and bf16; window 9's division without a divide against IEEE
+   division for every float32; at both timed shapes the map's and the loss's
+   CUDA-event, device and host time a call beside the bound; the map twice
+   and the loss three times must give the same bits, and ncc_loss_kernel
+   must be one device kernel (torch.profiler, in a fresh process); then
+   ncc_loss_kernel, the op's entry point, driven alone against the port's
+   ncc_loss (C = 1, C = 3, bf16).
 
 Then one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -166,8 +175,16 @@ K6_BWD_RAGGED = [(3, 13, 40, 17, 23), (2, 5, 9, 9, 70), (2, 130, 1, 17, 65),
 K6_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
 UNET_TRAIN_CASES = 4
 UNET_TRAIN_EPOCHS, UNET_TRAIN_STEPS, UNET_VAL_STEPS, UNET_TRAIN_WARMUP = 2, 6, 2, 2
-#: K4 planes: (N, H, W); the first is the SegFlow loss's B=4 x (T-1)=5 at 128^2
-NCC_SHAPES = [(20, 128, 128), (3, 33, 70), (2, 17, 9)]
+#: K4 (N, H, W, window): the SegFlow loss's B=4 x (T-1)=5 planes of 128^2 and
+#: the bench geometry's 8 x 11 (both timed), ragged H and W (1, 17, 33, 129),
+#: planes wider than a block (257, 600: column tiles), windows 1, 4, 8, 9, 15,
+#: 21, 31 (even, above 15, one wider than the plane)
+NCC_CASES = [(20, 128, 128, 9), (88, 128, 128, 9), (3, 33, 70, 9), (2, 17, 9, 9),
+             (2, 1, 33, 1), (2, 17, 129, 4), (1, 129, 17, 31), (1, 17, 129, 15), (1, 9, 7, 21),
+             (1, 20, 600, 31), (2, 17, 257, 8)]
+NCC_TIMED = (20, 88)  # planes of 128^2, window 9
+#: K4 on tensors one element past the 16-byte grid (the kernel's element copies)
+NCC_UNALIGNED = [(3, 33, 70, 9), (2, 17, 129, 4)]
 NCC_ATOL = 1e-4  # cc in [0, ~1]; the same operations, division by a reciprocal in the plain
 LAUNCHES_PER_REQUEST = 136  # 34 skip fuses per forward x 4 TTA forwards
 #: K1 (forward) and K2 (backward) per train step: the frame-0 prime step
@@ -1281,40 +1298,103 @@ def unet_train_parity(card: str) -> None:
     expect(ok, f"gradient {worst_name} outside tolerance")
 
 
-def check_ncc(card: str) -> tuple[dict, dict]:
-    """Phase 16: K4 against its plain version, with times at the SegFlow
-    loss shape; then the op's entry point, ncc_loss_kernel, driven alone."""
+def ncc_planes(rng: np.random.RandomState, n: int, h: int, w: int):
+    """I in [0, 1) with a constant corner (var cancels there), J a noisy copy."""
     import torch
 
-    from csof_tpu_torch.bounds import bound_ms, ncc_work
+    a = rng.rand(n, h, w).astype(np.float32)
+    a[:, : h // 3, : w // 3] = 0.4
+    b = (0.7 * a + 0.3 * rng.rand(n, h, w)).astype(np.float32)
+    return torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
+
+
+def check_ncc(card: str) -> tuple[dict, dict]:
+    """Phase 16: K4 against its plain version across its plan's edges, with
+    times at the SegFlow loss shapes; then the op's entry point,
+    ncc_loss_kernel, driven alone."""
+    import torch
+
+    from csof_tpu_torch.bounds import bound_ms, ncc_loss_work, ncc_work
     from csof_tpu_torch.ops import losses as L
     from csof_tpu_torch.ops.kernels import ncc as k4
 
     rng = np.random.RandomState(9)
     res = {"max_abs_err": 0.0, "library_ms": None}
-    for i, (n, h, w) in enumerate(NCC_SHAPES):
-        a = rng.rand(n, h, w).astype(np.float32)
-        a[:, : h // 3, : w // 3] = 0.4  # a constant region
-        b = (0.7 * a + 0.3 * rng.rand(n, h, w)).astype(np.float32)
-        pa, pb = torch.from_numpy(a).cuda(), torch.from_numpy(b).cuda()
-        got = k4.ncc_map_cuda(pa, pb)
+    planes = {}
+    for n, h, w, window in NCC_CASES:
+        pa, pb = ncc_planes(rng, n, h, w)
+        got = k4.ncc_map_cuda(pa, pb, window)
         torch.cuda.synchronize()
-        err = compare("ncc", f"K4 float32 (N, H, W)=({n}, {h}, {w}) window 9", got,
-                      k4.ncc_map_plain(pa, pb), NCC_ATOL, 0.0)
+        err = compare("ncc", f"K4 float32 (N, H, W)=({n}, {h}, {w}) window {window}", got,
+                      k4.ncc_map_plain(pa, pb, window), NCC_ATOL, 0.0)
         res["max_abs_err"] = max(res["max_abs_err"], err)
-        if i == 0:
-            res["ms"], res["plain_ms"] = timed_pair(lambda: k4.ncc_map_cuda(pa, pb),
-                                                    lambda: k4.ncc_map_plain(pa, pb))
-            res["bound_ms"], res["bound_by"] = bound_ms(*ncc_work(n, h, w))
-            loss_ms = median_ms(lambda: L.ncc_loss(pa[..., None], pb[..., None],
-                                                   reduction="none"))
-            phase("ncc", f"K4 ({n}, {h}, {w}): kernel {res['ms']:.4f} ms, plain "
-                  f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms "
-                  f"({res['bound_by']}); library: none (no one PyTorch call; note: the port's "
-                  f"ncc_loss map, average pooling and elementwise calls, {loss_ms:.4f} ms) "
-                  f"({card})")
-            moving = pa[..., None]
-            fixed = pb[:1].expand_as(pb)[..., None].contiguous()
+        if (h, w, window) == (128, 128, 9):
+            planes[n] = (pa, pb)
+    for n, h, w, window in NCC_UNALIGNED:
+        pa, pb = ncc_planes(rng, n, h, w)
+        for dtype in (torch.float32, torch.bfloat16):
+            a, b = unaligned(pa.to(dtype)), unaligned(pb.to(dtype))
+            got = k4.ncc_map_cuda(a, b, window)
+            torch.cuda.synchronize()
+            err = compare("ncc", f"K4 {str(dtype).removeprefix('torch.')} off the 16-byte grid "
+                          f"({n}, {h}, {w}) window {window}", got, k4.ncc_map_plain(a, b, window),
+                          NCC_ATOL, 0.0)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+    bad = k4.division_mismatches(9)
+    expect(bad == 0, f"window 9's division differs from IEEE division at {bad} floats")
+    phase("ncc", "window 9's division by 81 without a divide: equal to IEEE division at all "
+          "2^32 float32 values")
+
+    # device and host time from a fresh process: torch.profiler loses device
+    # events after many traces in one (phase 16 once read a third of them)
+    proc = subprocess.run([sys.executable, "-m", "csof_tpu_torch.kernel_times", "--only=K4"],
+                          capture_output=True, text=True, timeout=600)
+    expect(proc.returncode == 0, f"kernel_times --only=K4 failed:\n{proc.stderr[-2000:]}")
+    kt = json.loads(proc.stdout.strip().splitlines()[-1])
+    for n in NCC_TIMED:
+        pa, pb = planes[n]
+        la, lb = pa[..., None], pb[..., None]
+        ms, plain_ms = timed_pair(lambda: k4.ncc_map_cuda(pa, pb),
+                                  lambda: k4.ncc_map_plain(pa, pb))
+        dev, host = kt[f"K4_map_{n}_device_ms"], kt[f"K4_map_{n}_host_us"]
+        bnd, by = bound_ms(*ncc_work(n, 128, 128))
+        loss_ms = median_ms(lambda: k4.ncc_loss_kernel(la, lb))
+        loss_dev, loss_host = kt[f"K4_loss_{n}_device_ms"], kt[f"K4_loss_{n}_host_us"]
+        loss_bnd = bound_ms(*ncc_loss_work(n, 128, 128))[0]
+        note_ms = median_ms(lambda: L.ncc_loss(la, lb, reduction="none"))
+        phase("ncc", f"K4 map ({n}, 128, 128): events {ms:.4f} ms, device {dev:.4f} ms, host "
+              f"{host:.1f} us a call, bound {bnd:.6f} ms ({by}), plain {plain_ms:.4f} ms; loss "
+              f"(no map): events {loss_ms:.4f} ms, device {loss_dev:.4f} ms, host "
+              f"{loss_host:.1f} us a call, bound {loss_bnd:.6f} ms; library: none (no one "
+              f"PyTorch call; note: the port's ncc_loss map, average pooling and elementwise "
+              f"calls, {note_ms:.4f} ms) ({card})")
+        suffix = "" if n == NCC_TIMED[0] else f"_{n}"
+        res.update({f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                    f"device_ms{suffix}": dev, f"host_us{suffix}": host,
+                    f"bound_ms{suffix}": bnd, f"loss_ms{suffix}": loss_ms,
+                    f"loss_device_ms{suffix}": loss_dev, f"loss_host_us{suffix}": loss_host,
+                    f"loss_bound_ms{suffix}": loss_bnd})
+        if not suffix:
+            res["bound_by"] = by
+        names = kt[f"K4_loss_{n}_kernels"]
+        expect(kt[f"K4_loss_{n}_launches"] == len(names) == 1 and "ncc_kernel" in names[0],
+               f"ncc_loss_kernel: {kt[f'K4_loss_{n}_launches']} launches, device kernels "
+               f"{names}")
+
+    # the same bits run to run
+    pa, pb = planes[88]
+    maps = [k4.ncc_map_cuda(pa, pb) for _ in range(2)]
+    losses = [k4.ncc_loss_kernel(pa[..., None], pb[..., None]) for _ in range(3)]
+    torch.cuda.synchronize()
+    expect(torch.equal(maps[0], maps[1]), "K4 map: two runs on the same inputs differ")
+    expect(losses[0].item() == losses[1].item() == losses[2].item(),
+           f"ncc_loss_kernel: three runs differ: {[v.item() for v in losses]}")
+    phase("ncc", f"K4 map twice and the loss three times at (88, 128, 128): bit-identical; "
+          f"ncc_loss_kernel is one device kernel ({names[0][:60]}...)")
+
+    pa, pb = planes[20]
+    moving = pa[..., None]
+    fixed = pb[:1].expand_as(pb)[..., None].contiguous()
     _reset_counts()
     value = k4.ncc_loss_kernel(moving, fixed)
     torch.cuda.synchronize()
@@ -1325,6 +1405,15 @@ def check_ncc(card: str) -> tuple[dict, dict]:
     expect(counts["K4"] == 1 and sum(counts.values()) == 1, f"launches {counts}")
     phase("ncc", f"ncc_loss_kernel on {tuple(moving.shape)}: {value.item():.6f} vs ncc_loss "
           f"{ref.item():.6f}; launches {counts} ({card})")
+    a3, b3 = ncc_planes(rng, 4 * 3, 128, 128)
+    a3, b3 = (t.view(4, 3, 128, 128).permute(0, 2, 3, 1).contiguous() for t in (a3, b3))
+    for label, (x, y) in (("C = 3", (a3, b3)),
+                          ("bf16", (moving.bfloat16(), fixed.bfloat16()))):
+        value, ref = k4.ncc_loss_kernel(x, y), L.ncc_loss(x, y)
+        expect(abs(value.item() - ref.item()) <= 1e-5,
+               f"ncc_loss_kernel {label}: {value.item()} vs ncc_loss {ref.item()}")
+        phase("ncc", f"ncc_loss_kernel {label} {tuple(x.shape)}: {value.item():.6f} vs ncc_loss "
+              f"{ref.item():.6f}")
     return res, counts
 
 

@@ -34,6 +34,11 @@ UNET_K5_SHAPES = [((32, 320, 256), 4), ((64, 160, 128), 4), ((128, 80, 64), 4),
                   ((256, 40, 32), 4), ((480, 20, 16), 4), ((480, 10, 8), 4), ((480, 5, 4), 2)]
 UNET_K6_SHAPES = [((1, 32, 320, 256), 1), ((32, 32, 320, 256), 2), ((64, 32, 320, 256), 1),
                   ((64, 64, 160, 128), 2), ((128, 64, 160, 128), 1)]
+#: K4's planes of 128x128, (N, what they are): the SegFlow NCC loss at the
+#: training batch (B=4 x (T-1)=5 frames) and at the bench geometry (8 cines x
+#: (12-1) frames)
+K4_SHAPES = [(20, "one SegFlow train loss: B=4 x 5 frames"),
+             (88, "the SegFlow loss at the bench geometry: 8 cines x 11 frames")]
 #: one training step of the same U-Net at its training batch: K6 forward at
 #: the shapes above, and K6's dx (the kernel on dy with the flipped weight,
 #: no bias) for each of them but the first conv, whose input is the data, as
@@ -82,6 +87,15 @@ def ncc_work(n: int, h: int, w: int, window: int = 9) -> tuple[float, float, flo
     closing arithmetic a pixel."""
     px = n * h * w
     return 3 * px * 4, px * (3 + 5 * 2 * (window - 1) + 20), 0.0
+
+
+def ncc_loss_work(n: int, h: int, w: int, window: int = 9,
+                  itemsize: int = 4) -> tuple[float, float, float]:
+    """K4 in loss mode: I, J -> 1 - mean(clamp(cc)). It reads I and J (8
+    bytes a pixel in float32) and writes no map; the map's operations, plus
+    a clamp and an add a pixel."""
+    px = n * h * w
+    return 2 * px * itemsize, ncc_work(n, h, w, window)[1] + 2 * px, 0.0
 
 
 def norm_act_work(n: int, c: int, h: int, w: int, itemsize: int) -> tuple[float, float, float]:
@@ -166,8 +180,10 @@ def rows() -> list[tuple[str, str, float, str]]:
         out.append((name, "note: f32, B=8, summed over the three SegFlow levels"
                     f"{' (the conv as 3xTF32)' if name == 'K3' else ''}",
                     *bound_ms(*[sum(x) for x in zip(*work)])))
-    out.append(("K4", "f32, 20 maps of 128x128 (one SegFlow train loss: B=4 x 5 frames)",
-                *bound_ms(*ncc_work(20, 128, 128))))
+    for n, what in K4_SHAPES:
+        out.append(("K4", f"f32, {n} maps of 128x128 ({what})", *bound_ms(*ncc_work(n, 128, 128))))
+        out.append(("K4", f"f32 loss (no map), {n} planes of 128x128 ({what})",
+                    *bound_ms(*ncc_loss_work(n, 128, 128))))
     for name, n in (("K5", 26), ("K6", 7)):
         out.append((name, f"f32{' as 3xTF32' if name == 'K6' else ''}, the {n} launches of "
                     "one Task002 2d U-Net serving forward (batch 32, 320x256)",

@@ -1,23 +1,31 @@
 #!/usr/bin/env python3
-"""Time K1 (local correlation), K3 (skip fuse), K2 (correlation backward)
-and K5 (InstanceNorm + LeakyReLU) at their path's shapes on a CUDA device.
+"""Time K1 (local correlation), K3 (skip fuse), K2 (correlation backward),
+K5 (InstanceNorm + LeakyReLU) and K4 (windowed NCC) at their path's shapes on
+a CUDA device.
 
-    python3 -m csof_tpu_torch.kernel_times [out.json] [--k5-plans]
+    python3 -m csof_tpu_torch.kernel_times [out.json] [--only=K4,K5] [--k5-plans]
+        [--k4-bands]
 
 K1, K3: B = 8, radius 4, (C, H, W, stride) = (32, 128, 128, 2), (64, 64, 64,
 1), (128, 32, 32, 1); K2: the same levels at the SegFlow training batch, B =
 4; K5: the 26 launches of one Task002 2d U-Net forward (batch 32, every
-``UNET_K5_SHAPES`` entry times its launches). bfloat16 and float32, random
-inputs from a seed. For each kernel and dtype: the CUDA-event median of 20
-calls after 3 warm-up calls (host launch gaps included), and the device time
-of the kernels one call launches (torch.profiler, the mean of 10 calls), per
-shape and summed (K5: weighted by launches). Prints one JSON object (also
-written to out.json) with the card's name and power limit. Only the
-wrappers' public entry points are called (``corr_cuda``, ``skip_fuse_cuda``,
-``corr_bwd_cuda``, ``norm_act_cuda``), so the same script times any tree of
-the port that has them, for a before/after comparison in one call.
-``--k5-plans`` adds K5's device time at every U-Net plane under every plan
-the kernel can run (this tree only).
+``UNET_K5_SHAPES`` entry times its launches); K4: float32 planes of 128 x 128,
+20 (the SegFlow loss at the training batch) and 88 (at the bench geometry),
+window 9, as the map (``ncc_map_cuda``) and as the loss (``ncc_loss_kernel``
+on (N, 128, 128, 1)). bfloat16 and float32 (K4: float32), random inputs from
+a seed. For each kernel and dtype: the CUDA-event median of 20 calls after 3
+warm-up calls (host launch gaps included), and the device time of the
+kernels one call launches (torch.profiler, the mean of 10 calls), per shape
+and summed (K5: weighted by launches); for K4 also the host time a call
+(``time.perf_counter`` over 1000 calls, no synchronize). Prints one JSON
+object (also written to out.json) with the card's name and power limit. Only
+the wrappers' public entry points are called (``corr_cuda``,
+``skip_fuse_cuda``, ``corr_bwd_cuda``, ``norm_act_cuda``, ``ncc_map_cuda``,
+``ncc_loss_kernel``), so the same script times any tree of the port that has
+them, for a before/after comparison in one call. ``--only`` times the named
+kernels alone. ``--k5-plans`` adds K5's device time at every U-Net plane
+under every plan the kernel can run, ``--k4-bands`` K4's device time at 88
+planes under bands of 9 to 63 rows (this tree only).
 """
 
 from __future__ import annotations
@@ -26,11 +34,13 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
 LEVELS = [(32, 128, 128, 2), (64, 64, 64, 1), (128, 32, 32, 1)]
 BATCH, TRAIN_BATCH, RADIUS = 8, 4, 4
+K4_PLANES = (20, 88)
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -48,30 +58,121 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10, group=lambda name: "all") -> dict[str, float]:
-    """Device time of the kernels one call launches, summed by
-    ``group(kernel name)`` (torch.profiler, the mean of ``reps`` calls after
-    a warm-up): the call's time without the host's launch gaps. A trace
-    that recorded no device event (seen now and then after many traces in
-    one process) is taken again, up to twice; then it raises."""
+#: host calls that launch a kernel, as torch.profiler names them
+_LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel")
+
+
+def device_events(fn, reps: int = 10) -> tuple[list, int]:
+    """The device events (kernels, copies, fills) of ``reps`` calls of fn
+    after a warm-up (torch.profiler), and the kernels the host launched in
+    that trace. A trace whose kernels fall short of the launches (seen
+    after many traces in one process: some or all of a run's kernels
+    missing, which would read as a shorter time) is taken again, up to
+    twice; the fullest of the three is returned, with a line on stderr."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    best: tuple[list, int] = ([], 0)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        out: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA and not e.is_user_annotation:
-                key = group(e.name)
-                out[key] = out.get(key, 0.0) + e.time_range.elapsed_us() / 1e3 / reps
-        if out:
-            return out
-    raise RuntimeError("torch.profiler recorded no device event in three traces")
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+        launched = sum(e.device_type == DeviceType.CPU and e.name.startswith(_LAUNCHES)
+                       for e in events)
+        if dev and kernel_count(dev) >= launched:  # launched 0: no host API calls traced
+            return dev, launched
+        if len(dev) >= len(best[0]):
+            best = (dev, launched)
+    print(f"device_events: the fullest of three traces holds {kernel_count(best[0])} kernels "
+          f"for {best[1]} launches", file=sys.stderr)
+    return best
+
+
+def kernel_count(events) -> int:
+    """The kernels among device events (not copies or fills)."""
+    return sum(not e.name.startswith(("Memcpy", "Memset")) for e in events)
+
+
+def device_ms(fn, reps: int = 10, group=lambda name: "all") -> dict[str, float]:
+    """Device time of the kernels one call launches, summed by
+    ``group(kernel name)`` (the mean of ``reps`` calls, ``device_events``):
+    the call's time without the host's launch gaps. Where the trace lost
+    kernels, the sums are scaled by launches over kernels kept, with a line
+    on stderr: an estimate that assumes the lost ones were typical."""
+    events, launched = device_events(fn, reps)
+    kept = kernel_count(events)
+    if not kept:
+        raise RuntimeError("torch.profiler recorded no kernel in three traces")
+    scale = launched / kept if launched > kept else 1.0
+    if scale != 1.0:
+        print(f"device_ms: device time scaled by {launched} launches / {kept} kernels traced",
+              file=sys.stderr)
+    out: dict[str, float] = {}
+    for e in events:
+        key = group(e.name)
+        out[key] = out.get(key, 0.0) + scale * e.time_range.elapsed_us() / 1e3 / reps
+    return out
+
+
+def host_us(fn, reps: int = 1000) -> float:
+    """Host microseconds a call: ``time.perf_counter`` over ``reps`` calls
+    with no synchronize (the device runs behind; it is drained after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps * 1e6
+
+
+def k4_inputs(gen, n: int, h: int = 128, w: int = 128):
+    """I in [0, 1) with a constant corner, J a noisy copy: (n, h, w) float32."""
+    i = torch.rand(n, h, w, generator=gen, device="cuda")
+    i[:, : h // 3, : w // 3] = 0.4
+    return i, 0.7 * i + 0.3 * torch.rand(n, h, w, generator=gen, device="cuda")
+
+
+def k4_times(gen) -> dict:
+    """K4's events, device time and host time a call, map and loss, and the
+    device kernels one call launches."""
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    out = {}
+    for n in K4_PLANES:
+        i, j = k4_inputs(gen, n)
+        il, jl = i[..., None], j[..., None]
+        for name, call in (("map", lambda: k4.ncc_map_cuda(i, j)),
+                           ("loss", lambda: k4.ncc_loss_kernel(il, jl))):
+            key = f"K4_{name}_{n}"
+            out[f"{key}_ms"] = median_ms(call)
+            out[f"{key}_device_ms"] = device_ms(call)["all"]
+            out[f"{key}_host_us"] = host_us(call)
+            events, launched = device_events(call, reps=1)
+            out[f"{key}_kernels"] = [e.name for e in events]
+            out[f"{key}_launches"] = launched
+    return out
+
+
+def k4_band_times(gen) -> dict:
+    """K4's map device ms at 88 planes of 128 x 128 under bands of 9 to 63
+    rows (``ncc_plan``'s own choice is 27)."""
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    i, j = k4_inputs(gen, 88)
+    res = {}
+    for rows in range(9, 64, 9):
+        plan = k4.ncc_plan(88, 128, 128, 9, 4, band_rows=rows)
+        out = torch.empty_like(i)
+        res[str(rows)] = device_ms(lambda: k4.launch(i, j, out, None, 88, 1, 9, 1e-3,
+                                                     plan))["all"]
+    return res
 
 
 def k5_plan_times(gen) -> dict:
@@ -113,9 +214,11 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = {"card": card.splitlines()[0], "levels": LEVELS, "batch": BATCH}
+    only = [a.removeprefix("--only=").split(",") for a in sys.argv[1:] if a.startswith("--only=")]
+    wanted = set(only[-1]) if only else {"K1", "K2", "K3", "K4", "K5"}
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
-        for name in ("K1", "K3"):
+        for name in sorted({"K1", "K3"} & wanted):
             per_level, per_level_device = [], []
             for c, h, w, s in LEVELS:
                 q, m = (torch.randn(BATCH, c, h, w, generator=gen, device="cuda").to(dtype)
@@ -143,7 +246,7 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).removeprefix("torch.")
         per_level, per_level_device = [], []
-        for c, h, w, s in LEVELS:
+        for c, h, w, s in LEVELS if "K2" in wanted else []:
             q, m = (torch.randn(TRAIN_BATCH, c, h, w, generator=gen, device="cuda").to(dtype)
                     for _ in range(2))
             g = torch.randn(TRAIN_BATCH, (2 * RADIUS + 1) ** 2, h, w, generator=gen,
@@ -153,10 +256,13 @@ def main() -> int:
                 return k1.corr_bwd_cuda(q, m, g, RADIUS, s)
             per_level.append(median_ms(call))
             per_level_device.append(device_ms(call)["all"])
-        out[f"K2_{dname}_ms"] = sum(per_level)
-        out[f"K2_{dname}_per_level_ms"] = per_level
-        out[f"K2_{dname}_device_ms"] = sum(per_level_device)
-        out[f"K2_{dname}_per_level_device_ms"] = per_level_device
+        if "K2" in wanted:
+            out[f"K2_{dname}_ms"] = sum(per_level)
+            out[f"K2_{dname}_per_level_ms"] = per_level
+            out[f"K2_{dname}_device_ms"] = sum(per_level_device)
+            out[f"K2_{dname}_per_level_device_ms"] = per_level_device
+        if "K5" not in wanted:
+            continue
         per_shape, per_shape_device = [], []
         for (c, h, w), count in UNET_K5_SHAPES:
             x = (torch.randn(UNET_BATCH, c, h, w, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
@@ -172,8 +278,12 @@ def main() -> int:
         out[f"K5_{dname}_per_shape_ms"] = per_shape
         out[f"K5_{dname}_device_ms"] = sum(per_shape_device)
         out[f"K5_{dname}_per_shape_device_ms"] = per_shape_device
+    if "K4" in wanted:
+        out.update(k4_times(gen))
     if "--k5-plans" in sys.argv:
         out["K5_plans"] = k5_plan_times(gen)
+    if "--k4-bands" in sys.argv:
+        out["K4_band_device_ms"] = k4_band_times(gen)
     line = json.dumps(out)
     print(line)
     paths = [a for a in sys.argv[1:] if not a.startswith("--")]

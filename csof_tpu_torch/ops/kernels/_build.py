@@ -11,6 +11,7 @@ one is loaded as it is. A missing ``nvcc`` or a failed build raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -20,6 +21,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
@@ -43,8 +46,11 @@ _SIGNATURES = {
     "csof_norm_act_forward": [_P] * 4 + [_I] * 6 + [_F, _F, _I, _P],
     # x, packed w, bias, out, N, Ci, H, W, Co, nb, dtype_code, out_f32, dx, stream
     "csof_conv3x3_forward": [_P] * 4 + [_I] * 9 + [_P],
-    # pred, target, cc, N, H, W, window, eps, stream
-    "csof_ncc_map_forward": [_P] * 3 + [_I] * 4 + [_F, _P],
+    # pred, target, cc, loss, planes, C, H, W, window, eps, dtype_code,
+    # threads, tile_cols, band_rows, smem, stream
+    "csof_ncc_forward": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # window, mismatches, stream
+    "csof_ncc_check_division": [_I, _P, _P],
 }
 
 #: seconds the last compile in this process took (0.0 if none ran)
@@ -132,3 +138,22 @@ def check(err: int, name: str) -> None:
     if err != 0:
         msg = load_library().csof_error_string(err).decode()
         raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
+
+
+def _current_stream(index: int) -> int:
+    """The raw handle of device ``index``'s current stream, without the
+    ``torch.cuda.Stream`` object ``current_stream()`` builds."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw(index) if raw is not None else torch.cuda.current_stream(index).cuda_stream
+
+
+def cuda_call(name: str, device: torch.device, *args) -> None:
+    """Call the C entry ``name`` with ``args`` and the current stream of the
+    CUDA ``device`` (an index is set), under a device guard only where it is
+    not the current device (the guard and the stream object are most of a
+    small launch's host time), and raise on a launch error."""
+    guard = (contextlib.nullcontext() if device.index == torch.cuda.current_device()
+             else torch.cuda.device(device))
+    with guard:
+        err = getattr(load_library(), name)(*args, _current_stream(device.index))
+    check(err, name)

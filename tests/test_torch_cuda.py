@@ -514,22 +514,101 @@ def test_conv3x3_backward_kernel_matches_plain(cuda, n, ci, co, h, w, dtype):
             _close(a, r, (1e-4 * float(r.abs().max()), 1e-4))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,h,w,window", [(20, 128, 128, 9), (3, 33, 70, 9), (2, 17, 9, 5),
-                                          (1, 40, 41, 15)])
-def test_ncc_kernel_matches_plain(cuda, n, h, w, window):
-    from csof_tpu_torch.ops.kernels import ncc as k4
-
-    rng = np.random.RandomState(8)
+def _ncc_planes(n, h, w, seed=8):
+    rng = np.random.RandomState(seed)
     i = rng.rand(n, h, w).astype(np.float32)
     i[:, : h // 3, : w // 3] = 0.4  # a constant region
     j = (0.7 * i + 0.3 * rng.rand(n, h, w)).astype(np.float32)
-    i, j = torch.from_numpy(i).to(cuda), torch.from_numpy(j).to(cuda)
+    return torch.from_numpy(i), torch.from_numpy(j)
+
+
+#: K4 (N, H, W, window): the SegFlow loss at its training batch and at the
+#: bench geometry, ragged H and W (1, 17, 33, 129; one column tile, a halo
+#: off the 4-column group), planes wider than a block (column tiles: 300,
+#: 600, 257), windows 1, 4, 8, 9, 15, 21, 31 (even, above 15, one wider than
+#: the plane)
+NCC_CASES = [(20, 128, 128, 9), (88, 128, 128, 9), (3, 33, 70, 9), (2, 17, 9, 5),
+             (1, 40, 41, 15), (2, 1, 33, 9), (2, 17, 129, 4), (1, 129, 17, 31), (3, 33, 1, 1),
+             (1, 17, 129, 31), (2, 129, 33, 15), (1, 9, 7, 21), (1, 40, 300, 9),
+             (1, 20, 600, 31), (2, 17, 257, 4), (3, 33, 70, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,window", NCC_CASES)
+def test_ncc_kernel_matches_plain(cuda, n, h, w, window):
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    i, j = (t.to(cuda) for t in _ncc_planes(n, h, w))
     before = k4.launches
     got = k4.ncc_map_cuda(i, j, window)
     torch.cuda.synchronize()
     assert k4.launches == before + 1 and bool(torch.isfinite(got).all())
     _close(got, k4.ncc_map_plain(i, j, window), (1e-4, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("n,h,w,window", [(3, 33, 70, 9), (2, 17, 129, 4), (1, 40, 300, 31)])
+def test_ncc_kernel_off_the_16_byte_grid(cuda, n, h, w, window, dtype):
+    """Tensors that start one element past a 16-byte boundary take the
+    kernel's element copies; bf16 and fp16 planes are widened as a cast."""
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    i, j = (t.to(cuda, dtype) for t in _ncc_planes(n, h, w))
+    ref = k4.ncc_map_plain(i, j, window)
+    for a, b in ((i, j), (_unaligned(i), _unaligned(j))):
+        got = k4.ncc_map_cuda(a, b, window)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float32
+        _close(got, ref, (1e-4, 0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,dtype", [(1, torch.float32), (3, torch.float32), (1, torch.bfloat16),
+                                     (3, torch.bfloat16)])
+def test_ncc_loss_kernel_is_one_launch_and_matches_ncc_loss(cuda, c, dtype):
+    from csof_tpu_torch.ops import losses as L
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    rng = np.random.RandomState(c)
+    a = rng.rand(4, 40, 52, c).astype(np.float32)
+    a[:, :10, :10] = 0.4
+    b = (0.6 * a + 0.4 * rng.rand(4, 40, 52, c)).astype(np.float32)
+    pred, target = (torch.from_numpy(t).to(cuda, dtype) for t in (a, b))
+    before = k4.launches
+    got = k4.ncc_loss_kernel(pred, target)
+    torch.cuda.synchronize()
+    assert k4.launches == before + 1 and got.shape == () and got.dtype == torch.float32
+    ref = L.ncc_loss(pred, target)
+    assert abs(got.item() - ref.item()) <= 1e-5
+    from csof_tpu_torch.kernel_times import device_events
+
+    events, launched = device_events(lambda: k4.ncc_loss_kernel(pred, target), reps=1)
+    names = [e.name for e in events]
+    assert launched == len(names) == 1 and "ncc_kernel" in names[0], (launched, names)
+
+
+@pytest.mark.cuda
+def test_ncc_window_9_divides_exactly_for_every_float(cuda):
+    """Window 9 divides by its 81 taps with a product and one FMA: all 2^32
+    float32 values must round as IEEE division does."""
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    assert k4.division_mismatches(9) == 0
+
+
+@pytest.mark.cuda
+def test_ncc_map_and_loss_are_the_same_bits_run_to_run(cuda):
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    i, j = (t.to(cuda) for t in _ncc_planes(88, 128, 128))
+    maps = [k4.ncc_map_cuda(i, j) for _ in range(2)]
+    losses = [k4.ncc_loss_kernel(i[..., None], j[..., None]) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert torch.equal(maps[0], maps[1])
+    assert losses[0].item() == losses[1].item() == losses[2].item()
+    ref = k4.ncc_loss_kernel(i[..., None].cpu(), j[..., None].cpu())
+    assert abs(losses[0].item() - ref.item()) <= 1e-5
 
 
 @pytest.mark.cuda

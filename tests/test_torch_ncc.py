@@ -35,8 +35,11 @@ def _planes(n, h, w, seed=0):
     return i, j
 
 
+#: window 9 and odd windows, even windows (offsets -w/2 ... w/2 - 1), windows
+#: above 15, and windows wider than the plane
 @pytest.mark.parametrize("n,h,w,window", [(3, 24, 24, 9), (2, 17, 40, 9), (1, 33, 19, 5),
-                                          (2, 12, 11, 15)])
+                                          (2, 12, 11, 15), (2, 16, 20, 4), (1, 19, 23, 8),
+                                          (1, 20, 36, 17), (1, 40, 45, 31), (1, 9, 7, 21)])
 def test_ncc_map_plain_matches_the_pallas_kernel(n, h, w, window):
     i, j = _planes(n, h, w)
     ref = jax.vmap(lambda a, b: ncc_map_pallas(a, b, window, interpret=True))(
@@ -73,9 +76,34 @@ def test_ncc_loss_kernel_matches_ncc_loss_pallas_and_ncc_loss():
                                         .item(), abs=1e-5)
 
 
+@pytest.mark.parametrize("c,dtype", [(3, np.float32), (1, "bfloat16"), (3, "bfloat16")])
+def test_ncc_loss_kernel_matches_ncc_loss_pallas_over_channels_and_bf16(c, dtype):
+    """Channels-last batches with C = 3 (each channel its own plane) and bf16
+    inputs (widened to float32 as the Pallas kernel casts them)."""
+    rng = np.random.RandomState(4 + c)
+    a = rng.rand(2, 20, 18, c).astype(np.float32)
+    a[:, :6, :6] = 0.4
+    b = (0.6 * a + 0.4 * rng.rand(2, 20, 18, c)).astype(np.float32)
+    if dtype == "bfloat16":
+        ta, tb = (torch.from_numpy(x).bfloat16() for x in (a, b))
+        ja, jb = (jnp.asarray(x.float().numpy()).astype(jnp.bfloat16) for x in (ta, tb))
+    else:
+        ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+        ja, jb = jnp.asarray(a), jnp.asarray(b)
+    ref = float(ncc_loss_pallas(ja, jb, interpret=True))
+    got = k4.ncc_loss_kernel(ta, tb)
+    assert got.dtype == torch.float32 and got.item() == pytest.approx(ref, abs=1e-6)
+
+
 def test_ncc_wrapper_refuses_what_the_kernel_does_not_take():
     x = torch.zeros(1, 8, 8)
     with pytest.raises(TypeError):
         k4.ncc_map_cuda(x, x)  # a CPU tensor
     with pytest.raises(ValueError, match="unsupported device"):
         k4.ncc_map(x.to("meta"), x.to("meta"))
+    with pytest.raises(TypeError):
+        k4.ncc_loss_cuda(x[..., None], x[..., None])  # a CPU tensor
+    with pytest.raises(ValueError, match="unsupported device"):
+        k4.ncc_loss_kernel(x[..., None].to("meta"), x[..., None].to("meta"))
+    with pytest.raises(ValueError, match="window must be at least 1"):
+        k4.ncc_plan(1, 8, 8, 0, 4)
