@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SegFlow serving and training paths and its
-nnU-Net 2D serving and training paths once on one NVIDIA GPU.
+nnU-Net 2D serving and training paths once on one NVIDIA GPU, then SegFlow
+under the JAX package's kernel switches and in its other configurations.
 
     python3 chip_smoke.py
 
@@ -80,6 +81,29 @@ Phases, each printed on its own line:
    must be one device kernel (torch.profiler, in a fresh process); then
    ncc_loss_kernel, the op's entry point, driven alone against the port's
    ncc_loss (C = 1, C = 3, bf16).
+17. segflow pallas serving: the flagship serving forward (bench geometry,
+   bf16, fused_cm, full width) with CSOF_CONV2D_IMPL=pallas: 87 K6 launches
+   (the JAX package's routed convs; tests/test_torch_segflow_k6.py holds
+   the count against JAX's) beside 34 K3 and K1; host clock with the switch
+   off and on; a float32 forward at the same widths GPU vs CPU.
+18. segflow pallas train: Trainer steps at 4 x 6 x 128^2, bf16, concat +
+   deep supervision, the switch read by build_model (off, then on): 16 K1 +
+   16 K2, and 55 K6 + 52 K6 dx a step under pallas; host clock both ways;
+   then the float32 loss and every gradient GPU vs CPU at (1, 4, 128, 128).
+19. segflow modes: split + fuse_q_hoist, project, mean1, the linear
+   decoder and remat, each one loss forward + backward at full width, batch
+   1 x 4 x 128^2, float32, under pallas, GPU vs CPU (K6 counts from the
+   model, remat's recomputation included); then norm="instance" with K5
+   (CSOF_FUSED_NORM=1), forward only, and K5 alone against its plain
+   version at each shape SegFlow gave it (float32 and bf16).
+20. segflow convs: K6 and its dx at every distinct shape phases 17 and 18
+   gave them (Ci 1, 6, 32, 64, 128, 145, 209), bf16 and float32 against the
+   plain versions; the bf16 K6 time of one serving forward and the dx time
+   of one training step beside the plain version's, the library call's and
+   the bound.
+21. ncc wide: K4 at windows above 75 (101 on 4 x 64 x 1000, 127 on 20 x
+   128^2; F9): the two-pass path's map and loss against the plain version,
+   with times and bounds; the two-pass path counts two launches a call.
 
 Then one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -87,8 +111,10 @@ the device line. Any failure exits non-zero before the last line.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -191,6 +217,23 @@ LAUNCHES_PER_REQUEST = 136  # 34 skip fuses per forward x 4 TTA forwards
 #: runs only the bottleneck level's skip fuse, every later frame all three
 CORR_PER_STEP = 1 + 3 * (TRAIN_T - 1)
 TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH, TRAIN_WARMUP = 2, 7, 2
+#: K6 launches of the flagship under CSOF_CONV2D_IMPL=pallas, as the JAX
+#: package routes its Pallas conv (tests/test_torch_segflow_k6.py holds the
+#: port's count against JAX's): a serving forward of 12 frames (the
+#: encoders' level-0 convs and level 1's second, the decoders' four convs,
+#: level 2 never: 128 channels), and (forward, dx) of a concat training step
+#: of 6 frames (the skip fuses of levels 0 and 1 too; no dx for the query
+#: encoder's first conv nor the memory encoder's first at frames 0 and 1)
+PALLAS_SERVING_K6 = 3 + 4 + 3 * T_FRAMES + 4 * (T_FRAMES - 1)
+PALLAS_TRAIN_K6 = (55, 52)
+PALLAS_TRAIN_STEPS, PALLAS_TRAIN_WARMUP = 5, 2
+#: the configurations beside concat and fused_cm, phase 19
+MODES = [("split + fuse_q_hoist", dict(corr_fuse="split", fuse_q_hoist=True)),
+         ("project", dict(corr_fuse="project")), ("mean1", dict(corr_fuse="mean1")),
+         ("dec_upsample linear", dict(dec_upsample="linear")), ("remat", dict(remat=True))]
+#: K4 windows above 75 (F9), (N, H, W, window): 101 on 1000-wide planes and
+#: 127 on the SegFlow loss's 20 planes of 128^2
+NCC_WIDE = [(4, 64, 1000, 101), (20, 128, 128, 127)]
 
 
 class PhaseError(RuntimeError):
@@ -1417,6 +1460,436 @@ def check_ncc(card: str) -> tuple[dict, dict]:
     return res, counts
 
 
+# ---------------------------------------------------------------------------
+# SegFlow under the JAX package's kernel switches, its other configurations,
+# and K4's wide windows (phases 17-21)
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def conv_shapes(record: dict):
+    """Record each distinct K6 call SegFlow makes, (x shape, dtype, Co,
+    bias, whether x needs a gradient) -> calls, by wrapping the conv that
+    ConvNormAct calls (the wrapper still counts its launches)."""
+    from csof_tpu_torch.models import blocks
+
+    orig = blocks.conv3x3
+
+    def rec(x, weight, bias=None, out_f32=False):
+        key = (tuple(x.shape), x.dtype, weight.shape[0], bias is not None, x.requires_grad)
+        record[key] = record.get(key, 0) + 1
+        return orig(x, weight, bias, out_f32)
+
+    blocks.conv3x3 = rec
+    try:
+        yield record
+    finally:
+        blocks.conv3x3 = orig
+
+
+@contextlib.contextmanager
+def env(**values):
+    """Set environment variables for a block, then restore them."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def host_ms(fn, reps: int = 5, warmup: int = 2) -> float:
+    """Median host-clock ms of fn() ending in a synchronize."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def segflow_pallas_serving(card: str) -> tuple[dict, dict]:
+    """Phase 17: the flagship serving forward (bench geometry, bf16,
+    fused_cm, full width) with CSOF_CONV2D_IMPL=pallas: K6 launched exactly
+    where the JAX package routes its Pallas conv (87 a forward, the count
+    tests/test_torch_segflow_k6.py holds against JAX's), host-clock time with
+    the switch on and off (off, on, on, off), and a float32 forward at the
+    same widths against the CPU's."""
+    import dataclasses
+
+    import torch
+
+    from csof_tpu_torch.config.experiment import SegFlowModelConfig
+    from csof_tpu_torch.inference.serving import apply_serving_config
+    from csof_tpu_torch.models.segflow import SegFlow
+
+    cfg = apply_serving_config(SegFlowModelConfig(), T_FRAMES)
+    on = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(0), conv_impl="pallas")
+    off = SegFlow(cfg, 4, conv_impl="native")
+    off.load_state_dict(on.state_dict())
+    on, off = on.cuda().eval(), off.cuda().eval()
+    video = torch.from_numpy(np.random.RandomState(0).rand(BATCH, T_FRAMES, 128, 128, 1)
+                             .astype(np.float32)).cuda()
+    want = on.kernel_launches(T_FRAMES, 128)
+    expect(want == {"K5": 0, "K6": PALLAS_SERVING_K6}, f"kernel_launches {want}")
+    shapes = {}
+    with torch.inference_mode():
+        on(video)  # warm-up
+        _reset_counts()
+        with conv_shapes(shapes):
+            out = on(video)
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        ref = off(video)
+        times = [host_ms(lambda m=m: m(video)) for m in (off, on, on, off)]
+    expect(counts == {"K1": 34, "K2": 0, "K3": 34, "K4": 0, "K5": 0, "K6": want["K6"],
+                      "K6_dx": 0}, f"launches of one forward under pallas: {counts}")
+    for key in ("seg_logits", "cum_flow", "registered"):
+        expect(bool(torch.isfinite(out[key]).all()), f"non-finite {key} under pallas")
+    diff = float((out["cum_flow"].float() - ref["cum_flow"].float()).abs().max())
+    phase("segflow pallas serving", f"forward ({BATCH}, {T_FRAMES}, 128, 128, 1) bf16 "
+          f"fused_cm, CSOF_CONV2D_IMPL=pallas: launches {counts} (K6 {want['K6']} = the JAX "
+          f"package's routed convs); host clock median off {times[0]:.3f} / on {times[1]:.3f} "
+          f"/ on {times[2]:.3f} / off {times[3]:.3f} ms; bf16 cum_flow on vs off max "
+          f"|diff| {diff:.3e} ({card})")
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu = SegFlow(cfg32, 4, conv_impl="pallas")
+    cpu.load_state_dict(on.state_dict())
+    gpu = copy.deepcopy(cpu).cuda()
+    small = np.random.RandomState(1).rand(1, 3, 128, 128, 1).astype(np.float32)
+    with torch.inference_mode():
+        _reset_counts()
+        got = gpu(torch.from_numpy(small).cuda())
+        torch.cuda.synchronize()
+        k6_n = _read_counts()["K6"]
+        want_cpu = cpu(torch.from_numpy(small))
+    expect(k6_n == gpu.kernel_launches(3, 128)["K6"], f"float32 forward: K6 {k6_n}")
+    for key in ("seg_logits", "flow", "cum_flow", "registered"):
+        compare("segflow pallas serving", f"float32 {key} GPU (K6 x{k6_n}) vs CPU",
+                got[key].cpu(), want_cpu[key], *MODEL_TOL)
+    return counts, shapes
+
+
+def _grad_worst(gpu, cpu) -> tuple[float, str]:
+    """The worst |diff| / (GRAD_TOL max|g| + 1e-6) over the parameters."""
+    import torch
+
+    worst, worst_name = 0.0, None
+    ref = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        r = ref[name].grad
+        if r is None:
+            expect(p.grad is None or not bool(p.grad.any()), f"{name}: gradient on one side")
+            continue
+        g = p.grad.cpu()
+        expect(bool(torch.isfinite(g).all()), f"{name}: non-finite gradient")
+        ratio = float((g - r).abs().max()) / (GRAD_TOL * float(r.abs().max()) + 1e-6)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    return worst, worst_name
+
+
+def segflow_pallas_train(card: str) -> tuple[dict, dict]:
+    """Phase 18: Trainer steps of the flagship at the training geometry
+    (4 x 6 x 128^2, bf16, concat + deep supervision, CSOF_CONV2D_IMPL=pallas
+    read by build_model): K1 and K2 16, K6 55 and K6 dx 52 a step (the
+    query encoder's first conv and the memory encoder's first at frames 0
+    and 1 take no dx); host-clock step with the switch on and off; then the
+    float32 loss and every gradient GPU vs CPU at (1, 4, 128, 128), the
+    widths phase 19 checks the other configurations at."""
+    import torch
+
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig, SegFlowModelConfig
+    from csof_tpu_torch.data.loaders import VideoChunkLoader
+    from csof_tpu_torch.training.trainer import Trainer, build_model, make_segflow_loss
+
+    config = ExperimentConfig(
+        segflow=SegFlowModelConfig(deep_supervision=True),
+        data=DataConfig(do_data_aug=False, batch_size=TRAIN_BATCH, video_length=TRAIN_T,
+                        crop_size=TRAIN_HW))
+    loader = VideoChunkLoader(synthetic_videos(), TRAIN_T, TRAIN_BATCH, TRAIN_HW, seed=0)
+    batch = next(loader)
+    shapes, step_ms = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for switch in ("native", "pallas"):
+            with env(CSOF_CONV2D_IMPL=switch):
+                trainer = Trainer(config, Path(tmp) / switch, device="cuda").initialize()
+            expect({m.conv_impl for m in trainer.model.modules() if hasattr(m, "conv_impl")}
+                   == {switch}, f"Trainer built SegFlow without conv_impl={switch}")
+            losses = [trainer.run_iteration(batch)[0] for _ in range(PALLAS_TRAIN_WARMUP)]
+            _reset_counts()
+            with conv_shapes(shapes if switch == "pallas" else {}):
+                losses.append(trainer.run_iteration(batch)[0])
+            counts = _read_counts()
+            step_ms[switch] = host_ms(lambda: losses.append(trainer.run_iteration(batch)[0]),
+                                      reps=PALLAS_TRAIN_STEPS, warmup=0)
+            expect(all(np.isfinite(losses)), f"{switch}: losses {losses}")
+            want = trainer.model.kernel_launches(TRAIN_T, TRAIN_HW, backward=True)
+            k6 = (want["K6"], want["K6_dx"]) if switch == "pallas" else (0, 0)
+            expect(counts == {"K1": CORR_PER_STEP, "K2": CORR_PER_STEP, "K3": 0, "K4": 0,
+                              "K5": 0, "K6": k6[0], "K6_dx": k6[1]},
+                   f"{switch}: launches of one step {counts}")
+            phase("segflow pallas train", f"{switch}: step ({TRAIN_BATCH}, {TRAIN_T}, "
+                  f"{TRAIN_HW}, {TRAIN_HW}, 1) bf16 concat + deep supervision: launches "
+                  f"{counts}; host clock median {step_ms[switch]:.3f} ms over "
+                  f"{PALLAS_TRAIN_STEPS} steps; losses {losses[0]:.5f} -> {losses[-1]:.5f} "
+                  f"({card})")
+            pallas_counts = counts
+    expect((want["K6"], want["K6_dx"]) == PALLAS_TRAIN_K6, f"kernel_launches {want}")
+
+    config32 = ExperimentConfig(segflow=SegFlowModelConfig(deep_supervision=True,
+                                                           dtype="float32"),
+                                data=DataConfig(do_data_aug=False))
+    with env(CSOF_CONV2D_IMPL="pallas"):
+        cpu = build_model(config32, 4, torch.Generator().manual_seed(0))
+    gpu = copy.deepcopy(cpu).cuda()
+    small = next(VideoChunkLoader(synthetic_videos(1), 4, 1, 128, seed=3))
+    loss_fn = make_segflow_loss(config32)
+    _reset_counts()
+    loss_gpu, _ = loss_fn(gpu, {k: torch.from_numpy(v).cuda() for k, v in small.items()})
+    loss_gpu.backward()
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    want = gpu.kernel_launches(4, 128, backward=True)
+    expect((counts["K6"], counts["K6_dx"]) == (want["K6"], want["K6_dx"]),
+           f"float32 step: launches {counts}, expected {want}")
+    loss_cpu, _ = loss_fn(cpu, {k: torch.from_numpy(v) for k, v in small.items()})
+    loss_cpu.backward()
+    a, b = loss_gpu.item(), loss_cpu.item()
+    expect(abs(a - b) <= LOSS_RTOL * abs(b), f"loss GPU {a} vs CPU {b}")
+    worst, worst_name = _grad_worst(gpu, cpu)
+    phase("segflow pallas train", f"float32 (1, 4, 128, 128, 1) concat + deep supervision, "
+          f"K6 x{counts['K6']} + dx x{counts['K6_dx']}: loss GPU {a:.7f} vs CPU {b:.7f}; worst "
+          f"|diff| / (tol {GRAD_TOL:g} max|g| + 1e-6) = {worst:.3f} at {worst_name} "
+          f"-> {'ok' if worst <= 1 else 'FAIL'} ({card})")
+    expect(worst <= 1, f"gradient {worst_name} outside tolerance")
+    return pallas_counts, shapes
+
+
+def segflow_modes(card: str) -> dict:
+    """Phase 19: every other configuration the JAX SegFlowModelConfig runs,
+    once forward and backward (the trainer's loss) at full width, batch 1 x
+    4 x 128^2, float32, CSOF_CONV2D_IMPL=pallas, the card against the CPU:
+    split + fuse_q_hoist, project, mean1, the linear decoder, remat; then
+    norm="instance" with K5 (CSOF_FUSED_NORM=1), forward only, and K5 alone
+    against its plain version at each shape that forward gave it."""
+    import torch
+
+    from csof_tpu_torch.config.experiment import ExperimentConfig, SegFlowModelConfig
+    from csof_tpu_torch.data.loaders import VideoChunkLoader
+    from csof_tpu_torch.models.segflow import SegFlow
+    from csof_tpu_torch.training.trainer import make_segflow_loss
+
+    batch = next(VideoChunkLoader(synthetic_videos(1), 4, 1, 128, seed=5))
+    total = {}
+    for name, kw in MODES:
+        cfg = SegFlowModelConfig(dtype="float32", **kw)
+        loss_fn = make_segflow_loss(ExperimentConfig(segflow=cfg))
+        cpu = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(3), conv_impl="pallas")
+        gpu = copy.deepcopy(cpu).cuda()
+        _reset_counts()
+        loss_gpu, _ = loss_fn(gpu, {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
+        loss_gpu.backward()
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        want = gpu.kernel_launches(4, 128, backward=True)
+        # remat runs each step's forward again in the backward: K1 twice
+        expect((counts["K6"], counts["K6_dx"]) == (want["K6"], want["K6_dx"]) and counts["K1"]
+               == counts["K2"] * (2 if cfg.remat else 1) > 0,
+               f"{name}: launches {counts}, expected {want}")
+        loss_cpu, _ = loss_fn(cpu, {k: torch.from_numpy(v) for k, v in batch.items()})
+        loss_cpu.backward()
+        a, b = loss_gpu.item(), loss_cpu.item()
+        expect(abs(a - b) <= LOSS_RTOL * abs(b), f"{name}: loss GPU {a} vs CPU {b}")
+        worst, worst_name = _grad_worst(gpu, cpu)
+        phase("segflow modes", f"{name}: loss GPU {a:.7f} vs CPU {b:.7f}; launches {counts}; "
+              f"worst gradient |diff| / (tol {GRAD_TOL:g} max|g| + 1e-6) = {worst:.3f} at "
+              f"{worst_name} -> {'ok' if worst <= 1 else 'FAIL'}")
+        expect(worst <= 1, f"{name}: gradient {worst_name} outside tolerance")
+
+    from csof_tpu_torch.models import blocks
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    cfg = SegFlowModelConfig(dtype="float32", norm="instance")
+    cpu = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(4), conv_impl="pallas",
+                  fused_norm_act=True).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    video = torch.from_numpy(batch["video"])
+    k5_shapes = set()
+    orig = blocks.instance_norm_leaky_relu
+
+    def rec(x, *args, **kw):
+        k5_shapes.add(tuple(x.shape))
+        return orig(x, *args, **kw)
+
+    with torch.inference_mode():
+        _reset_counts()
+        blocks.instance_norm_leaky_relu = rec
+        try:
+            got = gpu(video.cuda())
+        finally:
+            blocks.instance_norm_leaky_relu = orig
+        torch.cuda.synchronize()
+        counts = _read_counts()
+        ref = cpu(video)
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    want = gpu.kernel_launches(4, 128)
+    expect((counts["K5"], counts["K6"]) == (want["K5"], want["K6"]) and want["K5"] > 0,
+           f"instance + K5: launches {counts}, expected {want}")
+    for key in ("seg_logits", "flow", "cum_flow", "registered"):
+        compare("segflow modes", f"instance norm + K5 x{counts['K5']} + K6 x{counts['K6']}: "
+                f"{key} GPU vs CPU", got[key].cpu(), ref[key], *MODEL_TOL)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    for shape in sorted(k5_shapes):  # K5 alone at each shape SegFlow gave it
+        for dtype in (torch.float32, torch.bfloat16):
+            x = (torch.randn(*shape, generator=gen, device="cuda") * 2 + 0.5).to(dtype)
+            scale = 1.0 + 0.2 * torch.randn(shape[1], generator=gen, device="cuda")
+            bias = 0.2 * torch.randn(shape[1], generator=gen, device="cuda")
+            out = k5.norm_act_cuda(x, scale, bias)
+            torch.cuda.synchronize()
+            dname = str(dtype).removeprefix("torch.")
+            compare("segflow modes", f"K5 {dname} (N, C, H, W)={shape}", out,
+                    k5.norm_act_plain(x, scale, bias), *UNET_TOL[("K5", dname)])
+    phase("segflow modes", f"launches over the modes: {total} ({card})")
+    return total
+
+
+def check_segflow_convs(card: str, serving: dict, train: dict) -> dict:
+    """Phase 20: K6 and its dx at every distinct shape SegFlow gave them
+    in phases 17 and 18 (Ci 1, 6, 32, 64, 128, 145, 209; dx outputs 6, 32,
+    64, 128, 145, 209 channels wide), bf16 as run and float32, against
+    their plain versions; the bf16 K6 time of one serving forward and the
+    dx time of one training step (each shape's median times its launches)
+    beside the plain version's, the library call's and the bound."""
+    import torch
+
+    from csof_tpu_torch.bounds import bound_ms, conv3x3_work
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def rand(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    res = {"fwd": [0.0, 0.0, 0.0], "dx": [0.0, 0.0, 0.0], "err": 0.0}
+    works = {"fwd": [], "dx": []}
+    fwd = {}
+    for rec in (serving, train):
+        for (shape, _, co, bias, _), n in rec.items():
+            fwd[(shape, co, bias)] = fwd.get((shape, co, bias), 0) + (n if rec is serving else 0)
+    dxs = {(shape, co): n for (shape, _, co, _, grad), n in train.items() if grad}
+    for (shape, co, bias), n_serving in sorted(fwd.items()):
+        n, ci, h, w = shape
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            x = rand(*shape).to(dtype)
+            wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5)
+            b = rand(co, std=0.1) if bias else None
+            got = k6.conv3x3_cuda(x, wt, b)
+            torch.cuda.synchronize()
+            err = compare("segflow convs", f"K6 {dname} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, "
+                          f"{w})", got, k6.conv3x3_plain(x, wt, b), *UNET_TOL[("K6", dname)])
+            res["err"] = max(res["err"], err)
+            if dtype != torch.bfloat16 or not n_serving:
+                continue
+            t, p = timed_pair(lambda: k6.conv3x3_cuda(x, wt, b),
+                              lambda: k6.conv3x3_plain(x, wt, b))
+            lib = median_ms(lambda: torch.nn.functional.conv2d(x, wt.to(dtype),
+                                                               None if b is None
+                                                               else b.to(dtype), padding=1))
+            res["fwd"] = [a + n_serving * v for a, v in zip(res["fwd"], (t, p, lib))]
+            works["fwd"].append((conv3x3_work(n, h, w, ci, co, 2, bias), n_serving))
+    for ((n, ci, h, w), co), count in sorted(dxs.items()):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).removeprefix("torch.")
+            wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5)
+            dy = rand(n, co, h, w).to(dtype)
+            got = k6.conv3x3_dx_cuda(dy, wt)
+            torch.cuda.synchronize()
+            err = compare("segflow convs", f"K6 dx {dname} dy (N, Co, H, W)=({n}, {co}, {h}, {w})"
+                          f" -> dx {ci} channels", got, k6.conv3x3_dx_plain(dy, wt),
+                          *UNET_TOL[("K6", dname)])
+            res["err"] = max(res["err"], err)
+            if dtype != torch.bfloat16:
+                continue
+            wl = wt.to(dtype)
+            t, p = timed_pair(lambda: k6.conv3x3_dx_cuda(dy, wt),
+                              lambda: k6.conv3x3_dx_plain(dy, wt))
+            lib = median_ms(lambda: torch.nn.grad.conv2d_input((n, ci, h, w), wl, dy, padding=1))
+            res["dx"] = [a + count * v for a, v in zip(res["dx"], (t, p, lib))]
+            works["dx"].append((conv3x3_work(n, h, w, co, ci, 2, False), count))
+    out = {}
+    for key, label in (("fwd", "one serving forward"), ("dx", "one training step's dx")):
+        summed = tuple(sum(c * wk[i] for wk, c in works[key]) for i in range(4))
+        bnd, by = bound_ms(*summed)
+        t, p, lib = res[key]
+        phase("segflow convs", f"K6 {'dx ' if key == 'dx' else ''}bf16, {label} "
+              f"({sum(c for _, c in works[key])} launches at {len(works[key])} shapes): kernel "
+              f"{t:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms ({by}) "
+              f"({card})")
+        out[key] = {"ms": t, "plain_ms": p, "library_ms": lib, "bound_ms": bnd, "bound_by": by}
+    out["max_abs_err"] = res["err"]
+    return out
+
+
+def check_ncc_wide(card: str) -> tuple[dict, dict]:
+    """Phase 21: K4 at windows whose rings shared memory cannot hold (F9):
+    ncc_plan takes the two-pass path; the map and the loss against the
+    plain version, with their times and bounds."""
+    import torch
+
+    from csof_tpu_torch.bounds import bound_ms, ncc_loss_work, ncc_work
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    rng = np.random.RandomState(10)
+    res = {"max_abs_err": 0.0}
+    counts = {}
+    for n, h, w, window in NCC_WIDE:
+        pa, pb = ncc_planes(rng, n, h, w)
+        plan = k4.ncc_plan(n, h, w, window, 4)
+        expect(plan.path == "two_pass", f"({n}, {h}, {w}) window {window}: plan {plan}")
+        _reset_counts()  # the entry points driven once; the timing launches are not counted
+        got = k4.ncc_map_cuda(pa, pb, window)
+        loss = k4.ncc_loss_kernel(pa[..., None], pb[..., None], window)
+        torch.cuda.synchronize()
+        counts = {k: counts.get(k, 0) + v for k, v in _read_counts().items()}
+        ref = k4.ncc_map_plain(pa, pb, window)
+        err = compare("ncc wide", f"K4 two-pass map ({n}, {h}, {w}) window {window}", got, ref,
+                      NCC_ATOL, 0.0)
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        ref_loss = 1.0 - ref.clamp(0.001, 0.999).mean()
+        expect(abs(loss.item() - ref_loss.item()) <= 1e-5,
+               f"two-pass loss {loss.item()} vs plain {ref_loss.item()}")
+        ms, plain_ms = timed_pair(lambda: k4.ncc_map_cuda(pa, pb, window),
+                                  lambda: k4.ncc_map_plain(pa, pb, window))
+        loss_ms = median_ms(lambda: k4.ncc_loss_kernel(pa[..., None], pb[..., None], window))
+        bnd, by = bound_ms(*ncc_work(n, h, w, window))
+        loss_bnd = bound_ms(*ncc_loss_work(n, h, w, window))[0]
+        phase("ncc wide", f"K4 two-pass ({n}, {h}, {w}) window {window}: map {ms:.4f} ms (plain "
+              f"{plain_ms:.4f}, bound {bnd:.5f} ({by})), loss {loss_ms:.4f} ms (bound "
+              f"{loss_bnd:.5f}; {loss.item():.6f} vs plain {ref_loss.item():.6f}) ({card})")
+        key = f"wide_{n}x{h}x{w}_w{window}"
+        res.update({f"{key}_ms": ms, f"{key}_plain_ms": plain_ms, f"{key}_bound_ms": bnd,
+                    f"{key}_loss_ms": loss_ms, f"{key}_loss_bound_ms": loss_bnd})
+    expect(counts["K4"] == 4 * len(NCC_WIDE) and sum(counts.values()) == counts["K4"],
+           f"launches {counts}")
+    return res, counts
+
+
 #: the keys every kernel has in the kernels line; a kernel's other measured
 #: numbers (bf16 or float32 times, library notes, K3's passes) follow them
 _MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1493,8 +1966,25 @@ def main() -> int:
     unet_train_parity(card)
     kernels["K4"], ncc_counts = check_ncc(card)
 
+    t_new = time.perf_counter()
+    torch.cuda.empty_cache()
+    pallas_serving_counts, serving_shapes = segflow_pallas_serving(card)
+    pallas_train_counts, train_shapes = segflow_pallas_train(card)
+    modes_counts = segflow_modes(card)
+    convs = check_segflow_convs(card, serving_shapes, train_shapes)
+    wide, wide_counts = check_ncc_wide(card)
+    kernels["K4"].update(wide)
+    kernels["K4"]["max_abs_err"] = max(kernels["K4"]["max_abs_err"], wide["max_abs_err"])
+    for k, key in (("K6", "fwd"), ("K6_dx", "dx")):
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], convs["max_abs_err"])
+        kernels[k].update({f"segflow_bf16_{name}": v for name, v in convs[key].items()})
+    phase("segflow pallas", f"phases 17-21 took {time.perf_counter() - t_new:.1f} s")
+
     paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
-             "unet_training": unet_train_counts, "ncc_op": ncc_counts}
+             "unet_training": unet_train_counts, "ncc_op": ncc_counts,
+             "segflow_pallas_serving": pallas_serving_counts,
+             "segflow_pallas_train": pallas_train_counts, "segflow_modes": modes_counts,
+             "ncc_wide_windows": wide_counts}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {

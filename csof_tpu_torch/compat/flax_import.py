@@ -16,6 +16,11 @@ cross-attention bottlenecks' parameters stacked on a leading axis of 2,
 into ``bottleneck_prev`` (index 0) and ``bottleneck_ed`` (index 1), the
 scopes of the unfused layout that the port runs.
 
+``hoist_fuse_q_params`` moves a SegFlow ``split`` checkpoint's query convs
+out of the step scope into the top-level ``fuse_q_{lvl}`` of
+``fuse_q_hoist``, on a port ``state_dict``, as the JAX package's function
+of that name moves them on flax variables.
+
 The map is built by walking the flax tree, so flax's auto-numbered scopes
 (``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``; the U-Net's
 ``StackedConvs_0..2n`` in call order with ``ConvNormAct_i/Conv_0`` and
@@ -115,3 +120,17 @@ def load_flax_params(module: nn.Module, params: Mapping) -> None:
     missing = sorted(set(targets) - filled)
     if missing:
         raise KeyError(f"torch parameters no flax leaf filled: {missing}")
+
+
+def hoist_fuse_q_params(state_dict: Mapping[str, torch.Tensor]) -> dict:
+    """A SegFlow ``state_dict`` with every ``<step>.skip_fuse_{lvl}.conv_q``
+    parameter moved to ``fuse_q_{lvl}`` (``csof_tpu/models/segflow.py``
+    ``hoist_fuse_q_params``): the same tensors, so a ``split`` checkpoint
+    loads into a ``fuse_q_hoist`` model. The input is not changed."""
+    out = {}
+    for key, value in state_dict.items():
+        parts = key.split(".")
+        if len(parts) == 4 and parts[1].startswith("skip_fuse_") and parts[2] == "conv_q":
+            key = f"fuse_q_{parts[1].removeprefix('skip_fuse_')}.{parts[3]}"
+        out[key] = value
+    return out

@@ -53,6 +53,12 @@
 // partial, and the last block to finish (a ticket) adds the partials in
 // index order and writes 1 - mean: one launch, the same bits every run, and
 // no map written.
+//
+// A window whose rings do not fit shared memory (above 75 on a plane wider
+// than a block, F9) takes two passes instead: the five vertical sums of
+// every pixel go to a scratch buffer in device memory, then a second kernel
+// sums them along W and closes the NCC; the same roundings in the same
+// order (csof_ncc_forward_wide). Any window >= 1 is computed.
 #include <cuda_fp16.h>
 
 #include <algorithm>
@@ -78,9 +84,10 @@ constexpr int kMaxDynamicSmem = 226 * 1024;  // below 227 KB: the loss's static 
 constexpr int kTicketSlots = 1024;
 
 // the loss's last-block tickets: zero at load, reset by the block that
-// takes the last one; a launch takes the next slot, so launches in flight
-// on several streams do not share one
+// takes the last one; a launch of either path takes the next slot from the
+// one host counter, so launches in flight on several streams do not share one
 __device__ unsigned g_ncc_tickets[kTicketSlots];
+std::atomic<unsigned> g_next_ticket{0};
 
 __host__ __device__ constexpr int round_up(int a, int b) { return (a + b - 1) / b * b; }
 
@@ -152,6 +159,42 @@ __device__ __forceinline__ double warp_sum_d(double v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
   return v;
+}
+
+// loss mode, after a block's last item: the block's thread sums (warp
+// butterflies, then the warps in order) into its partial, and the last block
+// to take a ticket adds every partial in index order, in double, and writes
+// 1 - mean. The same bits every run.
+__device__ __forceinline__ void finish_loss(float acc, const NccArgs& a) {
+  __shared__ float wsum[kMaxThreads / 32];
+  __shared__ double dsum[kMaxThreads / 32];
+  __shared__ bool last;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const float v = warp_sum(acc);
+  if ((tid & 31) == 0) wsum[tid >> 5] = v;
+  __syncthreads();
+  if (tid == 0) {
+    float t = wsum[0];
+    for (int i = 1; i < nt / 32; ++i) t = __fadd_rn(t, wsum[i]);
+    a.loss[1 + blockIdx.x] = t;
+    __threadfence();
+    last = atomicAdd(&g_ncc_tickets[a.ticket], 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (last) {  // every other block's partial is written: add them in order
+    __threadfence();
+    double d = 0.0;
+    for (int i = tid; i < (int)gridDim.x; i += nt) d += (double)__ldcg(a.loss + 1 + i);
+    d = warp_sum_d(d);
+    if ((tid & 31) == 0) dsum[tid >> 5] = d;
+    __syncthreads();
+    if (tid == 0) {
+      double t = dsum[0];
+      for (int i = 1; i < nt / 32; ++i) t += dsum[i];
+      a.loss[0] = (float)(1.0 - t / a.count);
+      g_ncc_tickets[a.ticket] = 0;
+    }
+  }
 }
 
 // grid (planes x bands x tiles), block = threads (one a column of the tile
@@ -366,36 +409,84 @@ __global__ void __launch_bounds__(kMaxThreads, 2) ncc_kernel(const NccArgs a) {
     horizontal(ci);
   }
 
-  if constexpr (LOSS) {
-    __shared__ float wsum[kMaxThreads / 32];
-    __shared__ double dsum[kMaxThreads / 32];
-    __shared__ bool last;
-    const float v = warp_sum(acc);
-    if ((tid & 31) == 0) wsum[tid >> 5] = v;
-    __syncthreads();
-    if (tid == 0) {
-      float t = wsum[0];
-      for (int i = 1; i < nt / 32; ++i) t = __fadd_rn(t, wsum[i]);
-      a.loss[1 + blockIdx.x] = t;
-      __threadfence();
-      last = atomicAdd(&g_ncc_tickets[a.ticket], 1u) == gridDim.x - 1;
+  if constexpr (LOSS) finish_loss(acc, a);
+}
+
+// The two-pass path, for a window whose rings do not fit shared memory (any
+// window the plan cannot hold; ncc_plan decides). Pass 1 writes the five
+// vertical sums of every pixel to a scratch buffer in device memory, pass 2
+// reads them back along W and closes the NCC as ncc_kernel does; the same
+// roundings in the same order, so the same bits. Block b takes the rows
+// (plane * H + y) b, b + gridDim.x, ..., a thread the columns tid, tid + nt,
+// ... of each: the loss's items, and so its partials, have a fixed order.
+
+// pass 1: vs[q][row][x] = the window's rows of stat q, top to bottom, zero
+// outside the plane (a padded row adds +0, as the TPU kernel's padding)
+template <typename T>
+__global__ void __launch_bounds__(kMaxThreads) ncc_vertical_kernel(const NccArgs a,
+                                                                   float* __restrict__ vs,
+                                                                   long long rows) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int lo = -(a.window / 2);
+  const size_t stride = (size_t)rows * a.W;  // one stat's plane of sums
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
+    const long long plane = r / a.H;
+    const int y = (int)(r - plane * a.H);
+    const long long n = plane / a.C;
+    const int c = (int)(plane - n * a.C);
+    const size_t base = (size_t)n * a.H * a.W * a.C + c;
+    const T* pI = static_cast<const T*>(a.pred) + base;
+    const T* pJ = static_cast<const T*>(a.target) + base;
+    for (int x = tid; x < a.W; x += nt) {
+      float s[5];
+      for (int o = 0; o < a.window; ++o) {
+        const int yy = y + lo + o;
+        const bool in = yy >= 0 && yy < a.H;
+        const size_t src = ((size_t)(in ? yy : 0) * a.W + x) * a.C;
+        const float vi = in ? to_float(pI[src]) : 0.f, vj = in ? to_float(pJ[src]) : 0.f;
+        const float t[5] = {vi, vj, __fmul_rn(vi, vi), __fmul_rn(vj, vj), __fmul_rn(vi, vj)};
+#pragma unroll
+        for (int q = 0; q < 5; ++q) s[q] = o == 0 ? t[q] : __fadd_rn(s[q], t[q]);
+      }
+      float* dst = vs + (size_t)r * a.W + x;
+#pragma unroll
+      for (int q = 0; q < 5; ++q) dst[q * stride] = s[q];
     }
-    __syncthreads();
-    if (last) {  // every other block's partial is written: add them in order
-      __threadfence();
-      double d = 0.0;
-      for (int i = tid; i < (int)gridDim.x; i += nt) d += (double)__ldcg(a.loss + 1 + i);
-      d = warp_sum_d(d);
-      if ((tid & 31) == 0) dsum[tid >> 5] = d;
-      __syncthreads();
-      if (tid == 0) {
-        double t = dsum[0];
-        for (int i = 1; i < nt / 32; ++i) t += dsum[i];
-        a.loss[0] = (float)(1.0 - t / a.count);
-        g_ncc_tickets[a.ticket] = 0;
+  }
+}
+
+// pass 2: the five sums along W, left to right, then cc (IEEE division by
+// win: window 9's divide-free division equals it), into the map or the loss
+template <bool LOSS>
+__global__ void __launch_bounds__(kMaxThreads) ncc_horizontal_kernel(
+    const NccArgs a, const float* __restrict__ vs, long long rows) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int lo = -(a.window / 2);
+  const size_t stride = (size_t)rows * a.W;
+  const float win = (float)a.window * (float)a.window;
+  float acc = 0.f;  // loss mode: this thread's clamped cc, in item order
+  for (long long r = blockIdx.x; r < rows; r += gridDim.x) {
+    const float* row = vs + (size_t)r * a.W;
+    for (int x = tid; x < a.W; x += nt) {
+      float s[5];
+      for (int o = 0; o < a.window; ++o) {
+        const int xx = x + lo + o;
+        const bool in = xx >= 0 && xx < a.W;
+#pragma unroll
+        for (int q = 0; q < 5; ++q) {
+          const float t = in ? row[q * stride + xx] : 0.f;
+          s[q] = o == 0 ? t : __fadd_rn(s[q], t);
+        }
+      }
+      const float v = ncc_value<false>(s[0], s[1], s[2], s[3], s[4], win, 0.f, a.eps);
+      if constexpr (LOSS) {
+        acc = __fadd_rn(acc, clamp_cc(v));
+      } else {
+        a.cc[(size_t)r * a.W + x] = v;
       }
     }
   }
+  if constexpr (LOSS) finish_loss(acc, a);
 }
 
 // div_by(x, y, RN(1/y)) against the IEEE quotient for every float x (the
@@ -470,7 +561,6 @@ extern "C" int csof_ncc_forward(const void* pred, const void* target, float* cc,
   const long long blocks = (long long)planes * bands * tiles;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
-  static std::atomic<unsigned> next_ticket{0};
   NccArgs a;
   a.pred = pred, a.target = target, a.cc = cc, a.loss = loss;
   a.C = C, a.H = H, a.W = W, a.window = window, a.tile_cols = tile_cols;
@@ -478,7 +568,7 @@ extern "C" int csof_ncc_forward(const void* pred, const void* target, float* cc,
   a.stage_cols = threads + (int)(32 / itemsize);
   a.vec_in = C == 1 && aligned(pred) && aligned(target) && (W * itemsize) % 16 == 0;
   a.vec_out = cc != nullptr && aligned(cc) && W % 4 == 0;
-  a.ticket = (int)(next_ticket.fetch_add(1) % kTicketSlots);
+  a.ticket = (int)(g_next_ticket.fetch_add(1) % kTicketSlots);
   a.eps = eps;
   a.count = (double)planes * H * W;
   const auto st = static_cast<cudaStream_t>(stream);
@@ -491,6 +581,43 @@ extern "C" int csof_ncc_forward(const void* pred, const void* target, float* cc,
     default: e = launch_ncc_t<__half>(a, is_loss, bl, threads, sm, st); break;
   }
   return static_cast<int>(e);
+}
+
+// The two-pass path (ncc_plan's "two_pass"): the arguments of
+// csof_ncc_forward, a scratch buffer of 5 x planes x H x W float32 for the
+// vertical sums, and the grid both passes run on (threads a block, blocks;
+// loss mode writes loss[1 ... blocks]).
+extern "C" int csof_ncc_forward_wide(const void* pred, const void* target, float* cc,
+                                     float* loss, float* scratch, int planes, int C, int H,
+                                     int W, int window, float eps, int dtype_code, int threads,
+                                     int blocks, void* stream) {
+  using namespace csof;
+  if (planes <= 0 || C <= 0 || H <= 0 || W <= 0 || window < 1 || dtype_code < 0 ||
+      dtype_code > 2 || (loss == nullptr) == (cc == nullptr) || scratch == nullptr ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  NccArgs a = {};
+  a.pred = pred, a.target = target, a.cc = cc, a.loss = loss;
+  a.C = C, a.H = H, a.W = W, a.window = window;
+  a.ticket = (int)(g_next_ticket.fetch_add(1) % kTicketSlots);
+  a.eps = eps;
+  a.count = (double)planes * H * W;
+  const long long rows = (long long)planes * H;
+  const auto st = static_cast<cudaStream_t>(stream);
+  switch (dtype_code) {
+    case 0: ncc_vertical_kernel<float><<<blocks, threads, 0, st>>>(a, scratch, rows); break;
+    case 1:
+      ncc_vertical_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(a, scratch, rows);
+      break;
+    default: ncc_vertical_kernel<__half><<<blocks, threads, 0, st>>>(a, scratch, rows); break;
+  }
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (loss != nullptr)
+    ncc_horizontal_kernel<true><<<blocks, threads, 0, st>>>(a, scratch, rows);
+  else
+    ncc_horizontal_kernel<false><<<blocks, threads, 0, st>>>(a, scratch, rows);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // the exhaustive check of the division window 9 takes without dividing

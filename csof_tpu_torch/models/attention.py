@@ -43,7 +43,7 @@ class CrossAttentionLayer(nn.Module):
     as the JAX code writes it, including its bfloat16 path, so the attention
     weights exist as a tensor: ``return_attn_map=True`` also returns the
     attention mass each key receives, averaged over heads and queries, as an
-    (N, H, W) map.
+    (N, H, W) float32 map (the JAX layer's ``attn_weights`` sow).
     """
 
     def __init__(self, d_model: int, num_heads: int = 4, dim_feedforward: int = 1024,
@@ -108,6 +108,7 @@ class CrossAttentionLayer(nn.Module):
         y = F.gelu(getattr(self, self.ffn_names[0])(y), approximate="tanh")
         x = x + getattr(self, self.ffn_names[1])(y)
         out = x.transpose(1, 2).reshape(n, self.d_model, h, w)
-        if return_attn_map:
-            return out, weights.float().mean((1, 2)).view(n, h, w)
+        if return_attn_map:  # the mean rounded to the weights' dtype, as jnp.mean rounds
+            amap = weights.mean((1, 2), dtype=torch.float32).to(weights.dtype).float()
+            return out, amap.view(n, h, w)
         return out

@@ -189,6 +189,11 @@ def add_norm(parent: nn.Module, kind: str, channels: int, index: int) -> str:
     return name
 
 
+#: ``CSOF_CONV2D_IMPL`` values: the library conv, kernel K6, and the JAX
+#: package's tap-sum form (the library conv here)
+CONV_IMPLS = ("native", "pallas", "tapsum")
+
+
 class ConvNormAct(nn.Module):
     """conv -> norm -> LeakyReLU (flax ``ConvNormAct`` and
     ``_NCHWConvNormAct``: same params; per-axis kernel and stride with
@@ -203,13 +208,16 @@ class ConvNormAct(nn.Module):
       ``Conv3x3Function``;
     - ``fused_norm_act=True`` (``CSOF_FUSED_NORM=1``) runs InstanceNorm +
       LeakyReLU as kernel K5 (GroupNorm blocks ignore it, as in JAX).
+
+    ``conv_impl="tapsum"`` (the JAX package's tap-sum form, a TPU
+    reformulation of the same conv) runs the native conv.
     """
 
     def __init__(self, in_channels, features, stride=1, norm="group", dtype=torch.float32,
                  generator=None, kernel_size=3, fused_norm_act=False, conv_impl="native"):
         super().__init__()
-        if conv_impl not in ("native", "pallas"):
-            raise ValueError(f"conv_impl {conv_impl!r} is not ported (native or pallas)")
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl {conv_impl!r} is not one of {CONV_IMPLS}")
         self.Conv_0 = Conv(in_channels, features, kernel_size, stride, dtype=dtype,
                            generator=generator)
         self.norm_name = add_norm(self, norm, features, 0)
@@ -273,3 +281,22 @@ class ConvTranspose(nn.Module):
         dt = self.compute_dtype
         y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), stride=self.kernel)
         return y + self.bias.to(dt).view(1, -1, 1, 1)
+
+
+def upsample_linear(x: torch.Tensor, factors) -> torch.Tensor:
+    """Linear upsampling of NCHW ``x`` by integer ``factors`` (fh, fw), as
+    ``jax.image.resize(..., "linear")`` upsamples (half-pixel centres; at the
+    edges JAX renormalizes the weights where torch clamps the coordinate,
+    which agree for upsampling). One axis at a time in float32, rounded to
+    x's dtype after each, in the order XLA's einsum contracts the two weight
+    matrices: W first only where that costs fewer multiplies (H < W at equal
+    factors), else H first."""
+    fh, fw = factors
+    h, w = x.shape[-2:]
+    h2, w2 = h * fh, w * fw
+    w_first = h * w * w2 + h * w2 * h2 < h * w * h2 + h2 * w * w2
+    sizes = [(h, w2), (h2, w2)] if w_first else [(h2, w), (h2, w2)]
+    dtype = x.dtype
+    for size in sizes:
+        x = F.interpolate(x.float(), size=size, mode="bilinear", align_corners=False).to(dtype)
+    return x

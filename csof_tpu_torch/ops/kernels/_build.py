@@ -49,6 +49,9 @@ _SIGNATURES = {
     # pred, target, cc, loss, planes, C, H, W, window, eps, dtype_code,
     # threads, tile_cols, band_rows, smem, stream
     "csof_ncc_forward": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [_P],
+    # pred, target, cc, loss, scratch, planes, C, H, W, window, eps,
+    # dtype_code, threads, blocks, stream
+    "csof_ncc_forward_wide": [_P] * 5 + [_I] * 5 + [_F] + [_I] * 3 + [_P],
     # window, mismatches, stream
     "csof_ncc_check_division": [_I, _P, _P],
 }

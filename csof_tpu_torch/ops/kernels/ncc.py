@@ -14,7 +14,11 @@ The kernel has two modes: the float32 map (``ncc_map_cuda``), and the loss
 ``1 - mean(clamp(cc, 0.001, 0.999))`` over the planes of a channels-last
 batch in one launch (``ncc_loss_kernel``), which reads float32, bf16 or fp16
 in place and writes no map. ``ncc_plan`` decides how a launch covers the
-planes; the kernel refuses any other plan.
+planes; the kernel refuses any other plan. Where no plan of the one-pass
+kernel fits shared memory (a window above 75 on a wide plane), the plan is
+the two-pass path: the vertical sums go through a scratch buffer in device
+memory (``csof_ncc_forward_wide``), with the same roundings in the same
+order, so K4 computes every window the JAX kernel computes.
 """
 
 from __future__ import annotations
@@ -27,7 +31,8 @@ import torch.nn.functional as F
 
 from csof_tpu_torch.ops.kernels import _build
 
-#: launches of the CUDA kernel since the last reset (set to 0 to reset)
+#: launches of the CUDA kernels since the last reset (set to 0 to reset):
+#: one a call on the one-pass path, two on the two-pass path
 launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -41,6 +46,9 @@ MAX_DYNAMIC_SMEM = 226 * 1024
 TARGET_BLOCKS = 3 * 132
 #: the most chunks of rows a band takes
 MAX_BAND_CHUNKS = 8
+#: the two-pass path's grid: at most this many blocks, each taking every
+#: blocks-th row of the planes
+WIDE_MAX_BLOCKS = 32 * 132
 
 
 def halo_cols(window: int) -> int:
@@ -68,10 +76,13 @@ def smem_bytes(window: int, threads: int, tile_cols: int, itemsize: int) -> int:
 
 @dataclass(frozen=True)
 class NccPlan:
-    """How K4 covers ``planes`` planes of ``h x w``: ``threads`` a block (one
-    a column of a tile with its halo), tiles of ``tile_cols`` output
-    columns, bands of ``band_rows`` output rows, ``smem_bytes`` of dynamic
-    shared memory a block; ``blocks`` = planes x bands x tiles."""
+    """How K4 covers ``planes`` planes of ``h x w``. ``path`` "fused": one
+    pass, ``threads`` a block (one a column of a tile with its halo), tiles
+    of ``tile_cols`` output columns, bands of ``band_rows`` output rows,
+    ``smem_bytes`` of dynamic shared memory a block; ``blocks`` = planes x
+    bands x tiles. ``path`` "two_pass": the vertical sums through device
+    memory, a row at a time (tile_cols = w, band_rows = 1, no shared
+    memory), ``blocks`` blocks of ``threads`` taking every blocks-th row."""
 
     threads: int
     tile_cols: int
@@ -80,6 +91,14 @@ class NccPlan:
     bands: int
     blocks: int
     smem_bytes: int
+    path: str = "fused"
+
+
+def two_pass_plan(planes: int, h: int, w: int) -> NccPlan:
+    """The two-pass path's plan: a thread a column (at most MAX_THREADS, in
+    whole warps), a block a row, at most WIDE_MAX_BLOCKS blocks."""
+    threads = min(MAX_THREADS, -(-w // 32) * 32)
+    return NccPlan(threads, w, 1, 1, h, min(planes * h, WIDE_MAX_BLOCKS), 0, "two_pass")
 
 
 @functools.lru_cache(maxsize=256)
@@ -91,11 +110,17 @@ def ncc_plan(planes: int, h: int, w: int, window: int, itemsize: int,
     where the plane has them (the halo at most doubles a band's reads), and
     as many as still give TARGET_BLOCKS blocks (at most MAX_BAND_CHUNKS
     chunks). ``band_rows`` (a multiple of the chunk) overrides the bands.
-    Raises ValueError for a window whose rings do not fit shared memory."""
+    Where no block's rings fit shared memory, or the planes need more blocks
+    than one launch takes, the two-pass path (``two_pass_plan``; it ignores
+    ``band_rows``). Raises ValueError only for an empty input, a window
+    below 1 and a ``band_rows`` off the chunk."""
     if planes <= 0 or h <= 0 or w <= 0:
         raise ValueError(f"empty input: {planes} planes of {h} x {w}")
     if window < 1:
         raise ValueError(f"window must be at least 1, got {window}")
+    chunk = chunk_rows(window)
+    if band_rows is not None and (band_rows <= 0 or band_rows % chunk):
+        raise ValueError(f"band_rows must be a positive multiple of {chunk}, got {band_rows}")
     halo = halo_cols(window)
     candidates = []
     if -(-w // 32) * 32 <= MAX_THREADS:
@@ -106,13 +131,9 @@ def ncc_plan(planes: int, h: int, w: int, window: int, itemsize: int,
     fits = [(t, c) for t, c in candidates
             if smem_bytes(window, t, c, itemsize) <= MAX_DYNAMIC_SMEM]
     if not fits:
-        raise ValueError(
-            f"window {window} on planes {w} wide: K4 needs more than {MAX_DYNAMIC_SMEM} bytes "
-            f"of shared memory a block (its ring of window x 5 sums a column and a tile "
-            f"of at least 4 columns with a halo of {halo} on either side)")
+        return two_pass_plan(planes, h, w)
     threads, tile_cols = fits[0]
     tiles = -(-w // tile_cols)
-    chunk = chunk_rows(window)
     if band_rows is None:
         most = -(-h // chunk)
         least = max(1, min(-(-(window - 1) // chunk), most))
@@ -122,13 +143,10 @@ def ncc_plan(planes: int, h: int, w: int, window: int, itemsize: int,
                 m = cand
                 break
         band_rows = m * chunk
-    elif band_rows <= 0 or band_rows % chunk:
-        raise ValueError(f"band_rows must be a positive multiple of {chunk}, got {band_rows}")
     bands = -(-h // band_rows)
     blocks = planes * bands * tiles
     if blocks >= 2 ** 31:
-        raise ValueError(f"{planes} planes of {h} x {w} need {blocks} blocks, more than one "
-                         f"launch takes")
+        return two_pass_plan(planes, h, w)
     return NccPlan(threads, tile_cols, band_rows, tiles, bands, blocks,
                    smem_bytes(window, threads, tile_cols, itemsize))
 
@@ -177,14 +195,23 @@ def launch(pred: torch.Tensor, target: torch.Tensor, cc: torch.Tensor | None,
            loss: torch.Tensor | None, planes: int, c: int, window: int, eps: float,
            plan: NccPlan) -> None:
     """K4 on checked inputs under ``plan``: the map into ``cc``, or the loss
-    into ``loss[0]`` with one partial a block in ``loss[1:]``."""
+    into ``loss[0]`` with one partial a block in ``loss[1:]``. The two-pass
+    path takes a scratch buffer of the five vertical sums and counts its
+    two kernels as two launches."""
     global launches
     h, w = pred.shape[1], pred.shape[2]
-    _build.cuda_call("csof_ncc_forward", pred.device, pred.data_ptr(), target.data_ptr(),
-                     0 if cc is None else cc.data_ptr(), 0 if loss is None else loss.data_ptr(),
-                     planes, c, h, w, window, eps, _DTYPE_CODES[pred.dtype], plan.threads,
-                     plan.tile_cols, plan.band_rows, plan.smem_bytes)
-    launches += 1
+    outs = (0 if cc is None else cc.data_ptr(), 0 if loss is None else loss.data_ptr())
+    if plan.path == "two_pass":
+        scratch = torch.empty(5 * planes * h * w, dtype=torch.float32, device=pred.device)
+        _build.cuda_call("csof_ncc_forward_wide", pred.device, pred.data_ptr(),
+                         target.data_ptr(), *outs, scratch.data_ptr(), planes, c, h, w, window,
+                         eps, _DTYPE_CODES[pred.dtype], plan.threads, plan.blocks)
+        launches += 2  # the vertical pass, then the horizontal pass
+    else:
+        _build.cuda_call("csof_ncc_forward", pred.device, pred.data_ptr(), target.data_ptr(),
+                         *outs, planes, c, h, w, window, eps, _DTYPE_CODES[pred.dtype],
+                         plan.threads, plan.tile_cols, plan.band_rows, plan.smem_bytes)
+        launches += 1
 
 
 def ncc_map_cuda(pred: torch.Tensor, target: torch.Tensor, window: int = 9,

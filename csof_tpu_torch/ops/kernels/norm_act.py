@@ -135,7 +135,7 @@ def instance_norm_leaky_relu(x, scale, bias, eps=1e-5, negative_slope=0.01):
     """(N, C, H, W) -> the same. A CUDA tensor runs kernel K5; a CPU tensor
     runs its plain version."""
     forward_only("instance_norm_leaky_relu", x, scale, bias,
-                 hint="build the U-Net with fused_norm_act=False")
+                 hint="build the model with fused_norm_act=False")
     if x.is_cuda:
         return norm_act_cuda(x, scale, bias, eps, negative_slope)
     if x.device.type == "cpu":

@@ -8,9 +8,13 @@ weights from a seed). Prints the device-time table (torch.profiler) and a
 summary line: the forward's host-clock time without the profiler (median of
 10), the summed kernel time of one profiled forward, the device's busy time
 (the union of the kernels' intervals) and the busy share (busy time over the
-unprofiled forward time). The summary and the table also go to out.txt.
+unprofiled forward time), and the launches of each hand-written kernel in
+the profiled forward. The summary and the table also go to out.txt. The
+model reads the kernel switches as the JAX package does:
+``CSOF_CONV2D_IMPL=pallas`` runs SegFlow's routed convs as K6.
 """
 
+import os
 import statistics
 import sys
 import time
@@ -63,6 +67,23 @@ def device_summary(prof, wall_ms: float, what: str) -> tuple[str, str]:
     return summary, table
 
 
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from csof_tpu_torch.ops.kernels import conv, corr, ncc, norm_act, skipfuse
+
+    corr.launches = corr.bwd_launches = skipfuse.launches = ncc.launches = 0
+    norm_act.launches = conv.launches = conv.bwd_launches = 0
+
+
+def read_launches() -> dict:
+    """The kernels' launch counts since the last reset_launches."""
+    from csof_tpu_torch.ops.kernels import conv, corr, ncc, norm_act, skipfuse
+
+    return {"K1": corr.launches, "K2": corr.bwd_launches, "K3": skipfuse.launches,
+            "K4": ncc.launches, "K5": norm_act.launches, "K6": conv.launches,
+            "K6_dx": conv.bwd_launches}
+
+
 def report(summary: str, table: str, path: str | None = None) -> None:
     """Print the summary and the table; also write them to ``path``, by
     default argv[1] if given."""
@@ -87,10 +108,14 @@ def main() -> int:
         for _ in range(3):
             model(video)
         wall = forward_ms(model, video)
+        reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             model(video)
             torch.cuda.synchronize()
-    report(*device_summary(prof, wall, "forward"))
+        launches = read_launches()
+    summary, table = device_summary(prof, wall, "forward")
+    report(f"{summary}; CSOF_CONV2D_IMPL={os.environ.get('CSOF_CONV2D_IMPL', 'native')}, "
+           f"launches {launches} ({torch.cuda.get_device_name(0)})", table)
     return 0
 
 

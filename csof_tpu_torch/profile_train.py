@@ -11,9 +11,13 @@ backward, clip, AdamW, and the read of the loss. Prints the device-time table
 (torch.profiler) and the summary line of profile_serving: the step's
 host-clock time without the profiler (median of 10 after 3 warm-up steps),
 the device events of one profiled step, their summed time, the device's busy
-time and the busy share. The summary and the table also go to out.txt.
+time and the busy share, and the kernels' launches in the profiled step.
+The summary and the table also go to out.txt. ``CSOF_CONV2D_IMPL=pallas``
+(read by the trainer's build_model) runs SegFlow's routed convs as K6, both
+ways.
 """
 
+import os
 import statistics
 import sys
 import tempfile
@@ -24,7 +28,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
-from csof_tpu_torch.profile_serving import device_summary, report
+from csof_tpu_torch.profile_serving import device_summary, read_launches, report, reset_launches
 from csof_tpu_torch.training.trainer import Trainer
 
 BATCH, FRAMES, HW = 4, 6, 128
@@ -54,13 +58,16 @@ def main() -> int:
             trainer.run_iteration(batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
+        reset_launches()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer.run_iteration(batch)
             torch.cuda.synchronize()
+        launches = read_launches()
     wall = statistics.median(times)
     summary, table = device_summary(prof, wall, "train step")
-    report(f"{summary}; {BATCH * FRAMES / wall * 1e3:.2f} train frames/s unprofiled "
-           f"({torch.cuda.get_device_name(0)})", table)
+    report(f"{summary}; {BATCH * FRAMES / wall * 1e3:.2f} train frames/s unprofiled; "
+           f"CSOF_CONV2D_IMPL={os.environ.get('CSOF_CONV2D_IMPL', 'native')}, launches "
+           f"{launches} ({torch.cuda.get_device_name(0)})", table)
     return 0
 
 

@@ -12,8 +12,11 @@ backward (K6 forward and dx where ``CSOF_CONV2D_IMPL=pallas`` routes a conv
 to it), clip 12, SGD with Nesterov momentum under the poly schedule; the
 validation batches' Dice statistics give the online foreground Dice. The
 epoch loop keeps the JAX trainer's best-criterion EMA, patience and
-checkpoint cadence. Not ported: the other model kinds, augmentation, SegFlow
-deep supervision, rematerialisation, sharding over a mesh, compile-draw
+checkpoint cadence. SegFlow trains in every ``corr_fuse`` mode but the
+forward-only ``fused_cm``, with ``fuse_q_hoist``, ``deep_supervision`` (its
+loss branch), ``dec_upsample="linear"`` and ``remat``; under
+``CSOF_CONV2D_IMPL=pallas`` its routed convs run K6 both ways. Not ported:
+the other model kinds, augmentation, sharding over a mesh, compile-draw
 autotuning, TensorBoard and progress plots.
 """
 
@@ -37,16 +40,16 @@ from csof_tpu_torch.ops.warp import warp_image_cm
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.schedules import build_optimizer
 
-TRAINED_CORR_FUSE = ("concat", "concat_cm")
+TRAINED_CORR_FUSE = ("concat", "split", "project", "mean1", "concat_cm")
 TRAINED_KINDS = ("segflow", "unet2d")
 
 
 def build_model(config: ExperimentConfig, num_classes: int | None = None,
                 generator: torch.Generator | None = None, plans=None) -> torch.nn.Module:
     """The model of ``config``: SegFlow, or the 2D U-Net of ``plans`` (without
-    plans the JAX package's default: base 16, 4 (2, 2) pools). The U-Net's
-    kernel switches are read from the environment as the JAX package reads
-    them (``CSOF_CONV2D_IMPL``, ``CSOF_FUSED_NORM``)."""
+    plans the JAX package's default: base 16, 4 (2, 2) pools). Both models
+    read their kernel switches from the environment as the JAX package
+    reads them (``CSOF_CONV2D_IMPL``, ``CSOF_FUSED_NORM``)."""
     kind = config.model
     if kind == "segflow":
         return SegFlow(config.segflow, num_classes or 4, generator=generator)
@@ -70,17 +73,14 @@ def _check_trainable(config: ExperimentConfig) -> None:
     if config.data.do_data_aug:
         raise NotImplementedError("augmentation not ported (ROADMAP item 11): set "
                                   "config.data.do_data_aug=False")
-    if config.model == "segflow":
-        cfg = config.segflow
-        if cfg.corr_fuse not in TRAINED_CORR_FUSE:
-            raise NotImplementedError(f"training with corr_fuse={cfg.corr_fuse!r} is not ported "
-                                      f"(ported: {TRAINED_CORR_FUSE})")
-        if cfg.remat:
-            raise NotImplementedError("training with remat is not ported")
-    elif os.environ.get("CSOF_FUSED_NORM", "0") == "1":
+    if config.model == "segflow" and config.segflow.corr_fuse not in TRAINED_CORR_FUSE:
+        raise NotImplementedError(
+            f"training with corr_fuse={config.segflow.corr_fuse!r} is not ported: kernel K3 "
+            f"has no backward, in the JAX package either (trained: {TRAINED_CORR_FUSE})")
+    if os.environ.get("CSOF_FUSED_NORM", "0") == "1":
         raise NotImplementedError(
             "CSOF_FUSED_NORM=1 (fused_norm_act) runs kernel K5, which has no backward: the "
-            "JAX package uses it for 2D inference only. Unset it to train the U-Net.")
+            "JAX package uses it for inference only. Unset it to train.")
 
 
 def make_seg_loss(config: ExperimentConfig):
@@ -111,8 +111,13 @@ def make_segflow_loss(config: ExperimentConfig):
     """loss_fn(model, batch) -> (loss, metrics), both means over the batch of
     the per-video values. batch: "video" (B, T, H, W, 1), "seg" (B, T, H, W)
     int (-1 where unlabelled), "labeled_mask" (B, T), optional "distance"
-    (B, T) and "loss_mask" (B, T, H, W), all tensors on the model's device."""
+    (B, T) and "loss_mask" (B, T, H, W), all tensors on the model's device.
+    With deep supervision, the auxiliary heads join the NCC, CE and Dice
+    terms as in the JAX loss: weights 1/2^i normalised to sum 1 (the main
+    head first), each auxiliary flow integrated by a cumulative sum over the
+    frames and scored by the NCC of the frames it warps (unmasked)."""
     w = config.loss_weights
+    deep_supervision = config.segflow.deep_supervision
 
     def one_video(out, video, seg, labeled_mask, loss_mask=None):
         """The losses of one video from its model outputs: video (T, H, W, 1),
@@ -137,6 +142,17 @@ def make_segflow_loss(config: ExperimentConfig):
         seg_ce = L.cross_entropy_loss(logits, seg, ignore_index=-1)
         seg_dice = L.soft_dice_loss(logits, seg.clamp_min(0), batch_dice=True,
                                     mask=labeled_mask[:, None, None])
+        if deep_supervision and "seg_ds" in out:
+            ws = [1.0 / 2.0 ** i for i in range(1 + len(out["seg_ds"]))]
+            ws = [x / sum(ws) for x in ws]
+            ncc, seg_ce, seg_dice = ws[0] * ncc, ws[0] * seg_ce, ws[0] * seg_dice
+            for i, (seg_aux, flow_aux) in enumerate(zip(out["seg_ds"], out["flow_ds"])):
+                seg_ce = seg_ce + ws[i + 1] * L.cross_entropy_loss(seg_aux, seg, ignore_index=-1)
+                seg_dice = seg_dice + ws[i + 1] * L.soft_dice_loss(
+                    seg_aux, seg.clamp_min(0), batch_dice=True, mask=labeled_mask[:, None, None])
+                reg_aux = warp_image_cm(video.permute(0, 3, 1, 2), flow_aux.cumsum(0),
+                                        padding="border").permute(0, 2, 3, 1)
+                ncc = ncc + ws[i + 1] * L.ncc_loss(reg_aux[1:], x0.expand_as(reg_aux[1:]))
         loss = (w.image_flow_global * ncc + w.regularization_xy * smooth_xy
                 + w.regularization_z * smooth_t + w.segmentation * (seg_ce + seg_dice))
         metrics = {"ncc": ncc, "smooth_xy": smooth_xy, "smooth_t": smooth_t,
@@ -158,7 +174,8 @@ def make_segflow_loss(config: ExperimentConfig):
         out = model(batch["video"], batch.get("distance"))
         loss_mask = batch.get("loss_mask")
         per_video = [
-            one_video({k: v[b] for k, v in out.items()}, batch["video"][b], batch["seg"][b],
+            one_video({k: tuple(x[b] for x in v) if isinstance(v, tuple) else v[b]
+                       for k, v in out.items()}, batch["video"][b], batch["seg"][b],
                       batch["labeled_mask"][b], None if loss_mask is None else loss_mask[b])
             for b in range(batch["video"].shape[0])
         ]

@@ -170,3 +170,27 @@ def test_warp_image_cm(padding, hw):
     ref = jax.vmap(lambda i, f: jwarp(i, f, padding=padding))(jnp.asarray(img), jnp.asarray(flow))
     got = warp_image_cm(_t(img), torch.from_numpy(flow), padding=padding)
     _close(got, ref, tol=(2e-5, 2e-5))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,factor", [((2, 8, 8, 3), 2), ((1, 5, 7, 2), 2), ((2, 9, 4, 1), 2),
+                                          ((1, 6, 6, 4), 4), ((3, 3, 5, 2), 4)])
+def test_upsample_linear_matches_jax_image_resize(shape, factor, dtype):
+    """blocks.upsample_linear against the JAX package's (jax.image.resize
+    "linear") at factors 2 and 4, odd and even sizes, square and not (XLA
+    contracts H first unless W first costs fewer multiplies): the edges
+    agree (JAX renormalizes, torch clamps: the same value when upsampling)
+    and bf16 rounds after each axis as XLA's einsum does, so equal bits;
+    float32 within a few ulps (the two weights' products summed in another
+    order)."""
+    jd, td = DT[dtype]
+    x = np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32)
+    ref = jax.jit(lambda v: jblocks.upsample_linear(v, (factor, factor)))(jnp.asarray(x, jd))
+    got = blocks.upsample_linear(torch.from_numpy(x).to(td).permute(0, 3, 1, 2),
+                                 (factor, factor))
+    assert got.dtype == td and got.shape[2:] == (shape[1] * factor, shape[2] * factor)
+    got, ref = got.permute(0, 2, 3, 1).float().numpy(), np.asarray(ref.astype(jnp.float32))
+    if dtype == "bfloat16":
+        np.testing.assert_array_equal(got, ref)
+    else:
+        np.testing.assert_allclose(got, ref, atol=1e-6, rtol=1e-6)

@@ -589,6 +589,96 @@ def test_ncc_loss_kernel_is_one_launch_and_matches_ncc_loss(cuda, c, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n,h,w,window,dtype", [
+    (4, 64, 1000, 101, torch.float32), (2, 33, 300, 77, torch.bfloat16),
+    (1, 17, 129, 9, torch.float32), (3, 20, 70, 127, torch.float16)])
+def test_ncc_two_pass_path_matches_plain(cuda, n, h, w, window, dtype):
+    """F9: the two-pass path (windows whose rings shared memory cannot hold,
+    and any other it is given) against the plain map and loss; the map and
+    loss in one wrapper call each, the same bits run to run."""
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    i, j = (t.to(cuda, dtype) for t in _ncc_planes(n, h, w))
+    plan = k4.two_pass_plan(n, h, w)
+    assert window < 100 or k4.ncc_plan(n, h, w, window, i.element_size()) == plan
+    maps = []
+    for _ in range(2):
+        out = torch.empty(n, h, w, dtype=torch.float32, device=cuda)
+        k4.launch(i, j, out, None, n, 1, window, 1e-3, plan)
+        maps.append(out)
+    buf = torch.empty(1 + plan.blocks, dtype=torch.float32, device=cuda)
+    k4.launch(i, j, None, buf, n, 1, window, 1e-3, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(maps[0], maps[1])
+    ref = k4.ncc_map_plain(i, j, window)
+    _close(maps[0], ref, (1e-4, 0))
+    loss_ref = 1.0 - ref.clamp(0.001, 0.999).mean()
+    assert abs(buf[0].item() - loss_ref.item()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_ncc_one_pass_and_two_pass_losses_on_two_streams_keep_their_tickets(cuda):
+    """A one-pass loss (window 9) and a two-pass loss (window 127) in flight
+    at once on two streams, again and again: each launch of either path
+    takes its own last-block ticket slot, so both losses stay right, and
+    every slot is left clean for the loss after them."""
+    from csof_tpu_torch.ops import losses as L
+    from csof_tpu_torch.ops.kernels import ncc as k4
+
+    i, j = (t.to(cuda)[..., None] for t in _ncc_planes(20, 128, 128))
+    assert k4.ncc_plan(20, 128, 128, 9, 4).path == "fused"
+    assert k4.ncc_plan(20, 128, 128, 127, 4).path == "two_pass"
+    want = {w: L.ncc_loss(i, j, w).item() for w in (9, 127)}
+    streams = {9: torch.cuda.Stream(cuda), 127: torch.cuda.Stream(cuda)}
+    got = {9: [], 127: []}
+    for _ in range(40):
+        for w, s in streams.items():
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                got[w].append(k4.ncc_loss_kernel(i, j, w))
+    torch.cuda.synchronize()
+    for w, losses in got.items():
+        worst = max(abs(v.item() - want[w]) for v in losses)
+        assert worst <= 1e-5, (w, worst)
+    after = k4.ncc_loss_kernel(i, j, 9)
+    assert abs(after.item() - want[9]) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["concat", "project", "split"])
+def test_small_segflow_under_pallas_matches_the_cpu(cuda, mode):
+    """SegFlow with conv_impl="pallas" at (8, 16) on 64-wide frames, float32:
+    K6 forward and dx on the card, launched as often as the model counts,
+    against the plain versions on the CPU (outputs, every gradient)."""
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    cfg = SegFlowModelConfig(out_encoder_dims=(8, 16), d_model=16, bottleneck_heads=2,
+                             dim_feedforward=32, corr_radius=(2, 2), corr_stride=(2, 1),
+                             corr_fuse=mode, dtype="float32")
+    cpu = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(0), conv_impl="pallas")
+    gpu = SegFlow(cfg, 4, conv_impl="pallas").to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    video = torch.from_numpy(np.random.RandomState(3).rand(1, 3, 64, 64, 1).astype(np.float32))
+    k6.launches = k6.bwd_launches = 0
+    outs = []
+    for model, v in ((gpu, video.to(cuda)), (cpu, video)):
+        out = model(v)
+        ((out["seg_logits"] ** 2).mean() + (out["cum_flow"] ** 2).mean()
+         + out["registered"].mean()).backward()
+        outs.append(out)
+    torch.cuda.synchronize()
+    counts = gpu.kernel_launches(3, 64, backward=True)
+    assert (k6.launches, k6.bwd_launches) == (counts["K6"], counts["K6_dx"]) != (0, 0)
+    for k in ("seg_logits", "flow", "cum_flow", "registered"):
+        _close(outs[0][k].detach(), outs[1][k].detach(), (1e-4, 1e-4))
+    ref = dict(cpu.named_parameters())
+    for name, p in gpu.named_parameters():
+        r = ref[name].grad.numpy()
+        np.testing.assert_allclose(p.grad.cpu().numpy(), r, rtol=0,
+                                   atol=2e-3 * float(np.abs(r).max()) + 1e-6, err_msg=name)
+
+
+@pytest.mark.cuda
 def test_ncc_window_9_divides_exactly_for_every_float(cuda):
     """Window 9 divides by its 81 taps with a product and one FMA: all 2^32
     float32 values must round as IEEE division does."""

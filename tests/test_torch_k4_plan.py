@@ -213,12 +213,20 @@ def test_plan_at_the_timed_shapes():
 
 
 def test_plan_refuses_what_shared_memory_cannot_hold():
+    """What the plan still refuses: a window below 1, an empty input and a
+    band off the chunk. A window whose rings shared memory cannot hold (101
+    on a 1000-wide plane, refused before F9's repair) takes the two-pass
+    path."""
     with pytest.raises(ValueError, match="window must be at least 1"):
         k4.ncc_plan(1, 8, 8, 0, 4)
-    with pytest.raises(ValueError, match="shared memory"):
-        k4.ncc_plan(1, 64, 1000, 101, 4)
+    with pytest.raises(ValueError, match="empty input"):
+        k4.ncc_plan(1, 0, 8, 9, 4)
     with pytest.raises(ValueError, match="multiple of 9"):
         k4.ncc_plan(1, 64, 64, 9, 4, band_rows=8)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        k4.ncc_plan(1, 64, 1000, 101, 4, band_rows=12)
+    plan = k4.ncc_plan(1, 64, 1000, 101, 4)
+    assert plan == k4.NccPlan(256, 1000, 1, 1, 64, 64, 0, "two_pass")
 
 
 @pytest.mark.parametrize("n", [20, 88])
@@ -241,3 +249,87 @@ def test_plan_takes_every_window_up_to_75_at_any_width(w):
     for window in range(1, 76):
         for itemsize in (4, 2):
             assert k4.ncc_plan(3, 40, w, window, itemsize).smem_bytes <= k4.MAX_DYNAMIC_SMEM
+
+
+@pytest.mark.parametrize("w", [1, 17, 128, 257, 1000, 4096])
+def test_plan_takes_every_window_up_to_the_plane_at_any_width(w):
+    """F9: every window from 1 to the plane's larger side plans, in both
+    item sizes: the one-pass kernel where its rings fit shared memory (every
+    window up to 75), else the two-pass path."""
+    h = 40
+    for itemsize in (4, 2):
+        for window in range(1, max(h, w) + 1):
+            plan = k4.ncc_plan(3, h, w, window, itemsize)
+            if plan.path == "fused":
+                assert plan.smem_bytes <= k4.MAX_DYNAMIC_SMEM
+                assert plan.smem_bytes == k4.smem_bytes(window, plan.threads, plan.tile_cols,
+                                                        itemsize)
+            else:
+                assert plan.path == "two_pass" and window > 75
+                assert plan.threads % 32 == 0 and min(w, 256) <= plan.threads <= 256
+                assert plan.blocks == min(3 * h, k4.WIDE_MAX_BLOCKS) and plan.smem_bytes == 0
+
+
+def emulate_two_pass(pred, target, window, plan, eps=1e-3, loss=False):
+    """csrc/ncc.cu's two-pass path (ncc_vertical_kernel, then
+    ncc_horizontal_kernel) on (planes, H, W) float32 planes: the vertical
+    sums of each pixel to the scratch buffer, each the window's rows added
+    top to bottom with zeros outside the plane, then along W left to right
+    and the closing arithmetic; in loss mode block b's thread t takes
+    columns t, t + threads, ... of rows b, b + blocks, ..., and the partials
+    close as in the one-pass kernel."""
+    planes, h, w = pred.shape
+    lo = -(window // 2)
+    i, j = pred.reshape(planes * h, w), target.reshape(planes * h, w)
+    stats = torch.stack([i, j, i * i, j * j, i * j]).view(5, planes, h, w)
+    vs = torch.zeros(5, planes, h, w)
+    for y in range(h):
+        for o in range(window):
+            yy = y + lo + o
+            t = stats[:, :, yy] if 0 <= yy < h else torch.zeros(5, planes, w)
+            vs[:, :, y] = t if o == 0 else vs[:, :, y] + t
+    vs = vs.view(5, planes * h, w)
+    hs = torch.zeros_like(vs)
+    for x in range(w):
+        for o in range(window):
+            xx = x + lo + o
+            t = vs[:, :, xx] if 0 <= xx < w else torch.zeros(5, planes * h)
+            hs[:, :, x] = t if o == 0 else hs[:, :, x] + t
+    cc = _close(*hs, window, eps)  # (planes * H, W)
+    if not loss:
+        return cc.view(planes, h, w)
+    nt, nb = plan.threads, plan.blocks
+    partials = []
+    for b in range(nb):
+        acc = torch.zeros(nt)
+        for r in range(b, planes * h, nb):
+            for x in range(w):
+                acc[x % nt] = acc[x % nt] + cc[r, x].clamp(0.001, 0.999)
+        warps = _butterfly(acc.view(nt // 32, 32))
+        t = warps[0]
+        for wv in warps[1:]:
+            t = t + wv
+        partials.append(t)
+    part = torch.stack(partials).double()
+    sums = torch.zeros(nt, dtype=torch.float64)
+    for k in range(len(part)):
+        sums[k % nt] += part[k]
+    warps = _butterfly(sums.view(nt // 32, 32))
+    t = warps[0]
+    for wv in warps[1:]:
+        t = t + wv
+    return torch.tensor(1.0 - float(t) / (planes * h * w), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("n,h,w,window", [(2, 9, 40, 77), (1, 13, 30, 101), (1, 20, 23, 9),
+                                          (2, 5, 7, 4)])
+def test_emulated_two_pass_path_equals_the_plain_map(n, h, w, window):
+    """The two-pass path's emulation equals the plain map bit for bit, at
+    windows above 75 (wider than the plane) and at ones the one-pass kernel
+    also takes; the loss through its partials within float32 order."""
+    i, j = _planes(n, h, w, seed=5)
+    plan = k4.two_pass_plan(n, h, w)
+    assert torch.equal(emulate_two_pass(i, j, window, plan), k4.ncc_map_plain(i, j, window))
+    got = emulate_two_pass(i, j, window, plan, loss=True)
+    ref = k4.ncc_loss_kernel(i[..., None], j[..., None], window)
+    assert abs(float(got) - float(ref)) < 1e-6

@@ -39,7 +39,8 @@ def _planes(n, h, w, seed=0):
 #: above 15, and windows wider than the plane
 @pytest.mark.parametrize("n,h,w,window", [(3, 24, 24, 9), (2, 17, 40, 9), (1, 33, 19, 5),
                                           (2, 12, 11, 15), (2, 16, 20, 4), (1, 19, 23, 8),
-                                          (1, 20, 36, 17), (1, 40, 45, 31), (1, 9, 7, 21)])
+                                          (1, 20, 36, 17), (1, 40, 45, 31), (1, 9, 7, 21),
+                                          (1, 30, 90, 77)])
 def test_ncc_map_plain_matches_the_pallas_kernel(n, h, w, window):
     i, j = _planes(n, h, w)
     ref = jax.vmap(lambda a, b: ncc_map_pallas(a, b, window, interpret=True))(

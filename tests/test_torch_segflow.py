@@ -116,8 +116,45 @@ def test_attn_fused_matches_jax(fused_params):
                                    err_msg=k)
 
 
-@pytest.mark.parametrize("layout", ["unfused", "attn_fused"])
+#: the parameter layouts of every other configuration, beside the concat
+#: tree ("unfused") and the stacked bottlenecks ("attn_fused"): the split
+#: convs (in the step, and the query conv hoisted to fuse_q_{lvl}), the 1x1
+#: corr_proj, mean1's narrow fuse, the ds_head_{i} of three levels, the
+#: linear decoder (no expand, no norm), and remat's step scope
+LAYOUTS = {
+    "split": dict(corr_fuse="split"), "split_hoist": dict(corr_fuse="split", fuse_q_hoist=True),
+    "project": dict(corr_fuse="project"), "mean1": dict(corr_fuse="mean1"),
+    "deep_supervision": dict(out_encoder_dims=(8, 8, 16), corr_radius=(2, 2, 2),
+                             corr_stride=(2, 1, 1), deep_supervision=True),
+    "linear": dict(dec_upsample="linear"), "remat": dict(remat=True),
+}
+
+
+@pytest.mark.parametrize("layout", ["unfused", "attn_fused", *LAYOUTS])
 def test_converter_consumes_every_leaf_once_and_fills_every_parameter(request, layout):
+    if layout in LAYOUTS:
+        cfg_kw = dict(SMALL, **LAYOUTS[layout])
+        params = small_params(JaxConfig(**cfg_kw))
+        model = SegFlow(SegFlowModelConfig(**cfg_kw), num_classes=4)
+        names = {name for name, _ in model.named_parameters()}
+        expected = {"split": ".skip_fuse_0.conv_corr.weight", "split_hoist": "fuse_q_1.bias",
+                    "project": ".skip_fuse_1.corr_proj.weight",
+                    "mean1": ".skip_fuse_0.ConvNormAct_0.Conv_0.weight",
+                    "deep_supervision": ".flow_decoder.ds_head_0.weight",
+                    "linear": "seg_decoder.ConvNormAct_0.Conv_0.weight",
+                    "remat": "ScanCheckpointSegFlowStep_0.gru"}[layout]
+        assert any(expected in n for n in names), (layout, expected)
+        assert not any("expand_" in n for n in names) or layout != "linear"
+        assert len(jax.tree_util.tree_leaves(params)) == len(names)
+        load_flax_params(model, params)
+        flat = dict(model.named_parameters())
+        for key in ("fuse_q_0.weight", "seg_decoder.ds_head_0.weight"):
+            if key in flat:  # 3x3 / 1x1 kernels in torch layout
+                leaf = params[key.split(".")[0]] if key.startswith("fuse_q") else \
+                    params["seg_decoder"]["ds_head_0"]
+                assert np.array_equal(flat[key].detach().numpy(),
+                                      np.asarray(leaf["kernel"]).transpose(3, 2, 0, 1))
+        return
     params = request.getfixturevalue("params" if layout == "unfused" else "fused_params")
     model = SegFlow(SegFlowModelConfig(**SMALL, attn_fused=layout == "attn_fused"),
                     num_classes=4)
@@ -168,10 +205,18 @@ def test_config_mirrors_the_jax_fields_and_defaults(name):
 
 
 def test_unported_modes_are_refused():
-    for kw in (dict(corr_fuse="split"), dict(dec_upsample="linear"),
-               dict(corr_fuse="fused_cm", norm="instance"), dict(d_model=32)):
+    """What SegFlow still refuses: K3 (fused_cm) without GroupNorm, a
+    bottleneck width other than d_model, and values no JAX config takes
+    (every corr_fuse mode, the linear decoder and deep supervision build)."""
+    for kw in (dict(corr_fuse="fused_cm", norm="instance"), dict(d_model=32),
+               dict(corr_fuse="sum"), dict(dec_upsample="nearest")):
         with pytest.raises(ValueError):
             SegFlow(SegFlowModelConfig(**dict(SMALL, **kw)))
+    with pytest.raises(ValueError, match="conv_impl"):
+        SegFlow(SegFlowModelConfig(**SMALL), conv_impl="cudnn")
+    for kw in (dict(corr_fuse="split"), dict(corr_fuse="project"), dict(corr_fuse="mean1"),
+               dict(dec_upsample="linear"), dict(deep_supervision=True)):
+        SegFlow(SegFlowModelConfig(**dict(SMALL, **kw)))
 
 
 def test_training_forward_raises_clearly():

@@ -108,6 +108,37 @@ def test_flow_predictor_and_export_match_jax(tmp_path):
         np.testing.assert_allclose(a.data_czyx, b.data_czyx, atol=5e-4)
 
 
+@pytest.mark.parametrize("name", ["split", "deep_supervision"])
+def test_flow_predictor_serves_the_other_modes_as_jax(tmp_path, name):
+    """The remap leaves split (its own parameter tree) as it is; a deep
+    supervision model serves under fused_cm, and FlowPredictor drops its
+    auxiliary heads, as the JAX package's does."""
+    small = dict(out_encoder_dims=(8, 16), d_model=16, bottleneck_heads=2, dim_feedforward=32,
+                 corr_radius=(2, 2), corr_stride=(2, 1), dtype="float32")
+    if name == "split":
+        small["corr_fuse"] = "split"
+    else:
+        small.update(out_encoder_dims=(8, 8, 16), corr_radius=(2, 2, 2), corr_stride=(2, 1, 1),
+                     deep_supervision=True)
+    jcfg = jserving.apply_serving_config(JaxConfig(**small), 3)
+    cfg = serving.apply_serving_config(SegFlowModelConfig(**small), 3)
+    assert cfg.corr_fuse == jcfg.corr_fuse == ("split" if name == "split" else "fused_cm")
+    jmodel = JaxSegFlow(cfg=jcfg)
+    params = small_params(jcfg, seed=3)
+    rng = np.random.RandomState(4)
+    video = rng.rand(3, 2, 24, 28).astype(np.float32)
+    video[:, :, 6:18, 8:22] += 1.5
+    ref = jfp.FlowPredictor(lambda v: jmodel.apply({"params": params}, v),
+                            crop_size=16).predict_video(video)
+    model = SegFlow(cfg, num_classes=4)
+    load_flax_params(model, params)
+    got = flow_predictor.FlowPredictor(model, crop_size=16, device="cpu").predict_video(video)
+    assert set(got) == set(ref)
+    for k, tol in (("softmax", 1e-4), ("flow", 5e-4), ("registered", 5e-4)):
+        assert got[k].shape == ref[k].shape, k
+        np.testing.assert_allclose(got[k], ref[k], atol=tol, rtol=1e-3, err_msg=k)
+
+
 def test_flow_predictor_targets_the_card_by_default():
     predictor = flow_predictor.FlowPredictor(SegFlow(SegFlowModelConfig(
         out_encoder_dims=(8, 16), d_model=16, bottleneck_heads=2, dim_feedforward=32)))
