@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SegFlow serving and training paths and its
 nnU-Net 2D serving and training paths once on one NVIDIA GPU, then SegFlow
-under the JAX package's kernel switches and in its other configurations.
+under the JAX package's kernel switches and in its other configurations,
+then the port's command line.
 
     python3 chip_smoke.py
 
@@ -78,7 +79,8 @@ Phases, each printed on its own line:
    division for every float32; at both timed shapes the map's and the loss's
    CUDA-event, device and host time a call beside the bound; the map twice
    and the loss three times must give the same bits, and ncc_loss_kernel
-   must be one device kernel (torch.profiler, in a fresh process); then
+   must be one launch a call, all of one device kernel (torch.profiler over
+   ten calls, in a fresh process); then
    ncc_loss_kernel, the op's entry point, driven alone against the port's
    ncc_loss (C = 1, C = 3, bf16).
 17. segflow pallas serving: the flagship serving forward (bench geometry,
@@ -104,6 +106,24 @@ Phases, each printed on its own line:
 21. ncc wide: K4 at windows above 75 (101 on 4 x 64 x 1000, 127 on 20 x
    128^2; F9): the two-pass path's map and loss against the plain version,
    with times and bounds; the two-pass path counts two launches a call.
+22. cli: the command line through its entry functions, at full width, on
+   inputs written with the port's NIfTI writer (3 cines of 12 x 8 x
+   160x176 with ED/ES labels and dataset.json; 2 Task002-like cases of 16
+   slices, preprocessed as phase 14 preprocesses): csof_torch_train on
+   SegFlow (default widths, bf16, the video augmentation, batch 4 x 6 x
+   128^2, 2 epochs x 3 steps: 16 K1 + 16 K2 a step, the sidecars and the
+   final checkpoint), csof_torch_predict_flow on that folder (3 cines, TTA,
+   fused_cm: 136 K3 a cine; the Flow, Registered and Segmentation files),
+   csof_torch_train on the Task002 2d U-Net (the default config,
+   augmentation on, CSOF_CONV2D_IMPL=pallas, 1 epoch x 4 steps at batch 40
+   x 320x256: 7 K6 + 6 K6 dx a step), --validation-only (summary.json),
+   csof_torch_predict on 2 cases with both kernel switches (26 K5 + 7 K6 a
+   forward), csof_torch_evaluate and csof_torch_ensemble on those outputs;
+   then one cine from the same SegFlow folder, float32 without TTA, on the
+   card and on the CPU (Flow and Registered within phase 5's tolerance).
+   Each command's launches are counted alone; its host seconds are printed
+   beside the card's name and power limit; last, the CUDA-event time of
+   augment_batch_2d at a U-Net batch and augment_video at a SegFlow batch.
 
 Then one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -234,6 +254,13 @@ MODES = [("split + fuse_q_hoist", dict(corr_fuse="split", fuse_q_hoist=True)),
 #: K4 windows above 75 (F9), (N, H, W, window): 101 on 1000-wide planes and
 #: 127 on the SegFlow loss's 20 planes of 128^2
 NCC_WIDE = [(4, 64, 1000, 101), (20, 128, 128, 127)]
+#: phase 22, the command line: 3 cines (T_FRAMES x DEPTH x CINE_HW) with
+#: labels at ED and ES (1-based frame numbers); SegFlow trained 2 epochs x 3
+#: steps with 1 validation batch an epoch; the U-Net 1 epoch x 4 steps + 1
+#: validation batch on 2 Task002-like cases of 16 slices (the reduced depth)
+CLI_CINES, CLI_ED_ES = 3, (1, 7)
+CLI_FLOW_EPOCHS, CLI_FLOW_STEPS, CLI_FLOW_VAL = 2, 3, 1
+CLI_UNET_CASES, CLI_UNET_DEPTH, CLI_UNET_STEPS, CLI_UNET_VAL = 2, 16, 4, 1
 
 
 class PhaseError(RuntimeError):
@@ -873,14 +900,14 @@ def check_unet_kernels(card: str) -> dict:
     return res
 
 
-def synthetic_case(rng: np.random.RandomState) -> np.ndarray:
+def synthetic_case(rng: np.random.RandomState, depth: int = UNET_DEPTH) -> np.ndarray:
     """(z, y, x) float32 MRI-like volume: noise everywhere (nothing for the
     crop to remove) and a bright ellipsoid, the left atrium's stand-in."""
     h, w = UNET_HW
-    zz, yy, xx = np.mgrid[0:UNET_DEPTH, 0:h, 0:w].astype(np.float32)
-    cz, cy, cx = UNET_DEPTH / 2, h * 0.5 + rng.uniform(-20, 20), w * 0.5 + rng.uniform(-20, 20)
+    zz, yy, xx = np.mgrid[0:depth, 0:h, 0:w].astype(np.float32)
+    cz, cy, cx = depth / 2, h * 0.5 + rng.uniform(-20, 20), w * 0.5 + rng.uniform(-20, 20)
     blob = ((zz - cz) / 12) ** 2 + ((yy - cy) / 40) ** 2 + ((xx - cx) / 30) ** 2 <= 1
-    return (20 + 30 * rng.rand(UNET_DEPTH, h, w) + 200 * blob).astype(np.float32)
+    return (20 + 30 * rng.rand(depth, h, w) + 200 * blob).astype(np.float32)
 
 
 def unet_forwards(shape_zyx, plans) -> int:
@@ -1421,8 +1448,8 @@ def check_ncc(card: str) -> tuple[dict, dict]:
             res["bound_by"] = by
         names = kt[f"K4_loss_{n}_kernels"]
         expect(kt[f"K4_loss_{n}_launches"] == len(names) == 1 and "ncc_kernel" in names[0],
-               f"ncc_loss_kernel: {kt[f'K4_loss_{n}_launches']} launches, device kernels "
-               f"{names}")
+               f"ncc_loss_kernel: {kt[f'K4_loss_{n}_launches']} launches a call, device "
+               f"events {names}")
 
     # the same bits run to run
     pa, pb = planes[88]
@@ -1892,6 +1919,231 @@ def check_ncc_wide(card: str) -> tuple[dict, dict]:
 
 #: the keys every kernel has in the kernels line; a kernel's other measured
 #: numbers (bf16 or float32 times, library notes, K3's passes) follow them
+def cli_inputs(tmp: Path, plans) -> tuple[Path, Path, Path]:
+    """Phase 22's inputs, written with the port's NIfTI writer: a task with
+    CLI_CINES cines (cine/<pid>_4d.nii.gz), their ED/ES numbers in
+    dataset.json and ED/ES labels in labelsTr; CLI_UNET_CASES Task002-like
+    volumes as a folder of *_0000.nii.gz with their labels; and a 2d
+    preprocessed root (plans_2D.json, preprocessed_2d/) built as phase 14
+    builds one. Returns (task, U-Net task, preprocessed root)."""
+    from csof_tpu_torch.data.cropping import run_cropping
+    from csof_tpu_torch.data.preprocessing import Preprocessor
+    from csof_tpu_torch.utils.nifti import save_nifti
+
+    task = tmp / "task"
+    for sub in ("cine", "labelsTr"):
+        (task / sub).mkdir(parents=True)
+    rng = np.random.RandomState(11)
+    ed_es = {}
+    for i in range(CLI_CINES):
+        pid = f"patient{i + 1:03d}"
+        cine = synthetic_cine(rng)  # (T, D, H, W)
+        save_nifti(cine, task / "cine" / f"{pid}_4d.nii.gz", spacing_xyz=(1.5, 1.5, 10.0))
+        for frame in CLI_ED_ES:
+            save_nifti((cine[frame - 1] > 100).astype(np.uint8),
+                       task / "labelsTr" / f"{pid}_frame{frame:02d}.nii.gz",
+                       spacing_xyz=(1.5, 1.5, 10.0))
+        ed_es[pid] = {"ed": CLI_ED_ES[0], "es": CLI_ED_ES[1]}
+    (task / "dataset.json").write_text(json.dumps({"name": "synthetic", "ed_es_numbers": ed_es}))
+
+    unet_task, pre = tmp / "unet_task", tmp / "pre"
+    for sub in ("imagesTs", "labelsTs"):
+        (unet_task / sub).mkdir(parents=True)
+    spacing_xyz = (UNET_SPACING, UNET_SPACING, 1.37)
+    cases = []
+    for i in range(CLI_UNET_CASES):
+        img = synthetic_case(rng, CLI_UNET_DEPTH)
+        img_path = unet_task / "imagesTs" / f"la_{i:03d}_0000.nii.gz"
+        seg_path = unet_task / "labelsTs" / f"la_{i:03d}.nii.gz"
+        save_nifti(img, img_path, spacing_xyz=spacing_xyz)
+        save_nifti((img > 150).astype(np.uint8), seg_path, spacing_xyz=spacing_xyz)
+        cases.append((f"la_{i:03d}", [str(img_path)], str(seg_path)))
+    run_cropping(cases, tmp / "cropped")
+    Preprocessor(plans).run(tmp / "cropped", pre / "preprocessed_2d")
+    plans.to_json(pre / "plans_2D.json")
+    return task, unet_task, pre
+
+
+def cli_phase(card: str) -> dict:
+    """Phase 22: the port's command line at full width, each command through
+    its entry function. Returns the launches of each command."""
+    import dataclasses
+
+    import torch
+
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.experiment import (
+        DataConfig,
+        ExperimentConfig,
+        load_experiment_config,
+    )
+    from csof_tpu_torch.config.plans import task002_heart_2d
+    from csof_tpu_torch.data.dataset import do_split, load_dataset
+    from csof_tpu_torch.utils.nifti import load_nifti
+
+    counts = {}
+
+    def run(name: str, entry, argv: list, want: dict, **environ) -> None:
+        """One command on its own counts, host-clocked."""
+        with env(**environ):
+            _reset_counts()
+            t0 = time.perf_counter()
+            entry([str(a) for a in argv])
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts[name] = {k: v for k, v in _read_counts().items() if v}
+        want = {k: v for k, v in want.items() if v}
+        expect(counts[name] == want, f"{name}: launches {counts[name]}, expected {want}")
+        phase("cli", f"{name}: {secs:.3f} s host clock, launches {counts[name]} ({card})")
+
+    plans = task002_heart_2d()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        task, unet_task, pre = cli_inputs(tmp, plans)
+        phase("cli", f"inputs: {CLI_CINES} cines {(T_FRAMES, DEPTH, *CINE_HW)}, "
+              f"{CLI_UNET_CASES} cases {(1, CLI_UNET_DEPTH, *UNET_HW)} preprocessed, in "
+              f"{time.perf_counter() - t0:.1f} s host clock")
+
+        # csof_torch_train, SegFlow: default widths, bf16, the video augmentation
+        flow_cfg = ExperimentConfig(
+            model="segflow", max_num_epochs=CLI_FLOW_EPOCHS,
+            num_batches_per_epoch=CLI_FLOW_STEPS, num_val_batches_per_epoch=CLI_FLOW_VAL,
+            data=DataConfig(batch_size=TRAIN_BATCH, video_length=TRAIN_T, crop_size=TRAIN_HW))
+        expect(flow_cfg.data.do_data_aug and flow_cfg.segflow.dtype == "bfloat16",
+               "the SegFlow config is not the default bf16 one with augmentation")
+        flow_cfg.to_yaml(tmp / "segflow.yaml")
+        steps = CLI_FLOW_EPOCHS * CLI_FLOW_STEPS
+        evals = CLI_FLOW_EPOCHS * CLI_FLOW_VAL
+        run("csof_torch_train segflow", cli.train_entry,
+            ["-c", tmp / "segflow.yaml", "-p", tmp / "unused", "-t", task, "-o", tmp / "flow"],
+            {"K1": CORR_PER_STEP * (steps + evals), "K2": CORR_PER_STEP * steps})
+        fold = tmp / "flow" / "fold_0"
+        for name in ("config.yaml", "meta.json", "model_final_checkpoint.pt",
+                     "model_final_checkpoint.pt.json", "training_log.txt"):
+            expect((fold / name).is_file(), f"csof_torch_train segflow: {name} not written")
+        epochs = [line for line in (fold / "training_log.txt").read_text().splitlines()
+                  if line.startswith("epoch ")]
+        losses = [float(line.split(" train ")[1].split()[0]) for line in epochs]
+        expect(len(losses) == CLI_FLOW_EPOCHS and all(np.isfinite(losses)),
+               f"SegFlow epoch losses {losses}")
+        expect(load_experiment_config(fold / "config.yaml") == flow_cfg,
+               "config.yaml does not read back to the config")
+        phase("cli", f"csof_torch_train segflow: epoch losses {losses}")
+
+        # csof_torch_predict_flow: the fused_cm remap, mirror TTA, 3 cines
+        run("csof_torch_predict_flow", cli.predict_flow_entry,
+            ["-m", fold, "-t", task, "-o", tmp / "flow_out"],
+            {"K1": CLI_CINES * LAUNCHES_PER_REQUEST, "K3": CLI_CINES * LAUNCHES_PER_REQUEST})
+        for i in range(CLI_CINES):
+            pid = f"patient{i + 1:03d}"
+            flow = np.load(tmp / "flow_out" / "Flow" / f"{pid}.npz")["flow"]
+            reg = load_nifti(tmp / "flow_out" / "Registered" / f"{pid}.nii.gz").data_czyx
+            seg = load_nifti(tmp / "flow_out" / "Segmentation" / f"{pid}.nii.gz").data_czyx
+            expect(flow.shape == (2, T_FRAMES, DEPTH, *CINE_HW) and np.isfinite(flow).all(),
+                   f"{pid}: flow {flow.shape}")
+            expect(reg.shape == seg.shape == (T_FRAMES, DEPTH, *CINE_HW)
+                   and np.isfinite(reg).all(), f"{pid}: registered {reg.shape}, seg {seg.shape}")
+
+        # csof_torch_train, U-Net: the Task002 2d plans, the default config
+        # (augmentation on), K6 under CSOF_CONV2D_IMPL=pallas
+        unet_cfg = ExperimentConfig(model="unet2d", max_num_epochs=1,
+                                    num_batches_per_epoch=CLI_UNET_STEPS,
+                                    num_val_batches_per_epoch=CLI_UNET_VAL)
+        expect(unet_cfg.data.do_data_aug, "the U-Net config does not augment")
+        unet_cfg.to_yaml(tmp / "unet.yaml")
+        run("csof_torch_train unet2d", cli.train_entry,
+            ["-c", tmp / "unet.yaml", "-p", pre, "-o", tmp / "unet"],
+            {"K6": 7 * (CLI_UNET_STEPS + CLI_UNET_VAL), "K6_dx": 6 * CLI_UNET_STEPS},
+            CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
+        unet_fold = tmp / "unet" / "fold_0"
+        expect((unet_fold / "model_final_checkpoint.pt").is_file()
+               and (unet_fold / "plans.json").is_file(), "U-Net checkpoint or plans not written")
+
+        # --validation-only on the fold's validation case, then csof_torch_predict
+        ds = load_dataset(pre / "preprocessed_2d")
+        shapes = {k: np.load(v["data_file"])["data"].shape[1:] for k, v in ds.items()}
+        _, val_keys = do_split(list(ds), 0, splits_file=pre / "splits.pkl")
+        val_fwd = sum(unet_forwards(shapes[k], plans) for k in val_keys)
+        run("csof_torch_train --validation-only", cli.train_entry,
+            ["-c", tmp / "unet.yaml", "-p", pre, "-o", tmp / "unet", "--validation-only"],
+            {"K6": 7 * val_fwd}, CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
+        summary = json.loads((unet_fold / "validation_raw" / "summary.json").read_text())
+        expect(len(summary["all"]) == len(val_keys) and "1" in summary["mean"],
+               f"validation summary {summary.get('mean')}")
+        pred_fwd = CLI_UNET_CASES * unet_forwards((CLI_UNET_DEPTH, *UNET_HW), plans)
+        run("csof_torch_predict", cli.predict_entry,
+            ["-m", unet_fold, "-i", unet_task / "imagesTs", "-o", tmp / "pred", "--save-npz"],
+            {"K5": 26 * pred_fwd, "K6": 7 * pred_fwd}, CSOF_CONV2D_IMPL="pallas",
+            CSOF_FUSED_NORM="1")
+        for i in range(CLI_UNET_CASES):
+            seg = load_nifti(tmp / "pred" / f"la_{i:03d}.nii.gz").data_czyx
+            soft = np.load(tmp / "pred" / f"la_{i:03d}.npz")["softmax"]
+            expect(seg.shape == (CLI_UNET_DEPTH, *UNET_HW) and np.isfinite(soft).all(),
+                   f"case {i}: seg {seg.shape}, softmax finite {np.isfinite(soft).all()}")
+
+        # csof_torch_evaluate and csof_torch_ensemble on those outputs
+        run("csof_torch_evaluate", cli.evaluate_entry,
+            ["-p", tmp / "pred", "-r", unet_task / "labelsTs", "-l", "1", "-o",
+             tmp / "eval.json"], {})
+        scores = json.loads((tmp / "eval.json").read_text())
+        expect(len(scores["all"]) == CLI_UNET_CASES and "Dice" in scores["mean"]["1"],
+               f"evaluation {scores['mean']}")
+        run("csof_torch_ensemble", cli.ensemble_entry,
+            ["-f", tmp / "pred", tmp / "pred", "-o", tmp / "ens"], {})
+        for i in range(CLI_UNET_CASES):
+            a = np.load(tmp / "ens" / f"la_{i:03d}.npz")["softmax"]
+            b = np.load(tmp / "pred" / f"la_{i:03d}.npz")["softmax"]
+            expect(np.allclose(a, b), f"case {i}: the ensemble of a folder with itself moved")
+
+        # the same port-written folder on both devices: float32, no TTA, one cine
+        cfg32 = load_experiment_config(fold / "config.yaml")
+        cfg32 = dataclasses.replace(cfg32, segflow=dataclasses.replace(cfg32.segflow,
+                                                                       dtype="float32"))
+        fold32 = tmp / "flow32" / "fold_0"
+        fold32.mkdir(parents=True)
+        for name in ("model_final_checkpoint.pt", "model_final_checkpoint.pt.json",
+                     "meta.json"):
+            (fold32 / name).write_bytes((fold / name).read_bytes())
+        cfg32.to_yaml(fold32 / "config.yaml")
+        one = tmp / "task_one"
+        (one / "cine").mkdir(parents=True)
+        (one / "cine" / "patient001_4d.nii.gz").write_bytes(
+            (task / "cine" / "patient001_4d.nii.gz").read_bytes())
+        (one / "dataset.json").write_text(json.dumps(
+            {"ed_es_numbers": {"patient001": {"ed": CLI_ED_ES[0], "es": CLI_ED_ES[1]}}}))
+        per_forward = LAUNCHES_PER_REQUEST // 4
+        run("csof_torch_predict_flow float32 GPU", cli.predict_flow_entry,
+            ["-m", fold32, "-t", one, "-o", tmp / "gpu", "--disable-tta"],
+            {"K1": per_forward, "K3": per_forward})
+        run("csof_torch_predict_flow float32 CPU", cli.predict_flow_entry,
+            ["-m", fold32, "-t", one, "-o", tmp / "cpu", "--disable-tta", "--device", "cpu"], {})
+        for sub, key in (("Flow", "flow"), ("Registered", None)):
+            f = f"patient001.{'npz' if key else 'nii.gz'}"
+            got, ref = ((np.load(tmp / d / sub / f)[key] if key else
+                         load_nifti(tmp / d / sub / f).data_czyx) for d in ("gpu", "cpu"))
+            compare("cli", f"{sub} GPU vs CPU {got.shape}", torch.tensor(got), torch.tensor(ref),
+                    *MODEL_TOL)
+    # the augmentation a train step runs, alone: CUDA events around each call
+    # (host work inside: the draws' generator calls and the low-res levels)
+    from csof_tpu_torch.data import augment as ta
+
+    rng = np.random.RandomState(5)
+    img = torch.from_numpy(rng.randn(40, 1, *plans.fullres_stage().patch_size)
+                           .astype(np.float32)).cuda()
+    seg = torch.from_numpy(rng.randint(0, 2, (40, *plans.fullres_stage().patch_size))).cuda()
+    vid = torch.from_numpy(rng.rand(TRAIN_BATCH, TRAIN_T, TRAIN_HW, TRAIN_HW, 1)
+                           .astype(np.float32)).cuda()
+    vseg = torch.from_numpy(rng.randint(-1, 4, (TRAIN_BATCH, TRAIN_T, TRAIN_HW, TRAIN_HW))).cuda()
+    gen = ta.step_generator(0, 0, "cuda")
+    ms_2d = median_ms(lambda: ta.augment_batch_2d(gen, img, seg))
+    ms_video = median_ms(lambda: ta.augment_video(gen, vid, vseg))
+    phase("cli", f"augmentation: augment_batch_2d {tuple(img.shape)} {ms_2d:.3f} ms, "
+          f"augment_video {tuple(vid.shape)} {ms_video:.3f} ms (CUDA events, median of 20; "
+          f"{card})")
+    return counts
+
+
 _MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -1979,12 +2231,18 @@ def main() -> int:
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], convs["max_abs_err"])
         kernels[k].update({f"segflow_bf16_{name}": v for name, v in convs[key].items()})
     phase("segflow pallas", f"phases 17-21 took {time.perf_counter() - t_new:.1f} s")
+    t_cli = time.perf_counter()
+    torch.cuda.empty_cache()
+    cli_counts = cli_phase(card)
+    phase("cli", f"phase 22 took {time.perf_counter() - t_cli:.1f} s")
 
     paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
              "unet_training": unet_train_counts, "ncc_op": ncc_counts,
              "segflow_pallas_serving": pallas_serving_counts,
              "segflow_pallas_train": pallas_train_counts, "segflow_modes": modes_counts,
-             "ncc_wide_windows": wide_counts}
+             "ncc_wide_windows": wide_counts,
+             **{name.replace("csof_torch_", "cli ").replace(" --", " "): c
+                for name, c in cli_counts.items()}}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {

@@ -26,6 +26,12 @@ The map is built by walking the flax tree, so flax's auto-numbered scopes
 ``StackedConvs_0..2n`` in call order with ``ConvNormAct_i/Conv_0`` and
 ``InstanceNorm_0`` inside, beside the named ``ConvTranspose_u`` and
 ``seg_head_level``) need no hand-written list.
+
+``load_flax_train_state`` restores a whole flax ``TrainState`` (as
+:mod:`csof_tpu_torch.compat.flax_msgpack` reads it from a JAX checkpoint)
+into a port model and its :class:`csof_tpu_torch.training.schedules.Optimizer`:
+the weights, the step, and the optax state of the two chains the JAX
+package builds, each moment tree mapped by the same rule as the weights.
 """
 
 from __future__ import annotations
@@ -77,6 +83,14 @@ def unstack_bottleneck_dual(tree: Mapping) -> dict:
     return out
 
 
+def _as_array(leaf) -> np.ndarray:
+    """A float32 numpy array of a leaf (numpy, or a torch tensor such as the
+    msgpack reader's bfloat16 leaves)."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().float().cpu().numpy()
+    return np.asarray(leaf, dtype=np.float32)
+
+
 def _convert(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if name == "kernel":
         if isinstance(module, ConvTranspose):
@@ -92,34 +106,117 @@ def _convert(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.nda
     raise KeyError(f"no rule for leaf {name!r} of a {type(module).__name__}")
 
 
-def load_flax_params(module: nn.Module, params: Mapping) -> None:
-    """Fill every parameter of ``module`` from the flax tree ``params``
-    (``variables["params"]`` with numpy leaves). Raises on a leaf that maps
-    to no parameter or to a parameter of another shape, and on a parameter
-    that no leaf fills."""
+def flax_to_torch_arrays(module: nn.Module, params: Mapping) -> dict[str, np.ndarray]:
+    """{torch parameter name: array in the torch layout} of every leaf of the
+    flax tree ``params`` (``variables["params"]``, or an optimizer moment of
+    the same structure). Raises on a leaf that maps to no parameter or to a
+    parameter of another shape, and on a parameter that no leaf fills."""
     targets = dict(module.named_parameters())
-    filled: set[str] = set()
-    for path, leaf in _leaves(unstack_bottleneck_dual(params)):
+    out: dict[str, np.ndarray] = {}
+    for path, leaf in _leaves(unstack_bottleneck_dual(_map_leaves(_as_array, params))):
         scope, name = path[:-1], path[-1]
         where = "/".join(path)
         try:
             sub = module.get_submodule(".".join(scope))
         except AttributeError as e:
             raise KeyError(f"flax leaf {where}: no torch module {'.'.join(scope)}") from e
-        pname, value = _convert(sub, name, np.asarray(leaf, dtype=np.float32))
+        pname, value = _convert(sub, name, leaf)
         key = ".".join(scope + (pname,))
-        if key not in targets or key in filled:
+        if key not in targets or key in out:
             raise KeyError(f"flax leaf {where}: torch parameter {key} missing or already filled")
-        target = targets[key]
-        if tuple(value.shape) != tuple(target.shape):
+        if tuple(value.shape) != tuple(targets[key].shape):
             raise ValueError(f"flax leaf {where}: shape {value.shape} does not fit {key} "
-                             f"{tuple(target.shape)}")
-        with torch.no_grad():
-            target.copy_(torch.from_numpy(np.ascontiguousarray(value)))
-        filled.add(key)
-    missing = sorted(set(targets) - filled)
+                             f"{tuple(targets[key].shape)}")
+        out[key] = np.ascontiguousarray(value)
+    missing = sorted(set(targets) - set(out))
     if missing:
         raise KeyError(f"torch parameters no flax leaf filled: {missing}")
+    return out
+
+
+def load_flax_params(module: nn.Module, params: Mapping) -> None:
+    """Fill every parameter of ``module`` from the flax tree ``params``
+    (``variables["params"]`` with numpy leaves), with the checks of
+    :func:`flax_to_torch_arrays`."""
+    targets = dict(module.named_parameters())
+    with torch.no_grad():
+        for key, value in flax_to_torch_arrays(module, params).items():
+            targets[key].copy_(torch.tensor(value))
+
+
+def _node(tree: Mapping, path: tuple[str, ...], keys: set[str]) -> Mapping:
+    """tree[path[0]][path[1]]..., which must be a dict with exactly ``keys``."""
+    node = tree
+    for i, k in enumerate(path):
+        if not isinstance(node, Mapping) or k not in node:
+            raise KeyError(f"optimizer state: no {'/'.join(path[:i + 1])}")
+        node = node[k]
+    if not isinstance(node, Mapping) or set(node) != keys:
+        got = sorted(node) if isinstance(node, Mapping) else type(node).__name__
+        raise KeyError(f"optimizer state {'/'.join(path)}: leaves {got} do not fit the "
+                       f"expected {sorted(keys)}")
+    return node
+
+
+def load_flax_train_state(model: nn.Module, optimizer, state: Mapping) -> None:
+    """Restore a flax ``TrainState`` state dict (``{"step", "params",
+    "opt_state"}``, as ``flax.serialization.to_state_dict`` gives it and a
+    JAX checkpoint stores it) into ``model`` and ``optimizer`` (the port's
+    :class:`~csof_tpu_torch.training.schedules.Optimizer` over ``model``'s
+    parameters):
+
+    - ``params["params"]`` through :func:`load_flax_params`;
+    - ``step`` becomes ``optimizer.count`` (the schedule's position);
+    - the optax state of the JAX package's chains
+      (``csof_tpu/training/schedules.py`` ``build_optimizer``):
+      ``clip_by_global_norm`` -> ``adamw``: ``ScaleByAdamState`` ``mu`` /
+      ``nu`` / ``count`` become AdamW's ``exp_avg`` / ``exp_avg_sq`` /
+      ``step``; ``clip_by_global_norm`` -> ``add_decayed_weights`` ->
+      ``sgd``: ``TraceState.trace`` becomes SGD's ``momentum_buffer``. Each
+      moment goes to the parameter of its path, in the parameter's layout.
+
+    Raises on a leaf it cannot place (another collection, another chain, a
+    moment leaf without a parameter) and on a parameter nothing filled."""
+    variables = state["params"]
+    if set(variables) != {"params"}:
+        raise KeyError(f"variable collections {sorted(variables)}: only 'params' is ported")
+    load_flax_params(model, variables["params"])
+    by_name = dict(model.named_parameters())
+    owned = {id(p) for p in optimizer.params}
+    kind = optimizer.cfg.optimizer
+    opt_state = state["opt_state"]
+    _node(opt_state, ("0",), set())  # clip_by_global_norm keeps no state
+    if kind == "adamw":
+        _node(opt_state, ("1",), {"0", "1", "2"})
+        adam = _node(opt_state, ("1", "0"), {"count", "mu", "nu"})
+        _node(opt_state, ("1", "1"), set())  # the decayed-weights step of adamw
+        _node(opt_state, ("1", "2"), {"count"})  # the schedule's count
+        count = float(np.asarray(adam["count"]))
+        moments = {"exp_avg": adam["mu"], "exp_avg_sq": adam["nu"]}
+    elif kind == "sgd":
+        _node(opt_state, ("1",), {"0", "1"})
+        _node(opt_state, ("1", "0"), set())  # add_decayed_weights keeps no state
+        _node(opt_state, ("1", "1"), {"0", "1"})
+        trace = _node(opt_state, ("1", "1", "0"), {"trace"})
+        _node(opt_state, ("1", "1", "1"), {"count"})
+        moments = {"momentum_buffer": trace["trace"]}
+    else:
+        raise ValueError(f"optimizer {kind!r} has no optax counterpart")
+    arrays = {}
+    for slot, tree in moments.items():
+        if set(tree) != {"params"}:
+            raise KeyError(f"optimizer moment {slot}: collections {sorted(tree)}")
+        arrays[slot] = flax_to_torch_arrays(model, tree["params"])
+    inner = optimizer.inner
+    inner.state.clear()
+    for name, p in by_name.items():
+        if id(p) not in owned:
+            raise KeyError(f"parameter {name} is not in the optimizer")
+        slots = {slot: torch.tensor(a[name]).to(p) for slot, a in arrays.items()}
+        if kind == "adamw":
+            slots["step"] = torch.tensor(count)
+        inner.state[p] = slots
+    optimizer.count = int(np.asarray(state["step"]))
 
 
 def hoist_fuse_q_params(state_dict: Mapping[str, torch.Tensor]) -> dict:

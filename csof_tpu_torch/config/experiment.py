@@ -1,27 +1,33 @@
 """Experiment configuration: the same dataclasses, fields and defaults as
 ``csof_tpu/config/experiment.py`` (``OptimConfig``, ``LossWeights``,
 ``SegFlowModelConfig``, ``RaftModelConfig``, ``VoxelMorphModelConfig``,
-``DataConfig``, ``ExperimentConfig``), without the YAML layer
-(``csof_tpu.config`` imports ``yaml``, which the port does not need). Of the
-model kinds only ``segflow`` is ported; the RAFT and VoxelMorph configs are
-kept so that an ``ExperimentConfig`` has the same fields in both packages.
+``DataConfig``, ``ExperimentConfig``), and its YAML layer:
+``ExperimentConfig.to_yaml`` writes the bytes the JAX package's writes, and
+``from_dict`` / ``load_experiment_config`` nest, turn lists into tuples and
+refuse unknown keys as it does. YAML goes through
+:mod:`csof_tpu_torch.utils.yaml_subset`, the port's reader and writer of
+the subset configs use, so the port needs no PyYAML.
 
-``SegFlowModelConfig`` fields the port reads: ``out_encoder_dims``,
-``d_model``, ``bottleneck_heads``, ``dim_feedforward``, ``norm``,
-``corr_radius``, ``corr_stride``, ``use_cost_volume``, ``corr_fuse``
-(concat, concat_cm, fused_cm), ``use_gru``, ``dec_upsample`` (expand) and
-``dtype``. The others are kept so that a config moves between the two
-packages unchanged: the port's temporal loop is always a Python loop with the
-frame-0 prime step (what the JAX package runs under ``scan_unroll > T``), and
-every JAX temporal path computes the same math, so ``scan_unroll`` and
-``scan_while1`` change nothing here; ``remat`` only names the step module's
-scope (the trainer refuses it: rematerialisation is not ported).
+The model kinds the port trains and serves are ``segflow`` and ``unet2d``;
+the RAFT and VoxelMorph configs are kept so that an ``ExperimentConfig``
+has the same fields in both packages. Every ``SegFlowModelConfig`` field is
+read: each ``corr_fuse`` mode (``fused_cm`` for serving only, as in JAX),
+``fuse_q_hoist``, ``deep_supervision``, both ``dec_upsample`` modes, and
+``remat`` (``torch.utils.checkpoint``). The port's temporal loop is always a
+Python loop with the frame-0 prime step, and every JAX temporal path
+computes the same math, so ``scan_unroll``, ``scan_while1`` and
+``attn_fused`` (the two bottlenecks run unfused) change nothing but the
+program form.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
-from typing import Literal
+from pathlib import Path
+from typing import Any, Literal
+
+from csof_tpu_torch.utils import yaml_subset
 
 ModelKind = Literal["unet2d", "unet3d", "raft", "voxelmorph", "segflow"]
 
@@ -121,8 +127,9 @@ class VoxelMorphModelConfig:
 
 @dataclass
 class DataConfig:
-    """Video sampling (:class:`csof_tpu_torch.data.loaders.VideoChunkLoader`).
-    ``do_data_aug=True`` is refused by the trainer: augmentation is not ported."""
+    """Video sampling (:class:`csof_tpu_torch.data.loaders.VideoChunkLoader`);
+    ``do_data_aug`` runs :mod:`csof_tpu_torch.data.augment` inside the train
+    step, on the device, for ``unet2d`` and ``segflow``."""
 
     video_length: int = 6
     batch_size: int = 1
@@ -152,3 +159,49 @@ class ExperimentConfig:
     # devices per mesh axis in the JAX package; the port trains on one device
     mesh_data: int = -1
     mesh_model: int = 1
+
+    def to_yaml(self, path: str | Path) -> None:
+        """Write the config as ``yaml.safe_dump(asdict(self), sort_keys=False)``
+        writes it, byte for byte."""
+        Path(path).write_text(yaml_subset.safe_dump(dataclasses.asdict(self)))
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]) -> "ExperimentConfig":
+        return _from_dict(cls, d)
+
+
+def _from_dict(cls, d: dict[str, Any]):
+    if not dataclasses.is_dataclass(cls):
+        return d
+    names = {f.name: f for f in dataclasses.fields(cls)}
+    unknown = set(d) - set(names)
+    if unknown:
+        raise KeyError(f"unknown config keys for {cls.__name__}: {sorted(unknown)}")
+    kwargs = {}
+    for k, v in d.items():
+        f = names[k]
+        if dataclasses.is_dataclass(f.type) or (isinstance(f.type, str) and f.type in _NESTED):
+            sub = _NESTED[f.type] if isinstance(f.type, str) else f.type
+            kwargs[k] = _from_dict(sub, v) if isinstance(v, dict) else v
+        elif isinstance(v, list):
+            kwargs[k] = tuple(v)
+        else:
+            kwargs[k] = v
+    return cls(**kwargs)
+
+
+_NESTED = {
+    "OptimConfig": OptimConfig,
+    "LossWeights": LossWeights,
+    "SegFlowModelConfig": SegFlowModelConfig,
+    "RaftModelConfig": RaftModelConfig,
+    "VoxelMorphModelConfig": VoxelMorphModelConfig,
+    "DataConfig": DataConfig,
+}
+
+
+def load_experiment_config(path: str | Path) -> ExperimentConfig:
+    """Read a YAML experiment config (as the JAX package's ``yaml.safe_load``
+    reads it, for the subset configs use)."""
+    d = yaml_subset.safe_load(Path(path).read_text()) or {}
+    return ExperimentConfig.from_dict(d)

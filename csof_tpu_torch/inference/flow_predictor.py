@@ -4,7 +4,10 @@
 All depth slices of a cine run as one batch. With mirroring on, the x/y flip
 test-time augmentation runs four forwards (none, flip H, flip W, flip both),
 averages the segmentation softmax, and takes flow and registration from the
-unflipped pass.
+unflipped pass. ``predict_video_sliding`` serves cycles longer than one
+window, chaining the windows' cumulative flows through ``compose_flows``;
+``processor_from_seg_model`` builds the heart-ROI processor from a trained
+2D segmentation network.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 from csof_tpu_torch.inference.processor import Processor
+from csof_tpu_torch.ops.warp import compose_flows
 from csof_tpu_torch.utils.nifti import save_nifti
 
 
@@ -99,6 +103,75 @@ class FlowPredictor:
             "registered": uncrop(registered),
             "roi_record": record,
         }
+
+
+def processor_from_seg_model(network: torch.nn.Module, patch_size: tuple[int, int],
+                             crop_size: int = 128, device: torch.device | str = "cuda"
+                             ) -> Processor:
+    """The heart-ROI Processor whose cropping network is a trained 2D
+    segmentation network on ``device`` ((N, 1, H, W) -> logits, or a tuple
+    whose first element is those): each plane padded or cut to the patch,
+    z-scored, and the argmax put back in the plane's frame."""
+    ph, pw = patch_size
+    device = torch.device(device)
+
+    def cropping_network(image: np.ndarray) -> np.ndarray:
+        h, w = image.shape
+        x = np.pad(image, ((0, max(ph - h, 0)), (0, max(pw - w, 0))))[None, None, :ph, :pw]
+        x = (x - x.mean()) / (x.std() + 1e-8)
+        with torch.inference_mode():
+            out = network(torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device))
+            logits = out[0] if isinstance(out, (tuple, list)) else out
+            seg = logits.argmax(1)[0].cpu().numpy()
+        full = np.zeros((h, w), seg.dtype)
+        hh, ww = min(h, ph), min(w, pw)
+        full[:hh, :ww] = seg[:hh, :ww]
+        return full
+
+    return Processor(crop_size=crop_size, cropping_network=cropping_network)
+
+
+def predict_video_sliding(predictor: FlowPredictor, video: np.ndarray, window: int,
+                          overlap: int = 1) -> dict:
+    """Temporal sliding-window inference of a cine (T, D, H, W) longer than
+    one window: windows of ``window`` frames overlapping by ``overlap``, each
+    window's cumulative flow (to its first frame) composed with the carried
+    flow at that frame, so that every flow maps to the cine's frame 0.
+    Returns {"seg", "softmax", "flow", "registered"} as ``predict_video``."""
+    t = video.shape[0]
+    if not (window >= 2 and 1 <= overlap < window):
+        raise ValueError(f"window {window}, overlap {overlap}: need window >= 2 and "
+                         "1 <= overlap < window")
+    step = window - overlap
+    seg_chunks, soft_chunks, flow_chunks, reg_chunks = [], [], [], []
+    carry_flow = None  # (D, H, W, 2): the cumulative flow at the current anchor
+    t0 = 0
+    while t0 < t - 1 or not flow_chunks:
+        t1 = min(t0 + window, t)
+        chunk = video[t0:t1]
+        if chunk.shape[0] < 2:
+            break
+        res = predictor.predict_video(chunk)
+        start = 0 if t0 == 0 else overlap
+        cum = res["flow"]  # (Tc, D, H, W, 2) flows to the window's first frame
+        if carry_flow is not None:
+            # frame ti -> the window's anchor (cum), then the anchor -> the
+            # cine's frame 0 (carry); composition does not commute
+            carry = torch.from_numpy(np.ascontiguousarray(carry_flow, np.float32))
+            cum = np.stack([compose_flows(torch.from_numpy(np.ascontiguousarray(c, np.float32)),
+                                          carry).numpy() for c in cum])
+        seg_chunks.append(res["seg"][start:])
+        soft_chunks.append(res["softmax"][:, start:])
+        flow_chunks.append(cum[start:])
+        reg_chunks.append(res["registered"][start:])
+        if t1 >= t:
+            break
+        carry_flow = cum[step]
+        t0 += step
+    return {"seg": np.concatenate(seg_chunks, axis=0)[:t],
+            "softmax": np.concatenate(soft_chunks, axis=1)[:, :t],
+            "flow": np.concatenate(flow_chunks, axis=0)[:t],
+            "registered": np.concatenate(reg_chunks, axis=0)[:t]}
 
 
 def predict_and_export_case(predictor: FlowPredictor, video: np.ndarray, properties: dict,

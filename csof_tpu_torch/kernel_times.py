@@ -41,6 +41,8 @@ import torch
 LEVELS = [(32, 128, 128, 2), (64, 64, 64, 1), (128, 32, 32, 1)]
 BATCH, TRAIN_BATCH, RADIUS = 8, 4, 4
 K4_PLANES = (20, 88)
+#: calls in the trace that names K4's device kernels and counts its launches a call
+K4_CALLS = 10
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -62,10 +64,18 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
 _LAUNCHES = ("cudaLaunchKernel", "cuLaunchKernel")
 
 
+#: the kernel ``torch.cuda._sleep`` launches (ATen's ``spin_kernel``)
+_SENTINEL = "spin_kernel"
+
+
 def device_events(fn, reps: int = 10) -> tuple[list, int]:
     """The device events (kernels, copies, fills) of ``reps`` calls of fn
     after a warm-up (torch.profiler), and the kernels the host launched in
-    that trace. A trace whose kernels fall short of the launches (seen
+    that trace. Each trace opens and closes with a short spin kernel that is
+    left out of both: on some machines every trace loses its last kernel
+    (seen as 9 kernels for 10 launches in each trace, and no kernel at all
+    in a trace of one call), so fn's kernels are never a trace's first or
+    last. A trace whose kernels still fall short of the launches (seen
     after many traces in one process: some or all of a run's kernels
     missing, which would read as a shorter time) is taken again, up to
     twice; the fullest of the three is returned, with a line on stderr."""
@@ -77,13 +87,16 @@ def device_events(fn, reps: int = 10) -> tuple[list, int]:
     best: tuple[list, int] = ([], 0)
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         events = prof.events()
-        dev = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        launched = sum(e.device_type == DeviceType.CPU and e.name.startswith(_LAUNCHES)
-                       for e in events)
+        dev = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+               and _SENTINEL not in e.name]
+        launched = max(sum(e.device_type == DeviceType.CPU and e.name.startswith(_LAUNCHES)
+                           for e in events) - 2, 0)  # less the two spin kernels
         if dev and kernel_count(dev) >= launched:  # launched 0: no host API calls traced
             return dev, launched
         if len(dev) >= len(best[0]):
@@ -140,8 +153,10 @@ def k4_inputs(gen, n: int, h: int = 128, w: int = 128):
 
 
 def k4_times(gen) -> dict:
-    """K4's events, device time and host time a call, map and loss, and the
-    device kernels one call launches."""
+    """K4's events, device time and host time a call, map and loss; the
+    host's kernel launches a call and the names of the device events, over
+    ``K4_CALLS`` calls in one trace (a trace may lose some device events;
+    the names need one of each)."""
     from csof_tpu_torch.ops.kernels import ncc as k4
 
     out = {}
@@ -154,9 +169,9 @@ def k4_times(gen) -> dict:
             out[f"{key}_ms"] = median_ms(call)
             out[f"{key}_device_ms"] = device_ms(call)["all"]
             out[f"{key}_host_us"] = host_us(call)
-            events, launched = device_events(call, reps=1)
-            out[f"{key}_kernels"] = [e.name for e in events]
-            out[f"{key}_launches"] = launched
+            events, launched = device_events(call, reps=K4_CALLS)
+            out[f"{key}_kernels"] = sorted({e.name for e in events})
+            out[f"{key}_launches"] = launched / K4_CALLS
     return out
 
 

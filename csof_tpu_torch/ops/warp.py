@@ -1,6 +1,13 @@
-"""Dense-flow backward warping on ``F.grid_sample``.
+"""Dense-flow backward warping (port of ``csof_tpu/ops/warp.py``).
 
-Port of ``csof_tpu/ops/warp.py`` ``warp_image_cm``: warped(x) = image(x + flow(x)),
+``identity_grid``, ``grid_sample`` and ``compose_flows`` are the JAX
+package's: sampling at pixel coordinates (channel 0 along H, 1 along W),
+bilinear as the sum of the four corners' weighted values in the JAX order,
+nearest by ``round`` (half to even), ``"zeros"`` padding per corner or
+``"border"`` clamping; they serve the augmentation's spatial warp and the
+sliding-window flow predictor.
+
+``warp_image_cm``, on ``F.grid_sample``: warped(x) = image(x + flow(x)),
 bilinear, with the flow channel-major in voxels, channel 0 along H (dy) and
 channel 1 along W (dx). ``padding="border"`` clamps the sample coordinates to
 the image, which is what the JAX sampler's index clamp computes;
@@ -39,3 +46,57 @@ def warp_image_cm(image: torch.Tensor, flow_cm: torch.Tensor,
                         align_corners=True)
     out = torch.where(finite[:, None], out, float("nan"))
     return out.to(image.dtype)
+
+
+def identity_grid(shape, dtype=torch.float32, device=None) -> torch.Tensor:
+    """(*shape, ndim) pixel-coordinate identity grid."""
+    ranges = [torch.arange(s, dtype=dtype, device=device) for s in shape]
+    return torch.stack(torch.meshgrid(*ranges, indexing="ij"), dim=-1)
+
+
+def grid_sample(image: torch.Tensor, coords: torch.Tensor, mode: str = "bilinear",
+                padding: str = "zeros") -> torch.Tensor:
+    """Sample ``image`` (N, C, H, W) at pixel ``coords`` (N, Ho, Wo, 2), (y, x)
+    in pixels, -> (N, C, Ho, Wo) in the image dtype. ``mode`` "bilinear" or
+    "nearest"; ``padding`` "zeros" (a corner outside contributes nothing) or
+    "border" (indices clamped)."""
+    if mode not in ("bilinear", "nearest") or padding not in ("zeros", "border"):
+        raise ValueError(f"mode {mode!r} / padding {padding!r}")
+    n, c, h, w = image.shape
+    flat = image.reshape(n, c, h * w)
+    out_shape = coords.shape[1:3]
+
+    def gather(iy, ix):
+        idx = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(n, 1, -1)
+        return flat.gather(2, idx.expand(n, c, idx.shape[-1])).reshape(n, c, *out_shape)
+
+    def inside(iy, ix):
+        return ((iy >= 0) & (iy < h) & (ix >= 0) & (ix < w)).to(image.dtype)[:, None]
+
+    if mode == "nearest":
+        idx = torch.round(coords).long()
+        out = gather(idx[..., 0], idx[..., 1])
+        return out * inside(idx[..., 0], idx[..., 1]) if padding == "zeros" else out
+    floor = torch.floor(coords)
+    frac = (coords - floor).to(image.dtype)
+    base = floor.long()
+    out = torch.zeros((n, c, *out_shape), dtype=image.dtype, device=image.device)
+    for corner in range(4):
+        oy, ox = corner & 1, (corner >> 1) & 1
+        iy, ix = base[..., 0] + oy, base[..., 1] + ox
+        wgt = (frac[..., 0] if oy else 1 - frac[..., 0]) * (frac[..., 1] if ox else
+                                                           1 - frac[..., 1])
+        wgt = wgt[:, None]
+        if padding == "zeros":
+            wgt = wgt * inside(iy, ix)
+        out = out + wgt * gather(iy, ix)
+    return out
+
+
+def compose_flows(flow_ab: torch.Tensor, flow_bc: torch.Tensor) -> torch.Tensor:
+    """Compose two backward displacement fields, channels last (N, H, W, 2):
+    result(x) = flow_bc(x) + flow_ab(x + flow_bc(x)), so that warping by the
+    result warps by flow_ab, then by flow_bc."""
+    grid = identity_grid(flow_bc.shape[1:3], flow_bc.dtype, flow_bc.device) + flow_bc
+    sampled = grid_sample(flow_ab.permute(0, 3, 1, 2), grid, mode="bilinear", padding="border")
+    return flow_bc + sampled.permute(0, 2, 3, 1)

@@ -4,7 +4,12 @@
 A checkpoint is a ``torch.save`` of a dict (the trainer stores the model's
 and the optimizer's state dicts and the step) under the JAX package's file
 names with a ``.pt`` suffix; ``<name>.json`` beside it holds the metadata.
-Reading the JAX package's msgpack checkpoints is not ported.
+The JAX package's triad (``model_*.msgpack``, a flax ``TrainState``) is read
+beside it, by the port's own msgpack reader
+(:mod:`csof_tpu_torch.compat.flax_msgpack`): ``load_checkpoint`` returns
+the restored state dict, which
+:func:`csof_tpu_torch.compat.flax_import.load_flax_train_state` maps onto
+the port's model and optimizer.
 """
 
 from __future__ import annotations
@@ -17,9 +22,15 @@ from typing import Any
 import numpy as np
 import torch
 
+from csof_tpu_torch.compat.flax_msgpack import load_msgpack
+
 LATEST = "model_latest.pt"
 BEST = "model_best.pt"
 FINAL = "model_final_checkpoint.pt"
+#: the fallback order of a load without a name, as the JAX package's
+STEMS = ("model_final_checkpoint", "model_latest", "model_best")
+#: file suffix -> format, in the order a stem is looked up
+FORMATS = {".pt": "pt", ".msgpack": "msgpack"}
 
 
 def save_checkpoint(folder: str | Path, state: dict, name: str = LATEST,
@@ -36,20 +47,38 @@ def save_checkpoint(folder: str | Path, state: dict, name: str = LATEST,
     return path
 
 
-def load_checkpoint(folder: str | Path, name: str | None = None,
-                    map_location: Any = None) -> tuple[dict, dict]:
-    """(state, meta) of folder/name; with no name the first that exists of
-    final, latest, best."""
+def find_checkpoint(folder: str | Path, name: str | None = None) -> tuple[Path, str]:
+    """(path, format) of the checkpoint to read. ``name`` is a file name
+    (``model_best.pt``, ``model_best.msgpack``) or a stem (``model_best``);
+    without one, the stems final, latest, best in turn. At each stem the
+    port's ``.pt`` is taken before the JAX package's ``.msgpack``."""
     folder = Path(folder)
-    names = [name] if name else [FINAL, LATEST, BEST]
-    for n in names:
+    if name is not None and Path(name).suffix in FORMATS:
+        candidates = [name]
+    else:
+        stems = [name] if name else list(STEMS)
+        candidates = [stem + suffix for stem in stems for suffix in FORMATS]
+    for n in candidates:
         p = folder / n
         if p.exists():
-            state = torch.load(p, map_location=map_location, weights_only=True)
-            meta_p = folder / (n + ".json")
-            meta = json.loads(meta_p.read_text()) if meta_p.exists() else {}
-            return state, meta
-    raise FileNotFoundError(f"no checkpoint among {names} in {folder}")
+            return p, FORMATS[p.suffix]
+    raise FileNotFoundError(f"no checkpoint among {candidates} in {folder}")
+
+
+def load_checkpoint(folder: str | Path, name: str | None = None,
+                    map_location: Any = None) -> tuple[dict, dict, str]:
+    """(state, meta, format) of the checkpoint ``find_checkpoint`` picks.
+    format "pt": the dict ``save_checkpoint`` wrote; "msgpack": the flax
+    state dict of a JAX ``TrainState`` ({"step", "params", "opt_state"},
+    numpy leaves)."""
+    path, fmt = find_checkpoint(folder, name)
+    if fmt == "pt":
+        state = torch.load(path, map_location=map_location, weights_only=True)
+    else:
+        state = load_msgpack(path)
+    meta_p = path.with_name(path.name + ".json")
+    meta = json.loads(meta_p.read_text()) if meta_p.exists() else {}
+    return state, meta, fmt
 
 
 def _jsonable(o):

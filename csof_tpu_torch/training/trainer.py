@@ -10,14 +10,20 @@ schedule. A U-Net step is nnU-Net's 2D recipe: the channels-last patch batch
 moved to NCHW on the device, the deep-supervision Dice + CE over the heads,
 backward (K6 forward and dx where ``CSOF_CONV2D_IMPL=pallas`` routes a conv
 to it), clip 12, SGD with Nesterov momentum under the poly schedule; the
-validation batches' Dice statistics give the online foreground Dice. The
-epoch loop keeps the JAX trainer's best-criterion EMA, patience and
-checkpoint cadence. SegFlow trains in every ``corr_fuse`` mode but the
-forward-only ``fused_cm``, with ``fuse_q_hoist``, ``deep_supervision`` (its
-loss branch), ``dec_upsample="linear"`` and ``remat``; under
-``CSOF_CONV2D_IMPL=pallas`` its routed convs run K6 both ways. Not ported:
-the other model kinds, augmentation, sharding over a mesh, compile-draw
-autotuning, TensorBoard and progress plots.
+validation batches' Dice statistics give the online foreground Dice. With
+``config.data.do_data_aug`` a train step first augments its batch on the
+device (:mod:`csof_tpu_torch.data.augment`: ``augment_batch_2d`` for the
+U-Net, ``augment_video`` for SegFlow, whose unlabelled frames stay -1), from
+a generator of the seed and the step, as the JAX step does; validation
+batches are not augmented. The epoch loop keeps the JAX trainer's
+best-criterion EMA, patience and checkpoint cadence; ``load_checkpoint``
+reads the port's ``.pt`` triad or the JAX package's msgpack one. SegFlow
+trains in every ``corr_fuse`` mode but the forward-only ``fused_cm``, with
+``fuse_q_hoist``, ``deep_supervision`` (its loss branch),
+``dec_upsample="linear"`` and ``remat``; under ``CSOF_CONV2D_IMPL=pallas``
+its routed convs run K6 both ways. Not ported: the other model kinds,
+sharding over a mesh, compile-draw autotuning, TensorBoard and progress
+plots.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from csof_tpu_torch.compat.flax_import import load_flax_train_state
 from csof_tpu_torch.config.experiment import ExperimentConfig
+from csof_tpu_torch.data.augment import augment_batch_2d, augment_video, step_generator
 from csof_tpu_torch.models.segflow import SegFlow
 from csof_tpu_torch.models.unet import GenericUNet, unet_from_plans
 from csof_tpu_torch.ops import losses as L
@@ -66,13 +74,12 @@ def build_model(config: ExperimentConfig, num_classes: int | None = None,
     raise NotImplementedError(f"model {kind!r} is not ported (ported: {TRAINED_KINDS})")
 
 
-def _check_trainable(config: ExperimentConfig) -> None:
+def _check_trainable(config: ExperimentConfig, for_training: bool = True) -> None:
     if config.model not in TRAINED_KINDS:
         raise NotImplementedError(f"training model {config.model!r} is not ported "
                                   f"(ported: {TRAINED_KINDS})")
-    if config.data.do_data_aug:
-        raise NotImplementedError("augmentation not ported (ROADMAP item 11): set "
-                                  "config.data.do_data_aug=False")
+    if not for_training:
+        return
     if config.model == "segflow" and config.segflow.corr_fuse not in TRAINED_CORR_FUSE:
         raise NotImplementedError(
             f"training with corr_fuse={config.segflow.corr_fuse!r} is not ported: kernel K3 "
@@ -234,8 +241,11 @@ class Trainer:
     nan_guard: bool = True
 
     def __init__(self, config: ExperimentConfig, output_folder: str | Path, plans=None,
-                 num_classes: int | None = None, device: torch.device | str = "cuda"):
-        _check_trainable(config)
+                 num_classes: int | None = None, device: torch.device | str = "cuda",
+                 for_training: bool = True):
+        # a trainer restored to serve (for_training=False) may hold a model
+        # that cannot train: a forward-only kernel switch or corr_fuse mode
+        _check_trainable(config, for_training)
         self.config = config
         self.output_folder = Path(output_folder)
         self.output_folder.mkdir(parents=True, exist_ok=True)
@@ -247,6 +257,8 @@ class Trainer:
         self.epoch = 0
         self.model: torch.nn.Module | None = None
         self.optimizer = None
+        #: "pt" or "msgpack": the format the last load_checkpoint read
+        self.checkpoint_format: str | None = None
 
     @property
     def total_steps(self) -> int:
@@ -276,12 +288,26 @@ class Trainer:
             out[k] = t
         return out
 
+    def augment(self, batch: dict) -> dict:
+        """The batch (on the device) augmented as the JAX train step augments
+        it, from the generator of the seed and the step count."""
+        gen = step_generator(self.config.seed, self.optimizer.count, self.device)
+        if self.config.model == "unet2d":
+            data, seg = augment_batch_2d(gen, batch["data"], batch["seg"])
+            return {**batch, "data": data, "seg": seg}
+        video, seg = augment_video(gen, batch["video"], batch["seg"])
+        # unlabelled frames stay -1 (the warp's zero padding would label them)
+        seg = torch.where(batch["labeled_mask"][:, :, None, None] > 0, seg, -1)
+        return {**batch, "video": video, "seg": seg}
+
     def run_iteration(self, batch: dict, train: bool = True):
         """One train step (or a loss evaluation); returns (loss, metrics)."""
         if self.model is None:
             raise RuntimeError("initialize() first")
         t0 = time.perf_counter()
         batch = self._to_device(batch)
+        if train and self.config.data.do_data_aug:
+            batch = self.augment(batch)
         if train:
             loss, aux = self.loss_fn(self.model, batch)
             self.optimizer.zero_grad()
@@ -392,11 +418,18 @@ class Trainer:
 
     def load_checkpoint(self, name: str | None = None) -> dict:
         """Restore model, optimizer and epoch from ``name`` (by default the
-        first of final, latest, best); returns the sidecar metadata."""
+        first of final, latest, best; at each, the port's ``.pt``, then the
+        JAX package's ``.msgpack``); returns the sidecar metadata and sets
+        ``checkpoint_format``."""
         if self.model is None:
             self.initialize()
-        state, meta = ckpt.load_checkpoint(self.output_folder, name, map_location=self.device)
-        self.model.load_state_dict(state["model"])
-        self.optimizer.load_state_dict(state["optimizer"])
+        state, meta, fmt = ckpt.load_checkpoint(self.output_folder, name,
+                                                map_location=self.device)
+        if fmt == "pt":
+            self.model.load_state_dict(state["model"])
+            self.optimizer.load_state_dict(state["optimizer"])
+        else:
+            load_flax_train_state(self.model, self.optimizer, state)
+        self.checkpoint_format = fmt
         self.epoch = int(meta.get("epoch", 0))
         return meta

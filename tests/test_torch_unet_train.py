@@ -520,9 +520,8 @@ def test_unet_trainer_refuses_fused_norm_augmentation_and_3d(tmp_path, monkeypat
         trainer.Trainer(_config(), tmp_path, plans=_small_plans(), device="cpu")
     monkeypatch.delenv("CSOF_FUSED_NORM")
     aug = _config()
-    aug.data.do_data_aug = True
-    with pytest.raises(NotImplementedError, match="augmentation not ported"):
-        trainer.Trainer(aug, tmp_path, device="cpu")
+    aug.data.do_data_aug = True  # augmentation trains since it was ported
+    trainer.Trainer(aug, tmp_path, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         trainer.Trainer(dataclasses.replace(_config(), model="unet3d"), tmp_path, device="cpu")
     net = trainer.build_model(_config(), 3)  # the no-plans default: base 16, 4 pools
