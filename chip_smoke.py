@@ -2,7 +2,7 @@
 """Drive the PyTorch port's SegFlow serving and training paths and its
 nnU-Net 2D serving and training paths once on one NVIDIA GPU, then SegFlow
 under the JAX package's kernel switches and in its other configurations,
-then the port's command line.
+then the port's command line, its strain analysis and its data plane.
 
     python3 chip_smoke.py
 
@@ -124,6 +124,25 @@ Phases, each printed on its own line:
    Each command's launches are counted alone; its host seconds are printed
    beside the card's name and power limit; last, the CUDA-event time of
    augment_batch_2d at a U-Net batch and augment_video at a SegFlow batch.
+   Then the strain analysis of the predict_flow tree: csof_torch_strain
+   (with ground-truth labels for contour tracking) and csof_torch_jacobian
+   on the card, csof_torch_strain with --device cpu on the same tree
+   (analysis.json within STRAIN_TOL; the border-category histograms and
+   perimeters of the labels' masks equal on both devices; gaussian_smooth
+   equal on both, TF32 allowed), and strain_curve_metric of the exported
+   curve folder against itself (every distance zero).
+23. data plane: make_synthetic_acdc at ACDC size (4 patients, 8 frames of
+   10 x 224 x 256 at 1.5 x 1.5 x 5 mm), csof_torch_convert_acdc,
+   csof_torch_plan_and_preprocess with 4 worker processes (started after
+   this process used CUDA) and with 1, into two roots: every plans file,
+   .npz (member by member) and .pkl equal; the plans printed; then
+   csof_torch_train on the planned 2d U-Net under CSOF_CONV2D_IMPL=pallas
+   (the K6 and K6-dx launches GenericUNet.kernel_launches gives at the
+   planned patch and batch), csof_torch_predict on 2 cases with both kernel
+   switches (K5 and K6 counted) and csof_torch_evaluate; every command's
+   host seconds. Last, K5, K6 and K6 dx against their plain versions
+   (float32 and bfloat16, phase 9's tolerances) at every distinct shape the
+   planned U-Net's training and serving gave them.
 
 Then one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -261,6 +280,14 @@ NCC_WIDE = [(4, 64, 1000, 101), (20, 128, 128, 127)]
 CLI_CINES, CLI_ED_ES = 3, (1, 7)
 CLI_FLOW_EPOCHS, CLI_FLOW_STEPS, CLI_FLOW_VAL = 2, 3, 1
 CLI_UNET_CASES, CLI_UNET_DEPTH, CLI_UNET_STEPS, CLI_UNET_VAL = 2, 16, 4, 1
+#: the strain analysis card vs CPU (rtol, atol): float32 reductions in
+#: another order; a strain in percent carries 100x a thickness's rounding
+STRAIN_TOL = (1e-5, 1e-4)
+#: phase 23, the data plane at ACDC size: ACDC cines hold about 10 slices of
+#: 200-260 pixels at 1.5 x 1.5 x 5 mm; 4 patients (8 ED/ES cases), the
+#: planned U-Net trained 1 epoch x 3 steps + 1 validation batch, 2 cases served
+DP_PATIENTS, DP_FRAMES, DP_SHAPE = 4, 8, (10, 224, 256)
+DP_WORKERS, DP_STEPS, DP_VAL, DP_PREDICT = 4, 3, 1, 2
 
 
 class PhaseError(RuntimeError):
@@ -1416,11 +1443,16 @@ def check_ncc(card: str) -> tuple[dict, dict]:
           "2^32 float32 values")
 
     # device and host time from a fresh process: torch.profiler loses device
-    # events after many traces in one (phase 16 once read a third of them)
-    proc = subprocess.run([sys.executable, "-m", "csof_tpu_torch.kernel_times", "--only=K4"],
-                          capture_output=True, text=True, timeout=600)
-    expect(proc.returncode == 0, f"kernel_times --only=K4 failed:\n{proc.stderr[-2000:]}")
-    kt = json.loads(proc.stdout.strip().splitlines()[-1])
+    # events after many traces in one (phase 16 once read a third of them);
+    # a second process where the first one's traces named no K4 kernel
+    for attempt in (1, 2):
+        proc = subprocess.run([sys.executable, "-m", "csof_tpu_torch.kernel_times",
+                               "--only=K4"], capture_output=True, text=True, timeout=600)
+        expect(proc.returncode == 0, f"kernel_times --only=K4 failed:\n{proc.stderr[-2000:]}")
+        kt = json.loads(proc.stdout.strip().splitlines()[-1])
+        if all(kt[f"K4_loss_{n}_kernels"] for n in NCC_TIMED) or attempt == 2:
+            break
+        phase("ncc", "kernel_times --only=K4: a trace without K4's kernel; once more")
     for n in NCC_TIMED:
         pa, pb = planes[n]
         la, lb = pa[..., None], pb[..., None]
@@ -1512,6 +1544,25 @@ def conv_shapes(record: dict):
         yield record
     finally:
         blocks.conv3x3 = orig
+
+
+@contextlib.contextmanager
+def norm_act_shapes(record: set):
+    """Record the shape of each K5 call a model makes, by wrapping the
+    function ConvNormAct calls (the wrapper still counts its launches)."""
+    from csof_tpu_torch.models import blocks
+
+    orig = blocks.instance_norm_leaky_relu
+
+    def rec(x, *args, **kw):
+        record.add(tuple(x.shape))
+        return orig(x, *args, **kw)
+
+    blocks.instance_norm_leaky_relu = rec
+    try:
+        yield record
+    finally:
+        blocks.instance_norm_leaky_relu = orig
 
 
 @contextlib.contextmanager
@@ -1747,7 +1798,6 @@ def segflow_modes(card: str) -> dict:
               f"{worst_name} -> {'ok' if worst <= 1 else 'FAIL'}")
         expect(worst <= 1, f"{name}: gradient {worst_name} outside tolerance")
 
-    from csof_tpu_torch.models import blocks
     from csof_tpu_torch.ops.kernels import norm_act as k5
 
     cfg = SegFlowModelConfig(dtype="float32", norm="instance")
@@ -1756,19 +1806,10 @@ def segflow_modes(card: str) -> dict:
     gpu = copy.deepcopy(cpu).cuda()
     video = torch.from_numpy(batch["video"])
     k5_shapes = set()
-    orig = blocks.instance_norm_leaky_relu
-
-    def rec(x, *args, **kw):
-        k5_shapes.add(tuple(x.shape))
-        return orig(x, *args, **kw)
-
     with torch.inference_mode():
         _reset_counts()
-        blocks.instance_norm_leaky_relu = rec
-        try:
+        with norm_act_shapes(k5_shapes):
             got = gpu(video.cuda())
-        finally:
-            blocks.instance_norm_leaky_relu = orig
         torch.cuda.synchronize()
         counts = _read_counts()
         ref = cpu(video)
@@ -1964,6 +2005,26 @@ def cli_inputs(tmp: Path, plans) -> tuple[Path, Path, Path]:
     return task, unet_task, pre
 
 
+def run_command(counts: dict, label: str, name: str, entry, argv: list, want: dict, card: str,
+                **environ) -> float:
+    """One command through its entry function on its own launch counts,
+    host-clocked (ending in a synchronize); the counts must equal ``want``.
+    Returns the host seconds."""
+    import torch
+
+    with env(**environ):
+        _reset_counts()
+        t0 = time.perf_counter()
+        entry([str(a) for a in argv])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts[name] = {k: v for k, v in _read_counts().items() if v}
+    want = {k: v for k, v in want.items() if v}
+    expect(counts[name] == want, f"{name}: launches {counts[name]}, expected {want}")
+    phase(label, f"{name}: {secs:.3f} s host clock, launches {counts[name]} ({card})")
+    return secs
+
+
 def cli_phase(card: str) -> dict:
     """Phase 22: the port's command line at full width, each command through
     its entry function. Returns the launches of each command."""
@@ -1984,17 +2045,7 @@ def cli_phase(card: str) -> dict:
     counts = {}
 
     def run(name: str, entry, argv: list, want: dict, **environ) -> None:
-        """One command on its own counts, host-clocked."""
-        with env(**environ):
-            _reset_counts()
-            t0 = time.perf_counter()
-            entry([str(a) for a in argv])
-            torch.cuda.synchronize()
-            secs = time.perf_counter() - t0
-            counts[name] = {k: v for k, v in _read_counts().items() if v}
-        want = {k: v for k, v in want.items() if v}
-        expect(counts[name] == want, f"{name}: launches {counts[name]}, expected {want}")
-        phase("cli", f"{name}: {secs:.3f} s host clock, launches {counts[name]} ({card})")
+        run_command(counts, "cli", name, entry, argv, want, card, **environ)
 
     plans = task002_heart_2d()
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -2124,6 +2175,7 @@ def cli_phase(card: str) -> dict:
                          load_nifti(tmp / d / sub / f).data_czyx) for d in ("gpu", "cpu"))
             compare("cli", f"{sub} GPU vs CPU {got.shape}", torch.tensor(got), torch.tensor(ref),
                     *MODEL_TOL)
+        cli_strain(tmp, task, card, counts)
     # the augmentation a train step runs, alone: CUDA events around each call
     # (host work inside: the draws' generator calls and the low-res levels)
     from csof_tpu_torch.data import augment as ta
@@ -2142,6 +2194,277 @@ def cli_phase(card: str) -> dict:
           f"augment_video {tuple(vid.shape)} {ms_video:.3f} ms (CUDA events, median of 20; "
           f"{card})")
     return counts
+
+
+def _report_diff(got, ref, path: str = "") -> float:
+    """The largest |got - ref| over two analysis reports of the same layout;
+    fails outside STRAIN_TOL or where one is NaN and the other not."""
+    if isinstance(ref, dict):
+        expect(sorted(got) == sorted(ref), f"analysis {path}: keys {sorted(got)} vs {sorted(ref)}")
+        return max([_report_diff(got[k], ref[k], f"{path}/{k}") for k in ref] or [0.0])
+    if isinstance(ref, list):
+        expect(len(got) == len(ref), f"analysis {path}: {len(got)} vs {len(ref)} values")
+        return max([_report_diff(a, b, f"{path}[{i}]") for i, (a, b) in
+                    enumerate(zip(got, ref))] or [0.0])
+    if np.isnan(ref):
+        expect(np.isnan(got), f"analysis {path}: {got} where the CPU has NaN")
+        return 0.0
+    rtol, atol = STRAIN_TOL
+    expect(abs(got - ref) <= atol + rtol * abs(ref), f"analysis {path}: card {got} vs CPU {ref}")
+    return abs(got - ref)
+
+
+def strain_labels(cine: np.ndarray) -> np.ndarray:
+    """(T, D, H, W) labels of a synthetic cine: the bright disk as the LV
+    cavity (3), a 4-pixel ring around it as the myocardium (2), the disk
+    shifted 34 pixels in x outside both as the RV (1)."""
+    from scipy.ndimage import binary_dilation
+
+    disk = cine > 100
+    ring = binary_dilation(disk, structure=np.ones((1, 1, 9, 9), bool)) & ~disk
+    rv = np.roll(disk, 34, axis=-1) & ~disk & ~ring
+    return (3 * disk + 2 * ring + rv).astype(np.uint8)
+
+
+def cli_strain(tmp: Path, task: Path, card: str, counts: dict) -> None:
+    """Phase 22's strain analysis. The predict_flow tree tmp/flow_out:
+    csof_torch_strain (contour tracking against labels made from the
+    cines) and csof_torch_jacobian on the card, csof_torch_strain on the
+    CPU; the same flows with those labels as the segmentation on both
+    devices; the perimeter pass and gaussian_smooth on both devices; then
+    strain_curve_metric of the exported curves against themselves."""
+    import torch
+
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.ops.filters import gaussian_smooth
+    from csof_tpu_torch.ops.strain import perimeter_batch, perimeter_histogram
+    from csof_tpu_torch.utils.nifti import load_nifti, save_nifti
+
+    tree, gt_dir, gt_tree = tmp / "flow_out", tmp / "gt", tmp / "gt_tree"
+    for d in (gt_dir, gt_tree / "Segmentation", gt_tree / "Flow"):
+        d.mkdir(parents=True)
+    labels = {}
+    for i in range(CLI_CINES):
+        pid = f"patient{i + 1:03d}"
+        labels[pid] = strain_labels(load_nifti(task / "cine" / f"{pid}_4d.nii.gz").data_czyx)
+        for d in (gt_dir, gt_tree / "Segmentation"):
+            save_nifti(labels[pid], d / f"{pid}.nii.gz", spacing_xyz=(1.5, 1.5, 10.0))
+        (gt_tree / "Flow" / f"{pid}.npz").write_bytes((tree / "Flow" / f"{pid}.npz").read_bytes())
+
+    def run(name: str, entry, argv: list) -> None:
+        run_command(counts, "cli", name, entry, argv, {}, card)
+
+    run("csof_torch_strain", cli.strain_entry, ["-i", tree, "--gt-seg", gt_dir])
+    run("csof_torch_jacobian", cli.jacobian_entry, ["-i", tree, "-o", tmp / "jacobian.json"])
+    run("csof_torch_strain --device cpu", cli.strain_entry,
+        ["-i", tree, "--gt-seg", gt_dir, "-o", tmp / "analysis_cpu.json", "--device", "cpu"])
+    run("csof_torch_strain labels", cli.strain_entry, ["-i", gt_tree, "--gt-seg", gt_dir])
+    run("csof_torch_strain labels --device cpu", cli.strain_entry,
+        ["-i", gt_tree, "--gt-seg", gt_dir, "-o", tmp / "gt_cpu.json", "--device", "cpu"])
+    for name, card_file, cpu_file in (("predict_flow tree", tree / "analysis.json",
+                                       tmp / "analysis_cpu.json"),
+                                      ("labels tree", gt_tree / "analysis.json",
+                                       tmp / "gt_cpu.json")):
+        got, ref = (json.loads(f.read_text()) for f in (card_file, cpu_file))
+        expect(sorted(got) == [f"patient{i + 1:03d}" for i in range(CLI_CINES)]
+               and all(set(e) == {"jacobian", "strain", "contour_tracking"} for e in got.values()),
+               f"{name}: analysis {sorted(got)}")
+        worst = _report_diff(got, ref)
+        phase("cli", f"strain of the {name}, card vs CPU: analysis.json max |diff| {worst:.3e} "
+              f"(rtol {STRAIN_TOL[0]}, atol {STRAIN_TOL[1]})")
+        if name == "labels tree":
+            radial = [v for e in got.values() for v in e["strain"]["lv_radial_strain_mean"]]
+            expect(np.isfinite(radial).all() and max(map(abs, radial)) > 0,
+                   f"{name}: radial strain {radial[:4]} ...")
+    jac, ana = (json.loads(f.read_text()) for f in (tmp / "jacobian.json", tree / "analysis.json"))
+    expect(all(jac[c]["jacobian"] == ana[c]["jacobian"] and jac[c]["strain"] == ana[c]["strain"]
+               for c in ana), "csof_torch_jacobian and csof_torch_strain differ on the card")
+
+    # the perimeter pass on integer masks: equal counts and perimeters on both devices
+    masks = torch.from_numpy(np.concatenate([
+        np.stack([lab == 1, lab == 3, (lab == 2) | (lab == 3)]).reshape(-1, *CINE_HW)
+        for lab in labels.values()]))
+    hist = perimeter_histogram(masks.cuda()).cpu()
+    per = perimeter_batch(masks.cuda()).cpu()
+    expect(torch.equal(hist, perimeter_histogram(masks)) and torch.equal(per, perimeter_batch(masks)),
+           "perimeter histograms or perimeters differ between the card and the CPU")
+    phase("cli", f"perimeters of {masks.shape[0]} masks {tuple(masks.shape[1:])}: histograms and "
+          f"perimeters equal on the card and the CPU ({int(hist[:, 1:].sum())} border pixels)")
+    # gaussian_smooth takes no convolution call: TF32 allowed, it still equals the CPU
+    x = torch.from_numpy(load_nifti(task / "cine" / "patient001_4d.nii.gz").data_czyx.copy())
+    old = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = gaussian_smooth(x.cuda(), (1.5, 2.0), axes=(2, 3)).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = old
+    ref = gaussian_smooth(x, (1.5, 2.0), axes=(2, 3))
+    compare("cli", f"gaussian_smooth {tuple(x.shape)} card (TF32 allowed) vs CPU (bit-equal: "
+            f"{torch.equal(got, ref)})", got, ref, 1e-6, 1e-6)
+
+    run("strain_curve_metric", cli.strain_curve_metric_entry,
+        ["--ai", gt_tree / "strain_curves", "--gt", gt_tree / "strain_curves", "-o", tmp / "scm"])
+    mean = json.loads((tmp / "scm" / "strain_curve_summary.json").read_text())["mean"]
+    dists = {k: v for k, v in mean.items() if k.startswith("distance_")}
+    expect(len(dists) == 3 and all(v == 0.0 for v in dists.values()),
+           f"strain_curve_metric of the curves against themselves: {dists}")
+    phase("cli", f"strain_curve_metric, {CLI_CINES} cases against themselves: distances {dists}")
+
+
+def check_planned_unet_kernels(card: str, trained: dict, served: dict,
+                               k5_shapes: set) -> dict:
+    """Phase 23: K5, K6 and K6 dx at every distinct shape the planned U-Net's
+    training and serving gave them (conv_shapes / norm_act_shapes records),
+    float32 and bfloat16, against their plain versions at phase 9's
+    tolerances. Returns each kernel's max abs error."""
+    import torch
+
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def rand(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std + mean
+
+    err = {"K5": 0.0, "K6": 0.0, "K6_dx": 0.0}
+    fwd = sorted({(shape, co, bias) for rec in (trained, served)
+                  for shape, _, co, bias, _ in rec})
+    dxs = sorted({(shape, co) for shape, _, co, _, grad in trained if grad})
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for shape in sorted(k5_shapes):
+            x = rand(*shape, std=2.0, mean=0.5).to(dtype)
+            scale, bias = 1.0 + rand(shape[1], std=0.2), rand(shape[1], std=0.2)
+            got = k5.norm_act_cuda(x, scale, bias)
+            torch.cuda.synchronize()
+            err["K5"] = max(err["K5"], compare(
+                "data plane", f"K5 {dname} (N, C, H, W)={shape}", got,
+                k5.norm_act_plain(x, scale, bias), *UNET_TOL[("K5", dname)]))
+        for (n, ci, h, w), co, bias in fwd:
+            x = rand(n, ci, h, w).to(dtype)
+            wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5)
+            b = rand(co, std=0.1) if bias else None
+            got = k6.conv3x3_cuda(x, wt, b)
+            torch.cuda.synchronize()
+            err["K6"] = max(err["K6"], compare(
+                "data plane", f"K6 {dname} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, {w})", got,
+                k6.conv3x3_plain(x, wt, b), *UNET_TOL[("K6", dname)]))
+        for (n, ci, h, w), co in dxs:
+            wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5)
+            dy = rand(n, co, h, w).to(dtype)
+            got = k6.conv3x3_dx_cuda(dy, wt)
+            torch.cuda.synchronize()
+            err["K6_dx"] = max(err["K6_dx"], compare(
+                "data plane", f"K6 dx {dname} dy (N, Co, H, W)=({n}, {co}, {h}, {w}) -> dx {ci} "
+                "channels", got, k6.conv3x3_dx_plain(dy, wt), *UNET_TOL[("K6", dname)]))
+    expect(k5_shapes and fwd and dxs, "the planned U-Net gave a kernel no shape")
+    phase("data plane", f"the planned U-Net's kernels vs plain at {len(k5_shapes)} K5, "
+          f"{len(fwd)} K6 and {len(dxs)} dx shapes (float32, bfloat16): max abs err "
+          + ", ".join(f"{k} {v:.3e}" for k, v in err.items()) + f" ({card})")
+    return err
+
+
+def data_plane_phase(card: str) -> tuple[dict, dict]:
+    """Phase 23: the data plane at ACDC size, from a raw synthetic task to a
+    trained, served and evaluated planned U-Net, and the kernels against
+    their plain versions at every shape it gave them. Returns each command's
+    launches and each kernel's max abs error."""
+    import zipfile
+
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.experiment import ExperimentConfig
+    from csof_tpu_torch.config.plans import Plans
+    from csof_tpu_torch.data.conversion.acdc import make_synthetic_acdc
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.utils.nifti import load_nifti
+
+    counts = {}
+
+    def run(name: str, entry, argv: list, want: dict, **environ) -> float:
+        return run_command(counts, "data plane", name, entry, argv, want, card, **environ)
+
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        t0 = time.perf_counter()
+        make_synthetic_acdc(tmp / "raw", num_patients=DP_PATIENTS, num_frames=DP_FRAMES,
+                            shape_zyx=DP_SHAPE)
+        phase("data plane", f"make_synthetic_acdc: {DP_PATIENTS} patients x {DP_FRAMES} frames of "
+              f"{DP_SHAPE} in {time.perf_counter() - t0:.3f} s host clock ({card})")
+        task = tmp / "task"
+        run("csof_torch_convert_acdc", cli.convert_acdc_entry, ["-i", tmp / "raw", "-o", task], {})
+        roots = {n: tmp / f"pre_{n}" for n in (DP_WORKERS, 1)}
+        for n, root in roots.items():
+            run(f"csof_torch_plan_and_preprocess --num-workers {n}",
+                cli.plan_and_preprocess_entry, ["-t", task, "-o", root, "--num-workers", n], {})
+        a, b = roots[DP_WORKERS], roots[1]
+        files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+        expect(files == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file()),
+               "the two roots hold other files")
+        for rel in files:
+            if rel.suffix == ".npz":
+                with zipfile.ZipFile(a / rel) as za, zipfile.ZipFile(b / rel) as zb:
+                    same = za.namelist() == zb.namelist() and all(
+                        za.read(m) == zb.read(m) for m in za.namelist())
+            else:
+                same = (a / rel).read_bytes() == (b / rel).read_bytes()
+            expect(same, f"{rel}: {DP_WORKERS} workers and 1 wrote other bytes")
+        npz = sum(r.suffix == ".npz" for r in files)
+        expect(npz == 3 * 2 * DP_PATIENTS, f"{npz} .npz files")
+        phase("data plane", f"{DP_WORKERS} workers vs 1: {len(files)} files equal (plans and .pkl "
+              f"byte for byte, {npz} .npz member by member)")
+        plans = Plans.from_json(a / "plans_2D.json")
+        for key in ("2D", "3D"):
+            for sid, sp in Plans.from_json(a / f"plans_{key}.json").plans_per_stage.items():
+                phase("data plane", f"plans_{key} stage {sid}: patch {sp.patch_size}, batch "
+                      f"{sp.batch_size}, pools {sp.pool_op_kernel_sizes}, spacing "
+                      f"{sp.current_spacing}")
+
+        # the planned 2d U-Net: K6 (and dx) where CSOF_CONV2D_IMPL=pallas routes it
+        sp = plans.fullres_stage()
+        net = unet_from_plans(plans, fused_norm_act=True, conv_impl="pallas")
+        per = net.kernel_launches(sp.patch_size[1], backward=True)
+        del net
+        cfg = ExperimentConfig(model="unet2d", max_num_epochs=1, num_batches_per_epoch=DP_STEPS,
+                               num_val_batches_per_epoch=DP_VAL)
+        cfg.to_yaml(tmp / "unet.yaml")
+        train_convs, serve_convs, k5_shapes = {}, {}, set()
+        with conv_shapes(train_convs):
+            run("csof_torch_train unet2d planned", cli.train_entry,
+                ["-c", tmp / "unet.yaml", "-p", a, "-o", tmp / "unet"],
+                {"K6": per["K6"] * (DP_STEPS + DP_VAL), "K6_dx": per["K6_dx"] * DP_STEPS},
+                CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
+        fold = tmp / "unet" / "fold_0"
+        expect((fold / "model_final_checkpoint.pt").is_file()
+               and Plans.from_json(fold / "plans.json") == plans, "U-Net fold not written")
+        phase("data plane", f"the planned U-Net: {per['K5']} K5, {per['K6']} K6, {per['K6_dx']} "
+              f"K6 dx a step at batch {sp.batch_size} x {sp.patch_size}")
+
+        cases = sorted(p.name[:-len("_0000.nii.gz")] for p in (task / "imagesTr").glob("*.nii.gz"))
+        served = cases[:DP_PREDICT]
+        (tmp / "imagesTs").mkdir()
+        for c in served:
+            (tmp / "imagesTs" / f"{c}_0000.nii.gz").write_bytes(
+                (task / "imagesTr" / f"{c}_0000.nii.gz").read_bytes())
+        fwd = sum(unet_forwards(np.load(a / "preprocessed_2d" / f"{c}.npz")["data"].shape[1:],
+                                plans) for c in served)
+        with conv_shapes(serve_convs), norm_act_shapes(k5_shapes):
+            run("csof_torch_predict planned", cli.predict_entry,
+                ["-m", fold, "-i", tmp / "imagesTs", "-o", tmp / "pred"],
+                {"K5": per["K5"] * fwd, "K6": per["K6"] * fwd}, CSOF_CONV2D_IMPL="pallas",
+                CSOF_FUSED_NORM="1")
+        for c in served:
+            seg = load_nifti(tmp / "pred" / f"{c}.nii.gz").data_czyx
+            expect(seg.shape == DP_SHAPE and seg.max() <= 3, f"{c}: prediction {seg.shape}")
+        run("csof_torch_evaluate planned", cli.evaluate_entry,
+            ["-p", tmp / "pred", "-r", task / "labelsTr", "-l", "1", "2", "3", "-o",
+             tmp / "eval.json"], {})
+        scores = json.loads((tmp / "eval.json").read_text())
+        expect(len(scores["all"]) == DP_PREDICT and set(scores["mean"]) == {"1", "2", "3"},
+               f"evaluation {scores['mean']}")
+        phase("data plane", "Dice after the few steps: "
+              + ", ".join(f"{k} {v['Dice']:.4f}" for k, v in sorted(scores["mean"].items())))
+    return counts, check_planned_unet_kernels(card, train_convs, serve_convs, k5_shapes)
 
 
 _MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2235,6 +2558,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_counts = cli_phase(card)
     phase("cli", f"phase 22 took {time.perf_counter() - t_cli:.1f} s")
+    t_dp = time.perf_counter()
+    torch.cuda.empty_cache()
+    dp_counts, dp_errs = data_plane_phase(card)
+    for k, e in dp_errs.items():
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
+    phase("data plane", f"phase 23 took {time.perf_counter() - t_dp:.1f} s")
 
     paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
              "unet_training": unet_train_counts, "ncc_op": ncc_counts,
@@ -2242,7 +2571,9 @@ def main() -> int:
              "segflow_pallas_train": pallas_train_counts, "segflow_modes": modes_counts,
              "ncc_wide_windows": wide_counts,
              **{name.replace("csof_torch_", "cli ").replace(" --", " "): c
-                for name, c in cli_counts.items()}}
+                for name, c in cli_counts.items()},
+             **{name.replace("csof_torch_", "data plane ").replace(" --", " "): c
+                for name, c in dp_counts.items()}}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {

@@ -1,20 +1,28 @@
 """Command-line entries of the port (port of ``csof_tpu/cli/main.py``).
 
 The JAX package's arguments, plus ``--device`` on the entries that run a
-model (default ``cuda``; without a CUDA device the entry refuses to run
-unless given ``--device cpu``). A results folder ``fold_N/`` of either
+model or the flow analysis (default ``cuda``; without a CUDA device the
+entry refuses to run unless given ``--device cpu``); the data plane's
+entries do no device work and take none. A results folder ``fold_N/`` of either
 package (``config.yaml``, ``plans.json``, ``meta.json``, the checkpoint
 triad as ``.pt`` or flax ``.msgpack``) restores in both.
 
 Console scripts (``pyproject.toml``), or ``python -m csof_tpu_torch.cli.main
 <command> [arguments]``:
 
+  csof_torch_convert_acdc           raw ACDC (or N synthetic phantoms) -> task layout
+  csof_torch_convert_mnms           raw M&Ms (or N synthetic phantoms) -> task layout
+  csof_torch_convert_decathlon_task a Decathlon task (4D multi-modality) -> task layout
+  csof_torch_plan_and_preprocess    crop, analyze, plan (2D and 3D), preprocess
   csof_torch_train         train the 2D U-Net or SegFlow from an experiment YAML
                            (``--validation-only``: score the fold from its checkpoint)
   csof_torch_predict       sliding-window U-Net segmentation of a folder of NIfTIs
   csof_torch_predict_flow  SegFlow over every cine of a task: Flow/Registered/Segmentation
   csof_torch_evaluate      Dice / Hausdorff / surface metrics of a folder: summary.json
   csof_torch_ensemble      average the softmax npz of several prediction folders
+  csof_torch_strain        jacobian, strain and contour tracking of a Flow tree
+  csof_torch_jacobian      the same analysis (the JAX package's alias)
+  (strain_curve_metric)    AI-vs-GT strain curve metrics, through the dispatch only
 """
 
 from __future__ import annotations
@@ -25,18 +33,135 @@ import sys
 from pathlib import Path
 
 import numpy as np
-import torch
 
 
-def _device(p: argparse.ArgumentParser, name: str) -> torch.device:
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
+def _device(p: argparse.ArgumentParser, name: str):
+    # torch is imported here, not with the module, so that the data plane's
+    # worker processes, which re-import the main module, start without it
+    from csof_tpu_torch.utils.device import resolve_device
+
+    try:
+        return resolve_device(name)
+    except ValueError:
         p.error(f"--device {name}: there is no CUDA device; pass --device cpu to run on the CPU")
-    return device
 
 
 def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+
+
+def convert_acdc_entry(argv=None):
+    from csof_tpu_torch.data.conversion.acdc import convert_acdc, make_synthetic_acdc
+
+    p = argparse.ArgumentParser("csof_torch_convert_acdc")
+    p.add_argument("-i", "--input", help="ACDC root (patient*/ dirs)")
+    p.add_argument("-o", "--output", required=True, help="task output dir")
+    p.add_argument("--synthetic", type=int, default=0, help="generate N phantom patients instead")
+    p.add_argument("--no-norm", action="store_true",
+                   help="NoNorm task variant: modality 'noNorm'")
+    p.add_argument("--export-unlabeled", action="store_true",
+                   help="also export unannotated cine frames as <pid>_frame<NN>_u")
+    a = p.parse_args(argv)
+    if not a.input and not a.synthetic:
+        p.error("provide -i/--input (ACDC root) or --synthetic N")
+    src = a.input
+    if a.synthetic:
+        src = Path(a.output).parent / "synthetic_raw"
+        make_synthetic_acdc(src, num_patients=a.synthetic)
+    dj = convert_acdc(src, a.output, no_norm=a.no_norm, export_unlabeled=a.export_unlabeled)
+    print(f"converted {dj['numTraining']} cases -> {a.output}")
+
+
+def convert_mnms_entry(argv=None):
+    from csof_tpu_torch.data.conversion.mnms import convert_mnms, make_synthetic_mnms
+
+    p = argparse.ArgumentParser("csof_torch_convert_mnms")
+    p.add_argument("-i", "--input", help="M&Ms root (walked for *_sa[_gt].nii.gz)")
+    p.add_argument("--info", help="M&Ms Dataset Information (.csv or .xlsx)")
+    p.add_argument("-o", "--output", required=True, help="task output dir")
+    p.add_argument("--synthetic", type=int, default=0, help="generate N phantom patients instead")
+    a = p.parse_args(argv)
+    if a.synthetic:
+        src = Path(a.output).parent / "synthetic_mnms_raw"
+        info = make_synthetic_mnms(src, num_patients=a.synthetic)
+    elif a.input and a.info:
+        src, info = a.input, a.info
+    else:
+        p.error("provide -i/--input + --info, or --synthetic N")
+    dj = convert_mnms(src, info, a.output)
+    print(f"converted {dj['numTraining']} cases -> {a.output}")
+
+
+def plan_and_preprocess_entry(argv=None):
+    """Crop the task's training cases, analyze them, plan the 2D and 3D
+    U-Nets and preprocess stage 0 of each plan: ``<out>/cropped``,
+    ``plans_2D.json``, ``plans_3D.json``, ``preprocessed_{2d,3d}/``."""
+    from csof_tpu_torch.data.analysis import analyze_dataset
+    from csof_tpu_torch.data.cropping import run_cropping
+    from csof_tpu_torch.data.planning import plan_and_write
+    from csof_tpu_torch.data.preprocessing import Preprocessor
+
+    p = argparse.ArgumentParser("csof_torch_plan_and_preprocess")
+    p.add_argument("-t", "--task-dir", required=True)
+    p.add_argument("-o", "--output", required=True, help="preprocessed output root")
+    p.add_argument("--num-workers", type=int, default=4)
+    a = p.parse_args(argv)
+    task_dir, out = Path(a.task_dir), Path(a.output)
+    dj = json.loads((task_dir / "dataset.json").read_text())
+    num_mod = len(dj["modality"])
+    cases = []
+    for item in dj["training"]:
+        case = Path(item["image"]).name.replace(".nii.gz", "")
+        imgs = sorted((task_dir / "imagesTr").glob(f"{case}_*.nii.gz"))
+        label = task_dir / "labelsTr" / f"{case}.nii.gz"
+        cases.append((case, [str(i) for i in imgs], str(label) if label.exists() else None))
+    cropped = out / "cropped"
+    run_cropping(cases, cropped, num_workers=a.num_workers)
+    props = analyze_dataset(cropped, num_modalities=num_mod, num_workers=a.num_workers)
+    plans = plan_and_write(props, task_dir.name, out, num_mod,
+                           {int(k): v for k, v in dj["modality"].items()})
+    for key, pl in plans.items():
+        pdir = out / f"preprocessed_{key}"
+        pdir.mkdir(parents=True, exist_ok=True)
+        Preprocessor(pl).run(cropped, pdir, num_workers=a.num_workers)
+    print(f"planned + preprocessed {len(cases)} cases -> {out}")
+
+
+def convert_decathlon_entry(argv=None):
+    """A Medical Segmentation Decathlon task (4D multi-modality images) to
+    the raw layout: one 3D file per modality (``_0000``, ``_0001``, ...),
+    labels as uint8, dataset.json with the training list."""
+    from csof_tpu_torch.utils.nifti import load_nifti, save_nifti
+
+    p = argparse.ArgumentParser("csof_torch_convert_decathlon_task")
+    p.add_argument("-i", "--input", required=True, help="decathlon task folder")
+    p.add_argument("-o", "--output", required=True)
+    a = p.parse_args(argv)
+    src, out = Path(a.input), Path(a.output)
+    images_tr, labels_tr = out / "imagesTr", out / "labelsTr"
+    images_tr.mkdir(parents=True, exist_ok=True)
+    labels_tr.mkdir(parents=True, exist_ok=True)
+    cases = []
+    for f in sorted((src / "imagesTr").glob("*.nii.gz")):
+        if f.name.startswith("."):
+            continue  # the Decathlon archives hold ._ AppleDouble files
+        case = f.name.replace(".nii.gz", "")
+        img = load_nifti(f)
+        vol = img.data_czyx  # (z, y, x), or (m, z, y, x) with m modalities
+        mods = vol[None] if vol.ndim == 3 else vol
+        for m in range(mods.shape[0]):
+            save_nifti(mods[m], images_tr / f"{case}_{m:04d}.nii.gz", affine=img.affine)
+        lab = src / "labelsTr" / f.name
+        if lab.exists():
+            li = load_nifti(lab)
+            save_nifti(li.data_czyx, labels_tr / f.name, affine=li.affine, dtype=np.uint8)
+        cases.append(case)
+    dataset = (json.loads((src / "dataset.json").read_text())
+               if (src / "dataset.json").exists() else {})
+    dataset["training"] = [{"image": f"./imagesTr/{c}.nii.gz", "label": f"./labelsTr/{c}.nii.gz"}
+                           for c in cases]
+    (out / "dataset.json").write_text(json.dumps(dataset, indent=2))
+    print(f"converted {len(cases)} cases -> {out}")
 
 
 def train_entry(argv=None):
@@ -255,8 +380,79 @@ def ensemble_entry(argv=None):
     print(f"ensembled {len(cases)} cases from {len(folders)} models")
 
 
-COMMANDS = {"train": train_entry, "predict": predict_entry, "predict_flow": predict_flow_entry,
-            "evaluate": evaluate_entry, "ensemble": ensemble_entry}
+def _strain(argv, prog: str):
+    from csof_tpu_torch.analysis.flow_analysis import (
+        analyze_prediction_tree,
+        export_strain_curves,
+        write_strain_csv,
+    )
+
+    p = argparse.ArgumentParser(prog)
+    p.add_argument("-i", "--input", required=True,
+                   help="prediction tree root (Flow/ Registered/ Segmentation/)")
+    p.add_argument("-o", "--output", default=None)
+    p.add_argument("--gt-seg", default=None,
+                   help="folder of per-case GT 4D label NIfTIs for contour tracking error")
+    _add_device(p)
+    a = p.parse_args(argv)
+    device = _device(p, a.device)
+    out = a.output or (Path(a.input) / "analysis.json")
+    report = analyze_prediction_tree(a.input, out, gt_seg_dir=a.gt_seg, device=device)
+    write_strain_csv(report, Path(out).with_suffix(".csv"))
+    # one curve file per case for strain_curve_metric
+    n = export_strain_curves(report, Path(a.input) / "strain_curves")
+    print(f"analysis -> {out} ({n} strain-curve files)")
+
+
+def strain_entry(argv=None):
+    """Jacobian, strain curves and (with --gt-seg) contour tracking of a
+    Flow/Registered/Segmentation tree: analysis.json, analysis.csv and
+    strain_curves/<case>.npz."""
+    _strain(argv, "csof_torch_strain")
+
+
+def jacobian_entry(argv=None):
+    """The same tree analysis as strain_entry, which covers the jacobian."""
+    _strain(argv, "csof_torch_jacobian")
+
+
+def strain_curve_metric_entry(argv=None):
+    """AI vs GT strain curves: folders of per-case curve files (.mat Medis
+    export, .npz or .npy) paired in sorted order, or by basename with
+    --match-names; strain_metrics.csv and strain_curve_summary.json."""
+    from csof_tpu_torch.analysis.strain_curves import aggregate_strain_curve_metrics
+
+    p = argparse.ArgumentParser("csof_torch_strain_curve_metric")
+    p.add_argument("--ai", required=True, help="folder of AI strain curve files")
+    p.add_argument("--gt", required=True, help="folder of GT strain curve files")
+    p.add_argument("-o", "--output", default=None, help="output folder (default: AI folder)")
+    p.add_argument("--match-names", action="store_true",
+                   help="pair by identical basename instead of sorted order")
+    a = p.parse_args(argv)
+    exts = ("*.mat", "*.npz", "*.npy")
+    ai_files = sorted(f for pat in exts for f in Path(a.ai).glob(pat))
+    gt_files = sorted(f for pat in exts for f in Path(a.gt).glob(pat))
+    if a.match_names:
+        gt_by_name = {f.name: f for f in gt_files}
+        pairs = [(f, gt_by_name[f.name]) for f in ai_files if f.name in gt_by_name]
+    else:
+        pairs = list(zip(ai_files, gt_files))
+    if not pairs:
+        p.error(f"no curve file pairs between {a.ai} and {a.gt}")
+    out_dir = Path(a.output) if a.output else Path(a.ai)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = aggregate_strain_curve_metrics(pairs, csv_out=out_dir / "strain_metrics.csv",
+                                         json_out=out_dir / "strain_curve_summary.json")
+    print(json.dumps(res["mean"], indent=2))
+    print(f"{len(pairs)} cases -> {out_dir}/strain_metrics.csv")
+
+
+COMMANDS = {"convert_acdc": convert_acdc_entry, "convert_mnms": convert_mnms_entry,
+            "convert_decathlon": convert_decathlon_entry,
+            "plan_and_preprocess": plan_and_preprocess_entry, "train": train_entry,
+            "predict": predict_entry, "predict_flow": predict_flow_entry,
+            "evaluate": evaluate_entry, "ensemble": ensemble_entry, "strain": strain_entry,
+            "jacobian": jacobian_entry, "strain_curve_metric": strain_curve_metric_entry}
 
 
 def main(argv=None) -> None:

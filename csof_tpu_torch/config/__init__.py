@@ -1,1 +1,1 @@
-"""Typed model configuration (mirror of csof_tpu.config.experiment)."""
+"""Typed model configuration (mirror of csof_tpu.config.experiment), plans, folders."""

@@ -1,7 +1,7 @@
 """Nonzero-bounding-box cropping of raw cases: ``crop_case``, its helpers and
 the folder writer ``run_cropping`` from ``csof_tpu/data/cropping.py``
 (numpy/scipy), carried here so that the port never imports the JAX package.
-``run_cropping`` runs in one process."""
+``run_cropping`` crops the cases in worker processes (``utils/pool.py``)."""
 
 from __future__ import annotations
 
@@ -12,6 +12,7 @@ import numpy as np
 from scipy.ndimage import binary_fill_holes
 
 from csof_tpu_torch.utils.nifti import load_nifti
+from csof_tpu_torch.utils.pool import map_in_processes
 
 
 def create_nonzero_mask(data: np.ndarray) -> np.ndarray:
@@ -76,18 +77,26 @@ def crop_case(data_files: list[str | Path], seg_file: str | Path | None = None):
     return data, seg, properties
 
 
-def run_cropping(cases: list[tuple[str, list[str], str | None]],
-                 out_dir: str | Path) -> list[str]:
-    """Crop each (case_id, modality files, seg file) into
-    ``out_dir/<case_id>.npz`` (data and seg stacked, float32) and
-    ``<case_id>.pkl`` (properties), one case after another. Returns the case
-    ids."""
+def _crop_one(job) -> str:
+    """Crop one case into ``<case_id>.npz`` (data and seg stacked, float32)
+    and ``<case_id>.pkl`` (properties); an existing pair is kept unless
+    ``overwrite``."""
+    case_id, data_files, seg_file, out_dir, overwrite = job
+    out_npz, out_pkl = Path(out_dir) / f"{case_id}.npz", Path(out_dir) / f"{case_id}.pkl"
+    if out_npz.exists() and out_pkl.exists() and not overwrite:
+        return case_id
+    data, seg, props = crop_case(data_files, seg_file)
+    np.savez_compressed(out_npz, data=np.vstack([data, seg]).astype(np.float32))
+    with open(out_pkl, "wb") as f:
+        pickle.dump(props, f)
+    return case_id
+
+
+def run_cropping(cases: list[tuple[str, list[str], str | None]], out_dir: str | Path,
+                 num_workers: int = 8, overwrite: bool = False) -> list[str]:
+    """Crop each (case_id, modality files, seg file) into ``out_dir`` in
+    ``num_workers`` processes (one: in this process). Returns the case ids."""
     out_dir = Path(out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
-    for case_id, data_files, seg_file in cases:
-        data, seg, props = crop_case(data_files, seg_file)
-        np.savez_compressed(out_dir / f"{case_id}.npz",
-                            data=np.vstack([data, seg]).astype(np.float32))
-        with open(out_dir / f"{case_id}.pkl", "wb") as f:
-            pickle.dump(props, f)
-    return [case_id for case_id, _, _ in cases]
+    jobs = [(cid, files, seg, out_dir, overwrite) for cid, files, seg in cases]
+    return map_in_processes(_crop_one, jobs, num_workers)

@@ -3,7 +3,8 @@
 ``Preprocessor`` of ``csof_tpu/data/preprocessing.py`` (numpy/scipy),
 carried here so that the port never imports the JAX package. The
 folder-level ``run`` writes the same ``<case>.npz`` (data and seg stacked,
-float32) and ``<case>.pkl`` (properties) per case, one process only.
+float32) and ``<case>.pkl`` (properties) per case, in worker processes
+(``utils/pool.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from csof_tpu_torch.config.plans import Plans
 from csof_tpu_torch.data.cropping import crop_case
 from csof_tpu_torch.ops.normalize import normalize_case
 from csof_tpu_torch.ops.resample import resample_patient
+from csof_tpu_torch.utils.pool import map_in_processes
 
 
 class Preprocessor:
@@ -68,7 +70,9 @@ class Preprocessor:
         data, seg, properties = crop_case(data_files, seg_file)
         return self.run_case(data, seg, properties, force_separate_z)
 
-    def _one(self, case_id: str, cropped_dir: Path, out_dir: Path) -> str:
+    def _one(self, job: tuple[str, Path, Path]) -> str:
+        """Preprocess one cropped case: job = (case_id, cropped_dir, out_dir)."""
+        case_id, cropped_dir, out_dir = job
         arr = np.load(cropped_dir / f"{case_id}.npz")["data"]
         with open(cropped_dir / f"{case_id}.pkl", "rb") as f:
             properties = pickle.load(f)
@@ -80,12 +84,14 @@ class Preprocessor:
             pickle.dump(properties, f)
         return case_id
 
-    def run(self, cropped_dir: str | Path, out_dir: str | Path) -> list[str]:
+    def run(self, cropped_dir: str | Path, out_dir: str | Path,
+            num_workers: int = 4) -> list[str]:
         """Preprocess every cropped case of ``cropped_dir`` (``<case>.npz``
         with data and seg stacked, ``<case>.pkl`` properties, as
         ``run_cropping`` writes them) into ``out_dir`` in the same two files,
-        one case after another. Returns the case ids."""
+        in ``num_workers`` processes (one: in this process). Returns the case
+        ids."""
         cropped_dir, out_dir = Path(cropped_dir), Path(out_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
-        return [self._one(p.stem, cropped_dir, out_dir)
-                for p in sorted(cropped_dir.glob("*.npz"))]
+        jobs = [(p.stem, cropped_dir, out_dir) for p in sorted(cropped_dir.glob("*.npz"))]
+        return map_in_processes(self._one, jobs, num_workers)

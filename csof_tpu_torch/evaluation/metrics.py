@@ -1,13 +1,14 @@
 """Segmentation metrics: overlap and surface distances, and the normalised
 surface Dice (port of ``csof_tpu/evaluation/metrics.py``, numpy and scipy:
 the surface metrics through scipy's Euclidean distance transform, with
-medpy's definitions).
+medpy's definitions), and the structural similarity ``ssim``.
 """
 
 from __future__ import annotations
 
 import numpy as np
-from scipy.ndimage import binary_erosion, distance_transform_edt, generate_binary_structure
+from scipy.ndimage import (binary_erosion, distance_transform_edt, generate_binary_structure,
+                           uniform_filter)
 
 
 def confusion_counts(pred: np.ndarray, ref: np.ndarray):
@@ -118,3 +119,26 @@ SURFACE_METRICS = {
     "Avg. Surface Distance": avg_surface_distance,
     "Avg. Symmetric Surface Distance": avg_symmetric_surface_distance,
 }
+
+
+def ssim(img1: np.ndarray, img2: np.ndarray, data_range: float | None = None,
+         win: int = 7) -> float:
+    """Structural similarity (Wang et al. 2004) with a uniform ``win`` window
+    and the sample covariance, averaged over the pixels a whole window
+    covers; float64 on the host."""
+    x = img1.astype(np.float64)
+    y = img2.astype(np.float64)
+    if data_range is None:
+        data_range = max(x.max() - x.min(), y.max() - y.min(), 1e-8)
+    c1, c2 = (0.01 * data_range) ** 2, (0.03 * data_range) ** 2
+    mu_x = uniform_filter(x, win)
+    mu_y = uniform_filter(y, win)
+    sxx = uniform_filter(x * x, win) - mu_x**2
+    syy = uniform_filter(y * y, win) - mu_y**2
+    sxy = uniform_filter(x * y, win) - mu_x * mu_y
+    npix = win ** x.ndim
+    corr = npix / (npix - 1)  # the sample covariance
+    sxx, syy, sxy = sxx * corr, syy * corr, sxy * corr
+    s = ((2 * mu_x * mu_y + c1) * (2 * sxy + c2)) / ((mu_x**2 + mu_y**2 + c1) * (sxx + syy + c2))
+    pad = (win - 1) // 2
+    return float(s[tuple(slice(pad, dim - pad) for dim in s.shape)].mean())

@@ -1,7 +1,9 @@
-"""Segmentation export: resample the softmax back to the cropped grid, argmax,
-embed in the original field of view and write NIfTI.
+"""Segmentation and flow export: resample the softmax back to the cropped
+grid, argmax, embed in the original field of view and write NIfTI; resample
+a flow field back the same way with its magnitudes rescaled, and write npz.
 
-``resample_to_shape`` and ``save_segmentation_from_softmax`` of
+``resample_to_shape``, ``save_segmentation_from_softmax`` and
+``save_flow_field`` of
 ``csof_tpu/inference/export.py`` (numpy/scipy), carried here so that the port
 never imports the JAX package. The region-based export
 (``region_class_order``) is not carried.
@@ -67,3 +69,35 @@ def save_segmentation_from_softmax(softmax: np.ndarray, out_file: str | Path, pr
         seg = seg_cropped.astype(np.uint8)
     save_nifti(seg, out_file, affine=properties.get("nifti_affine"),
                spacing_xyz=tuple(properties["original_spacing"][::-1]))
+
+
+def save_flow_field(flow: np.ndarray, out_file: str | Path, properties: dict,
+                    order: int = 1) -> None:
+    """flow: (ncomp, *size_after_resampling) displacement in voxels of the
+    resampled grid. Resampled back to the cropped grid, each component
+    rescaled by its axis's size ratio (the components are the last ``ncomp``
+    spatial axes, so an in-plane flow in a volume scales by y and x only),
+    embedded in the original field of view and written as npz (key
+    ``flow``)."""
+    out_file = Path(out_file)
+    shape_after_cropping = tuple(int(s) for s in properties.get(
+        "size_after_cropping", properties["original_size_of_raw_data"]))
+    current_shape = flow.shape[1:]
+    flow = resample_to_shape(flow.astype(np.float32), shape_after_cropping, is_seg=False,
+                             spacing_current=properties.get("spacing_after_resampling"),
+                             spacing_target=properties.get("original_spacing"), order=order)
+    ncomp = flow.shape[0]
+    scale = np.array([n / c for n, c in zip(shape_after_cropping[-ncomp:],
+                                            current_shape[-ncomp:])], np.float32)
+    flow = flow * scale[(slice(None),) + (None,) * (flow.ndim - 1)]
+
+    shape_original = tuple(int(s) for s in properties["original_size_of_raw_data"])
+    bbox = properties.get("crop_bbox")
+    if bbox is not None:
+        full = np.zeros((flow.shape[0], *shape_original), np.float32)
+        full[(slice(None),) + tuple(slice(b[0], b[0] + s)
+                                    for b, s in zip(bbox, flow.shape[1:]))] = flow
+    else:
+        full = flow
+    out_file.parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(out_file, flow=full)

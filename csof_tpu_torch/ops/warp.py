@@ -5,7 +5,8 @@ package's: sampling at pixel coordinates (channel 0 along H, 1 along W),
 bilinear as the sum of the four corners' weighted values in the JAX order,
 nearest by ``round`` (half to even), ``"zeros"`` padding per corner or
 ``"border"`` clamping; they serve the augmentation's spatial warp and the
-sliding-window flow predictor.
+sliding-window flow predictor. ``warp_points`` advects contour points
+through a flow with that sampler (bilinear, border).
 
 ``warp_image_cm``, on ``F.grid_sample``: warped(x) = image(x + flow(x)),
 bilinear, with the flow channel-major in voxels, channel 0 along H (dy) and
@@ -100,3 +101,15 @@ def compose_flows(flow_ab: torch.Tensor, flow_bc: torch.Tensor) -> torch.Tensor:
     grid = identity_grid(flow_bc.shape[1:3], flow_bc.dtype, flow_bc.device) + flow_bc
     sampled = grid_sample(flow_ab.permute(0, 3, 1, 2), grid, mode="bilinear", padding="border")
     return flow_bc + sampled.permute(0, 2, 3, 1)
+
+
+def warp_points(points: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Advect points through a dense 2D flow: points + flow sampled at the
+    points (bilinear, border padding). points: (P, 2) pixel (y, x); flow:
+    (H, W, 2) displacement in pixels, channels last -> (P, 2)."""
+    if points.shape[-1] != 2 or flow.ndim != 3 or flow.shape[-1] != 2:
+        raise ValueError(f"2D points and flow expected, got {tuple(points.shape)} and "
+                         f"{tuple(flow.shape)}")
+    sampled = grid_sample(flow.permute(2, 0, 1)[None], points[None, None], mode="bilinear",
+                          padding="border")
+    return points + sampled[0, :, 0].T

@@ -1,1 +1,2 @@
-"""Host-side utilities (NIfTI output)."""
+"""Host-side utilities: NIfTI files, the YAML subset, small IO helpers, worker processes,
+the device check of library entry points."""

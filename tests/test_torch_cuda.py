@@ -589,6 +589,24 @@ def test_ncc_loss_kernel_is_one_launch_and_matches_ncc_loss(cuda, c, dtype):
 
 
 @pytest.mark.cuda
+def test_device_ms_without_a_traced_kernel_times_by_events(cuda, monkeypatch):
+    """Where torch.profiler traces no kernel, device_ms takes the call's
+    device time from CUDA events behind a spin kernel: positive, and no
+    more than the host-clock median of a call with its launch gaps."""
+    from csof_tpu_torch import kernel_times as kt
+
+    x = torch.randn(64, 64, 128, 128, device=cuda)
+
+    def call():
+        return torch.relu(x)
+    traced = kt.device_ms(call)["all"]
+    monkeypatch.setattr(kt, "device_events", lambda fn, reps=10: ([], 10))
+    queued = kt.device_ms(call)
+    assert set(queued) == {"all"} and 0 < queued["all"] <= 2 * kt.median_ms(call)
+    assert 0.5 * traced <= queued["all"] <= 2 * traced, (traced, queued)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n,h,w,window,dtype", [
     (4, 64, 1000, 101, torch.float32), (2, 33, 300, 77, torch.bfloat16),
     (1, 17, 129, 9, torch.float32), (3, 20, 70, 127, torch.float16)])
@@ -775,3 +793,87 @@ def test_augmentation_on_the_card_equals_the_cpu_apply(cuda, name):
     out, out_seg = ta.augment_video(ta.step_generator(1, 2, cuda), video, vseg)
     assert out.shape == video.shape and out.device.type == "cuda"
     assert bool(torch.isfinite(out).all()) and out_seg.dtype == vseg.dtype
+
+
+def _smooth_field(rng, shape, amp):
+    from scipy.ndimage import gaussian_filter
+
+    f = np.stack([gaussian_filter(rng.randn(*shape), (0, 0, 3, 3)) for _ in range(2)], -1)
+    return (amp * f / np.abs(f).max()).astype(np.float32)
+
+
+@pytest.mark.cuda
+def test_strain_jacobian_and_smoothing_on_the_card_equal_the_cpu(cuda):
+    """The perimeter pass is exact on both devices (integer categories, a
+    float64 weighted sum); the jacobian and gaussian_smooth are elementwise
+    float32 (the latter with TF32 allowed: it takes no convolution call);
+    the reports' reductions run in another order (STRAIN_TOL)."""
+    from csof_tpu_torch.analysis.flow_analysis import (contour_error_report, jacobian_report,
+                                                       strain_report)
+    from csof_tpu_torch.data.conversion.acdc import _phantom_frame
+    from csof_tpu_torch.ops.filters import gaussian_smooth
+    from csof_tpu_torch.ops.jacobian import jacobian_determinant_batch
+    from csof_tpu_torch.ops.strain import perimeter_batch, perimeter_histogram
+
+    rng = np.random.RandomState(0)
+    seg = np.stack([_phantom_frame((3, 64, 72), float(np.sin(np.pi * t / 6)), rng)[1]
+                    for t in range(6)]).astype(np.uint8)  # (T, D, H, W)
+    flow = _smooth_field(rng, seg.shape, 3.0)
+    masks = torch.from_numpy(np.stack([seg == 1, seg == 3, (seg == 2) | (seg == 3)])
+                             .reshape(-1, 64, 72))
+    assert torch.equal(perimeter_histogram(masks.to(cuda)).cpu(), perimeter_histogram(masks))
+    assert torch.equal(perimeter_batch(masks.to(cuda)).cpu(), perimeter_batch(masks))
+    ft = torch.from_numpy(flow)
+    _close(jacobian_determinant_batch(ft.to(cuda), ndim=2), jacobian_determinant_batch(ft, ndim=2),
+           (1e-6, 1e-6))
+    x = torch.from_numpy(rng.rand(4, 40, 50).astype(np.float32))
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = gaussian_smooth(x.to(cuda), (0.8, 1.7, 2.5))
+    finally:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    _close(got, gaussian_smooth(x, (0.8, 1.7, 2.5)), (1e-7, 1e-6))
+    strain_tol = dict(rtol=1e-5, atol=1e-4)  # percent: 100x a float32 thickness's rounding
+    for got, ref in ((strain_report(seg, cuda), strain_report(seg, "cpu")),
+                     (jacobian_report(flow, seg, cuda), jacobian_report(flow, seg, "cpu")),
+                     (contour_error_report(flow[:, 1], seg[:, 1], 3, device=cuda),
+                      contour_error_report(flow[:, 1], seg[:, 1], 3, device="cpu"))):
+        assert sorted(got) == sorted(ref)
+        for k in ref:
+            g, r = (np.asarray(list(v.values()) if isinstance(v, dict) else v, np.float64)
+                    for v in (got[k], ref[k]))
+            np.testing.assert_allclose(g, r, err_msg=k, **strain_tol)
+
+
+@pytest.mark.cuda
+def test_a_worker_pool_after_cuda_use_equals_one_worker(cuda, tmp_path):
+    """A process that has used CUDA opens the data plane's pools: the workers
+    come from the fork server, hold neither the CUDA driver nor torch, and
+    write what one worker writes."""
+    import zipfile
+    from pathlib import Path
+
+    from csof_tpu_torch.cli.main import plan_and_preprocess_entry
+    from csof_tpu_torch.data.conversion.acdc import convert_acdc, make_synthetic_acdc
+    from csof_tpu_torch.utils.pool import map_in_processes
+
+    torch.ones(8, device=cuda).sum().item()
+    maps = Path("/proc/self/maps")
+    assert torch.cuda.is_initialized() and "libcuda" in maps.read_text()
+    for m in map_in_processes(maps.read_text, [None] * 3, 3):
+        assert "libcuda" not in m and "libtorch" not in m
+    make_synthetic_acdc(tmp_path / "raw", num_patients=3, num_frames=4, shape_zyx=(3, 40, 44))
+    convert_acdc(tmp_path / "raw", tmp_path / "task")
+    for n in (3, 1):
+        plan_and_preprocess_entry(["-t", str(tmp_path / "task"), "-o", str(tmp_path / f"pre{n}"),
+                                   "--num-workers", str(n)])
+    a, b = tmp_path / "pre3", tmp_path / "pre1"
+    files = sorted(p.relative_to(a) for p in a.rglob("*") if p.is_file())
+    assert files == sorted(p.relative_to(b) for p in b.rglob("*") if p.is_file())
+    assert sum(f.suffix == ".npz" for f in files) == 3 * 6
+    for rel in files:
+        if rel.suffix == ".npz":
+            with zipfile.ZipFile(a / rel) as za, zipfile.ZipFile(b / rel) as zb:
+                assert all(za.read(n) == zb.read(n) for n in za.namelist()), rel
+        else:
+            assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
