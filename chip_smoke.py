@@ -2,7 +2,8 @@
 """Drive the PyTorch port's SegFlow serving and training paths and its
 nnU-Net 2D serving and training paths once on one NVIDIA GPU, then SegFlow
 under the JAX package's kernel switches and in its other configurations,
-then the port's command line, its strain analysis and its data plane.
+then the port's command line, its strain analysis and its data plane, then
+the nnU-Net 3d_fullres U-Net's training and serving and the cascade.
 
     python3 chip_smoke.py
 
@@ -142,7 +143,40 @@ Phases, each printed on its own line:
    switches (K5 and K6 counted) and csof_torch_evaluate; every command's
    host seconds. Last, K5, K6 and K6 dx against their plain versions
    (float32 and bfloat16, phase 9's tolerances) at every distinct shape the
-   planned U-Net's training and serving gave them.
+   planned U-Net's training and serving gave them. Then the planned 3D
+   U-Net of the same root (plans_3D.json, preprocessed_3d/): csof_torch_train
+   3 steps + 1 validation batch under pallas with CSOF_FUSED_NORM=1 set (no
+   K5 on a 3D net), csof_torch_predict on 2 cases, csof_torch_evaluate, the
+   K6 and K6-dx launches GenericUNet.kernel_launches gives.
+24. unet3d train: the Task002 3d_fullres U-Net (task002_heart_3d: patch
+   80x192x160, batch 2, base 32, cap 320, float32, deep supervision) on 3
+   synthetic cases of 115 x 320 x 232 at its spacing (written, cropped and
+   preprocessed): csof_torch_train (SGD-Nesterov + poly, clip 12, 3 steps + 1
+   validation batch, pallas, CSOF_FUSED_NORM=1 set): 17 K6 a forward and 16
+   K6 dx a step, in the z taps; then Trainer steps with the switch off and
+   on and remat at its default (save_conv) and off: host ms a step and peak
+   device memory.
+25. unet3d serving: csof_torch_predict on 2 of those cases with mirror TTA
+   (8 variants) and the switch on, at predict_case's tile batch for 3-D
+   plans (TILE_BATCH_3D): 17 K6 a forward, the labels written, the peak
+   device memory; then one forward's peak memory and time at 1, 2 and 4
+   tiles x 8.
+26. unet3d parity: the 3d_fullres U-Net's float32 logits of one 80x192x160
+   patch GPU vs CPU (MODEL_TOL), and the loss and every gradient of a
+   training step on 1 x 32x96x96 (17 K6 + 16 dx), the CPU replaying the
+   GPU's LeakyReLU slopes as in phase 15.
+27. unet3d kernels: K6 and K6 dx against their plain versions at every
+   distinct z-tap shape phases 23-26 gave them (float32, bf16, bf16 with
+   the float32 output of (3, 3, 3) taps); their times at the Task002
+   3d_fullres tap shapes (kernel_times.k6_3d_times) beside the plain
+   versions, F.conv3d and conv3d_input of the routed convs (the library
+   calls), the tap route vs F.conv3d per conv, and the bounds.
+28. cascade: csof_torch_plan_and_preprocess of 4 isotropic phantoms of
+   64x96x96 with the 3D budget cut to 1e6 (a two-stage plan):
+   preprocessed_3d holds the fullres stage, preprocessed_3d_lowres stage 0;
+   predict_next_stage with the lowres U-Net on the card and on the CPU
+   (equal files, or differing only at ties of the softmax); one forward of
+   the fullres U-Net on concat_prev_stage's input.
 
 Then one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -154,6 +188,7 @@ import contextlib
 import copy
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -288,6 +323,30 @@ STRAIN_TOL = (1e-5, 1e-4)
 #: planned U-Net trained 1 epoch x 3 steps + 1 validation batch, 2 cases served
 DP_PATIENTS, DP_FRAMES, DP_SHAPE = 4, 8, (10, 224, 256)
 DP_WORKERS, DP_STEPS, DP_VAL, DP_PREDICT = 4, 3, 1, 2
+#: phases 24-27, the Task002 3d_fullres U-Net (task002_heart_3d: patch
+#: 80x192x160, batch 2, base 32, cap 320, float32): synthetic volumes of 115 x
+#: 320 x 232 at its spacing (a Task002 volume after 3d_fullres resampling;
+#: cut: 3 cases to train, 2 to serve, never smaller volumes); csof_torch_train
+#: 1 epoch x 3 steps + 1 validation batch, then Trainer steps (2 warm-up, 3
+#: timed) with the switch off and on, remat at its default and off
+U3_CASES, U3_SHAPE, U3_SPACING_ZYX = 3, (115, 320, 232), (1.37, 1.25, 1.25)
+U3_STEPS, U3_VAL, U3_WARMUP, U3_TIMED, U3_PREDICT = 3, 1, 2, 3, 2
+#: K6 and K6 dx launches of one 3d_fullres forward / training step under
+#: pallas: level 0's two (1, 3, 3) encoder convs one z tap each and its two
+#: (3, 3, 3) decoder convs three each, level 1's stride-1 encoder conv and two
+#: decoder convs three each (tests/test_torch_unet3d.py holds the port's count
+#: against JAX's traced Pallas calls); no dx for the first conv's tap
+U3_K6, U3_K6_DX = 17, 16
+#: the training-step parity patch, cut so that the CPU side stays short
+#: (level 1 is 48 wide: K6 still routes there, the same 17 + 16 launches)
+U3_PARITY_PATCH = (32, 96, 96)
+#: tile batches whose forward's peak memory phase 25 measures (x 8 mirrors)
+U3_TILE_BATCHES = (1, 2, 4)
+#: phase 28, the cascade: isotropic phantoms of about phase 23's voxels a case
+#: (64 x 96 x 96 = 590k, ACDC's 10 x 224 x 256 = 573k; ACDC's 5 mm slices
+#: stall the planner's patch shrinking, so its 3D plans get no lowres stage),
+#: the 3D budget cut to 1e6 as the F10 test cuts it
+CASCADE_CASES, CASCADE_SHAPE, CASCADE_BUDGET = 4, (64, 96, 96), 1e6
 
 
 class PhaseError(RuntimeError):
@@ -1326,73 +1385,22 @@ def unet_train(card: str) -> dict:
 
 def unet_train_parity(card: str) -> None:
     """Phase 15: float32 loss and every gradient of the full-width U-Net at
-    batch 2 of 320x256, GPU kernels vs CPU plain versions.
-
-    At this size a gradient leaf moves by more than GRAD_TOL under float32
-    rounding alone: the deepest levels hold 5 x 4 pixels a plane, where a
-    LeakyReLU input that rounding pushes across 0 changes its slope 100-fold.
-    So the CPU is also run on the input scaled by 1 + 1e-7 noise (below a
-    float32 ulp for most values), and the GPU's worst leaf is held to
-    GRAD_TOL, or to twice the worst leaf of that CPU-vs-CPU floor where the
-    floor itself exceeds it; the median leaf is held to GRAD_TOL."""
+    batch 2 of 320x256, GPU kernels vs CPU plain versions (``grad_parity``:
+    the CPU replays the GPU's LeakyReLU slopes; the deepest levels hold 5 x
+    4 pixels a plane, where one flipped slope moves a leaf beyond
+    GRAD_TOL)."""
     import torch
 
-    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
     from csof_tpu_torch.config.plans import task002_heart_2d
     from csof_tpu_torch.models.unet import unet_from_plans
-    from csof_tpu_torch.ops.kernels import conv as k6
-    from csof_tpu_torch.training.trainer import make_seg_loss
 
     cpu = unet_from_plans(task002_heart_2d(), conv_impl="pallas", fused_norm_act=False,
                           generator=torch.Generator().manual_seed(1))
-    gpu = copy.deepcopy(cpu).cuda()
     rng = np.random.RandomState(8)
     seg = np.zeros((2, 320, 256), np.int32)
     seg[:, 100:200, 80:170] = 1
     data = (rng.randn(2, 1, 320, 256) + seg[:, None]).astype(np.float32)
-    noisy = (data * (1 + 1e-7 * rng.randn(*data.shape))).astype(np.float32)
-    loss_fn = make_seg_loss(ExperimentConfig(model="unet2d", data=DataConfig(do_data_aug=False)))
-
-    def grads(model, x, device):
-        model.zero_grad(set_to_none=True)
-        loss, _ = loss_fn(model, {"data": torch.from_numpy(x).to(device),
-                                  "seg": torch.from_numpy(seg).to(device)})
-        loss.backward()
-        return loss.item(), {k: None if p.grad is None else p.grad.cpu()
-                             for k, p in model.named_parameters()}
-
-    def ratios(got, ref):
-        """|diff| / (GRAD_TOL max|ref| + 1e-6) of each leaf with a gradient."""
-        out = {}
-        for name, r in ref.items():
-            expect((got[name] is None) == (r is None), f"{name}: a gradient on one side only")
-            if r is None:  # the zero-weight deep-supervision head
-                continue
-            expect(bool(torch.isfinite(got[name]).all()), f"{name}: non-finite gradient")
-            out[name] = float((got[name] - r).abs().max()) / (GRAD_TOL * float(r.abs().max())
-                                                               + 1e-6)
-        return out
-
-    before = (k6.launches, k6.bwd_launches)
-    a, g_gpu = grads(gpu, data, "cuda")
-    torch.cuda.synchronize()
-    expect((k6.launches - before[0], k6.bwd_launches - before[1]) == (7, 6),
-           "the GPU step did not run 7 K6 + 6 K6 dx")
-    b, g_cpu = grads(cpu, data, "cpu")
-    _, g_noisy = grads(cpu, noisy, "cpu")
-    expect(abs(a - b) <= LOSS_RTOL * abs(b), f"loss GPU {a} vs CPU {b}")
-    gpu_r, floor_r = ratios(g_gpu, g_cpu), ratios(g_noisy, g_cpu)
-    worst_name = max(gpu_r, key=gpu_r.get)
-    worst, floor, med = gpu_r[worst_name], max(floor_r.values()), statistics.median(
-        gpu_r.values())
-    limit = max(1.0, 2 * floor)
-    ok = worst <= limit and med <= 1
-    phase("unet train parity", f"full width float32 (2, 1, 320, 256): loss GPU {a:.7f} vs CPU "
-          f"{b:.7f}; {len(gpu_r)} gradients, |diff| / (tol {GRAD_TOL:g} max|g| + 1e-6): worst "
-          f"{worst:.3f} at {worst_name}, median {med:.4f}; CPU vs CPU on the input x (1 + 1e-7 "
-          f"noise): worst {floor:.3f} at {max(floor_r, key=floor_r.get)}; limit {limit:.3f} "
-          f"-> {'ok' if ok else 'FAIL'} ({card})")
-    expect(ok, f"gradient {worst_name} outside tolerance")
+    grad_parity("unet train parity", cpu, data, seg, "unet2d", (7, 6), card)
 
 
 def ncc_planes(rng: np.random.RandomState, n: int, h: int, w: int):
@@ -2365,11 +2373,12 @@ def check_planned_unet_kernels(card: str, trained: dict, served: dict,
     return err
 
 
-def data_plane_phase(card: str) -> tuple[dict, dict]:
+def data_plane_phase(card: str, record3d: dict) -> tuple[dict, dict]:
     """Phase 23: the data plane at ACDC size, from a raw synthetic task to a
-    trained, served and evaluated planned U-Net, and the kernels against
-    their plain versions at every shape it gave them. Returns each command's
-    launches and each kernel's max abs error."""
+    trained, served and evaluated planned 2D U-Net, and the kernels against
+    their plain versions at every shape it gave them; then the planned 3D
+    U-Net (``data_plane_3d``, its K6 shapes into ``record3d``). Returns each
+    command's launches and each kernel's max abs error."""
     import zipfile
 
     from csof_tpu_torch.cli import main as cli
@@ -2464,7 +2473,582 @@ def data_plane_phase(card: str) -> tuple[dict, dict]:
                f"evaluation {scores['mean']}")
         phase("data plane", "Dice after the few steps: "
               + ", ".join(f"{k} {v['Dice']:.4f}" for k, v in sorted(scores["mean"].items())))
+        data_plane_3d(card, run, a, tmp, served, record3d)
     return counts, check_planned_unet_kernels(card, train_convs, serve_convs, k5_shapes)
+
+
+def data_plane_3d(card: str, run, root: Path, tmp: Path, served: list, record: dict) -> None:
+    """Phase 23, 3D: the planned 3D U-Net of the same root (plans_3D.json,
+    preprocessed_3d/) trained 3 steps + 1 validation batch under
+    CSOF_CONV2D_IMPL=pallas (CSOF_FUSED_NORM=1 set: no K5 on a 3D net), 2
+    cases served with TTA, evaluated; K6's z-tap shapes go to ``record``."""
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.experiment import ExperimentConfig
+    from csof_tpu_torch.config.plans import Plans
+    from csof_tpu_torch.inference.predictor import TILE_BATCH_3D
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.ops.sliding_window import bucket_image_shape, step_grid
+    from csof_tpu_torch.utils.nifti import load_nifti
+
+    plans = Plans.from_json(root / "plans_3D.json")
+    patch = plans.fullres_stage().patch_size
+    per = unet_from_plans(plans, conv_impl="pallas").kernel_launches(patch[-1], backward=True)
+    cfg = ExperimentConfig(model="unet3d", max_num_epochs=1, num_batches_per_epoch=DP_STEPS,
+                           num_val_batches_per_epoch=DP_VAL)
+    cfg.to_yaml(tmp / "unet3d.yaml")
+    with conv_shapes(record):
+        run("csof_torch_train unet3d planned", cli.train_entry,
+            ["-c", tmp / "unet3d.yaml", "-p", root, "-o", tmp / "unet3d"],
+            {"K6": per["K6"] * (DP_STEPS + DP_VAL), "K6_dx": per["K6_dx"] * DP_STEPS},
+            CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="1")
+    fold = tmp / "unet3d" / "fold_0"
+    expect((fold / "model_final_checkpoint.pt").is_file(), "3D U-Net fold not written")
+    fwd = sum(-(-len(step_grid(patch, bucket_image_shape(
+        np.load(root / "preprocessed_3d" / f"{c}.npz")["data"].shape[1:], patch, 0.5, 32),
+        0.5)) // TILE_BATCH_3D) for c in served)
+    with conv_shapes(record):
+        run("csof_torch_predict unet3d planned", cli.predict_entry,
+            ["-m", fold, "-i", tmp / "imagesTs", "-o", tmp / "pred3d"], {"K6": per["K6"] * fwd},
+            CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="1")
+    for c in served:
+        seg = load_nifti(tmp / "pred3d" / f"{c}.nii.gz").data_czyx
+        expect(seg.shape == DP_SHAPE and seg.max() <= 3, f"{c}: 3D prediction {seg.shape}")
+    run("csof_torch_evaluate unet3d planned", cli.evaluate_entry,
+        ["-p", tmp / "pred3d", "-r", tmp / "task" / "labelsTr", "-l", "1", "2", "3", "-o",
+         tmp / "eval3d.json"], {})
+    scores = json.loads((tmp / "eval3d.json").read_text())
+    expect(len(scores["all"]) == len(served), f"3D evaluation {scores['mean']}")
+    phase("data plane", f"the planned 3D U-Net: patch {patch}, {per['K6']} K6 + "
+          f"{per['K6_dx']} dx a step, {fwd} forwards for {len(served)} cases; Dice "
+          + ", ".join(f"{k} {v['Dice']:.4f}" for k, v in sorted(scores["mean"].items()))
+          + f" ({card})")
+
+
+# -- phases 24-28: the Task002 3d_fullres U-Net -------------------------------
+
+
+def synthetic_volume(rng: np.random.RandomState, shape) -> np.ndarray:
+    """(z, y, x) float32 MRI-like volume of any size: noise everywhere and a
+    bright ellipsoid a fifth to an eighth of each axis across."""
+    d, h, w = shape
+    zz, yy, xx = np.ogrid[0:d, 0:h, 0:w]
+    cz, cy, cx = (d / 2 + rng.uniform(-5, 5), h / 2 + rng.uniform(-20, 20),
+                  w / 2 + rng.uniform(-20, 20))
+    blob = ((zz - cz) / (d / 5)) ** 2 + ((yy - cy) / (h / 8)) ** 2 + ((xx - cx) / (w / 8)) ** 2 <= 1
+    return (20 + 30 * rng.rand(d, h, w) + 200 * blob).astype(np.float32)
+
+
+def unet3d_data(tmp: Path) -> tuple[Path, Path]:
+    """Phase 24's inputs: U3_CASES synthetic Task002-sized volumes at the
+    3d_fullres spacing through run_cropping and Preprocessor.run into a
+    preprocessed root holding task002_heart_3d's plans_3D.json; the first
+    U3_PREDICT also as .nii.gz for csof_torch_predict. Returns (root,
+    images folder)."""
+    from csof_tpu_torch.config.plans import task002_heart_3d
+    from csof_tpu_torch.data.cropping import run_cropping
+    from csof_tpu_torch.data.preprocessing import Preprocessor
+    from csof_tpu_torch.utils.nifti import save_nifti
+
+    plans = task002_heart_3d()
+    root, raw, images = tmp / "pre3d", tmp / "raw3d", tmp / "imagesTs3d"
+    for d in (root, raw, images):
+        d.mkdir()
+    plans.to_json(root / "plans_3D.json")
+    rng = np.random.RandomState(11)
+    spacing_xyz = tuple(U3_SPACING_ZYX[::-1])
+    cases = []
+    t0 = time.perf_counter()
+    for i in range(U3_CASES):
+        img = synthetic_volume(rng, U3_SHAPE)
+        img_path, seg_path = raw / f"la3_{i:03d}_0000.nii", raw / f"la3_{i:03d}_seg.nii"
+        save_nifti(img, img_path, spacing_xyz=spacing_xyz)
+        save_nifti((img > 150).astype(np.uint8), seg_path, spacing_xyz=spacing_xyz)
+        if i < U3_PREDICT:
+            save_nifti(img, images / f"la3_{i:03d}_0000.nii.gz", spacing_xyz=spacing_xyz)
+        cases.append((f"la3_{i:03d}", [str(img_path)], str(seg_path)))
+    run_cropping(cases, tmp / "cropped3d")
+    Preprocessor(plans).run(tmp / "cropped3d", root / "preprocessed_3d")
+    phase("unet3d train", f"{U3_CASES} cases {U3_SHAPE} at {U3_SPACING_ZYX} mm written, cropped "
+          f"and preprocessed in {time.perf_counter() - t0:.1f} s host clock")
+    return root, images
+
+
+def unet3d_train(card: str, tmp: Path, root: Path) -> tuple[dict, Path]:
+    """Phase 24: csof_torch_train on the Task002 3d_fullres U-Net (full width,
+    float32, SGD-Nesterov + poly, clip 12, deep supervision) under
+    CSOF_CONV2D_IMPL=pallas with CSOF_FUSED_NORM=1 set (K5 never runs on a
+    3D net), then Trainer steps with the switch off and on, remat at its
+    default (save_conv) and off: host ms a step and peak device memory.
+    Returns the command's launches and its fold."""
+    import gc
+
+    import torch
+
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.experiment import ExperimentConfig, OptimConfig
+    from csof_tpu_torch.config.plans import Plans
+    from csof_tpu_torch.data.dataset import load_dataset
+    from csof_tpu_torch.data.loaders import SegPatchLoader
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.training.schedules import build_optimizer
+    from csof_tpu_torch.training.trainer import Trainer
+
+    plans = Plans.from_json(root / "plans_3D.json")
+    sp = plans.fullres_stage()
+    per = unet_from_plans(plans, conv_impl="pallas").kernel_launches(sp.patch_size[-1], True)
+    expect(per == {"K5": 0, "K6": U3_K6, "K6_dx": U3_K6_DX}, f"3d_fullres launches {per}")
+    cfg = ExperimentConfig(model="unet3d", max_num_epochs=1, num_batches_per_epoch=U3_STEPS,
+                           num_val_batches_per_epoch=U3_VAL,
+                           optim=OptimConfig(optimizer="sgd", scheduler="poly", initial_lr=1e-2,
+                                             weight_decay=3e-5))
+    cfg.to_yaml(tmp / "unet3d.yaml")
+    counts = {}
+    torch.cuda.reset_peak_memory_stats()
+    run_command(counts, "unet3d train", "csof_torch_train unet3d", cli.train_entry,
+                ["-c", tmp / "unet3d.yaml", "-p", root, "-o", tmp / "unet3d"],
+                {"K6": U3_K6 * (U3_STEPS + U3_VAL), "K6_dx": U3_K6_DX * U3_STEPS}, card,
+                CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="1")
+    fold = tmp / "unet3d" / "fold_0"
+    log = (fold / "training_log.txt").read_text()
+    expect((fold / "model_final_checkpoint.pt").is_file() and " fg-dice " in log,
+           f"unet3d fold not written or no fg-dice in its log: {log[-300:]}")
+    phase("unet3d train", f"csof_torch_train: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; {log.strip().splitlines()[-1]}")
+
+    loader = SegPatchLoader(load_dataset(root / "preprocessed_3d"), sp.patch_size,
+                            sp.batch_size, num_modalities=plans.num_modalities, seed=0)
+    batches = [next(loader) for _ in range(U3_WARMUP + U3_TIMED)]
+    for switch in ("native", "pallas"):
+        for remat in (True, False):
+            gc.collect()
+            torch.cuda.empty_cache()
+            with env(CSOF_CONV2D_IMPL=switch):
+                tr = Trainer(cfg, tmp / f"steps_{switch}_{remat}", plans=plans,
+                             device="cuda").initialize()
+                if not remat:
+                    tr.model = unet_from_plans(plans, remat=False, generator=torch.Generator()
+                                               .manual_seed(cfg.seed)).cuda()
+                    tr.optimizer = build_optimizer(cfg.optim, tr.total_steps,
+                                                   tr.model.parameters())
+                label = f"{tr.model.remat_policy if tr.model.remat else 'off'}"
+                for b in batches[:U3_WARMUP]:
+                    tr.run_iteration(b)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                _reset_counts()
+                times, losses = [], []
+                for b in batches[U3_WARMUP:]:
+                    t0 = time.perf_counter()
+                    loss, _ = tr.run_iteration(b)  # ends in a read of the loss
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    losses.append(loss)
+                got = {k: v for k, v in _read_counts().items() if v}
+            want = ({"K6": U3_K6 * U3_TIMED, "K6_dx": U3_K6_DX * U3_TIMED}
+                    if switch == "pallas" else {})
+            expect(got == want and all(np.isfinite(losses)),
+                   f"{switch}, remat {label}: launches {got}, expected {want}; losses {losses}")
+            phase("unet3d train", f"Trainer step ({sp.batch_size}, 1, {sp.patch_size}) float32, "
+                  f"CSOF_CONV2D_IMPL={switch}, remat {label}: median "
+                  f"{statistics.median(times):.3f} ms host clock over {U3_TIMED} steps after "
+                  f"{U3_WARMUP} warm-up (min {min(times):.3f}, max {max(times):.3f}), peak "
+                  f"device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches "
+                  f"{got}, losses {losses[0]:.5f} -> {losses[-1]:.5f} ({card})")
+            del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["csof_torch_train unet3d"], fold
+
+
+def unet3d_serve(card: str, tmp: Path, fold: Path, images: Path) -> dict:
+    """Phase 25: csof_torch_predict of the trained 3d_fullres fold on
+    U3_PREDICT cases, mirror TTA (8 variants), the switch on, at
+    predict_case's tile batch for 3-D plans, with its peak device memory;
+    then the peak memory and time of one forward of 1, 2 and 4 tiles x 8
+    mirrors."""
+    import gc
+
+    import torch
+
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.plans import Plans
+    from csof_tpu_torch.inference.predictor import TILE_BATCH_3D
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.ops.sliding_window import bucket_image_shape, step_grid
+    from csof_tpu_torch.utils.nifti import load_nifti
+
+    plans = Plans.from_json(fold / "plans.json")
+    patch = plans.fullres_stage().patch_size
+    tiles = len(step_grid(patch, bucket_image_shape(U3_SHAPE, patch, 0.5, 32), 0.5))
+    forwards = -(-tiles // TILE_BATCH_3D) * U3_PREDICT
+    counts = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    secs = run_command(counts, "unet3d serving", "csof_torch_predict unet3d", cli.predict_entry,
+                       ["-m", fold, "-i", images, "-o", tmp / "pred3d"],
+                       {"K6": U3_K6 * forwards}, card, CSOF_CONV2D_IMPL="pallas")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for i in range(U3_PREDICT):
+        seg = load_nifti(tmp / "pred3d" / f"la3_{i:03d}.nii.gz").data_czyx
+        expect(seg.shape == U3_SHAPE and set(np.unique(seg).tolist()) <= {0, 1},
+               f"case {i}: prediction {seg.shape}")
+    phase("unet3d serving", f"{U3_PREDICT} cases {U3_SHAPE}: {tiles} tiles a case, tile batch "
+          f"{TILE_BATCH_3D} x 8 mirrors, {forwards} forwards, {secs / U3_PREDICT:.3f} s a case "
+          f"host clock, peak device memory {peak:.3f} GiB ({card})")
+    net = unet_from_plans(plans, conv_impl="pallas",
+                          generator=torch.Generator().manual_seed(0)).cuda().eval()
+    peaks = {}
+    for tb in U3_TILE_BATCHES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            x = torch.zeros(8 * tb, 1, *patch, device="cuda")
+            with torch.inference_mode():
+                ms = median_ms(lambda: net(x), reps=3, warmup=1)
+            peaks[tb] = (f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+                         f"{ms / tb:.1f} ms a tile")
+        except torch.cuda.OutOfMemoryError:
+            peaks[tb] = "out of memory"
+        x = None
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase("unet3d serving", f"one forward by tile batch (x 8 mirrors, {patch} float32): peak "
+          f"device memory and CUDA-event ms a tile {peaks} ({card})")
+    return counts["csof_torch_predict unet3d"]
+
+
+@contextlib.contextmanager
+def leaky_slopes(masks: list, replay: bool, flips: list):
+    """Record (``replay=False``) the sign mask of every LeakyReLU the
+    ConvNormAct blocks apply, in call order, or replay recorded masks in
+    place of the signs, counting in ``flips`` the entries where the replayed
+    mask differs from the input's own sign."""
+    import torch
+
+    from csof_tpu_torch.models import blocks
+
+    orig = blocks.leaky_relu
+    replayed = iter(masks)
+
+    def act(x, negative_slope=0.01):
+        own = x >= 0
+        if replay:
+            mask = next(replayed).to(x.device)
+            flips.append(int((mask != own).sum()))
+        else:
+            mask = own
+            masks.append(own.cpu())
+        return torch.where(mask, x, x * blocks.scalar_in(negative_slope, x.dtype))
+
+    blocks.leaky_relu = act
+    try:
+        yield
+    finally:
+        blocks.leaky_relu = orig
+
+
+def grad_parity(label: str, cpu, data: np.ndarray, seg: np.ndarray, model: str,
+                want: tuple[int, int], card: str) -> None:
+    """The float32 loss and every gradient of make_seg_loss, GPU kernels vs
+    CPU plain versions, every leaf within GRAD_TOL and the loss within
+    LOSS_RTOL. A LeakyReLU input within rounding of 0 can take the other
+    slope on the other device, which moves the gradients behind it by up to
+    100-fold at that voxel (a deep level of a few hundred voxels a plane
+    turns one such flip into a leaf off by percents); so the CPU's run
+    replays the slopes the GPU's run took (``leaky_slopes``), and the two
+    differ by their arithmetic alone. ``want``: K6 and K6 dx launches of
+    the GPU step."""
+    import torch
+
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.training.trainer import make_seg_loss
+
+    gpu = copy.deepcopy(cpu).cuda()
+    loss_fn = make_seg_loss(ExperimentConfig(model=model, data=DataConfig(do_data_aug=False)))
+
+    def grads(m, device):
+        m.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(m, {"data": torch.from_numpy(data).to(device),
+                              "seg": torch.from_numpy(seg).to(device)})
+        loss.backward()
+        return loss.item(), {k: None if p.grad is None else p.grad.cpu()
+                             for k, p in m.named_parameters()}
+
+    masks, flips = [], []
+    before = (k6.launches, k6.bwd_launches)
+    with leaky_slopes(masks, False, flips):
+        a, g_gpu = grads(gpu, "cuda")
+    torch.cuda.synchronize()
+    got = (k6.launches - before[0], k6.bwd_launches - before[1])
+    expect(got == want, f"the GPU step ran {got} K6 and K6 dx, expected {want}")
+    with leaky_slopes(masks, True, flips):
+        b, g_cpu = grads(cpu, "cpu")
+    expect(len(flips) == len(masks), f"{len(flips)} LeakyReLUs replayed of {len(masks)}")
+    ratios = {}
+    for name, r in g_cpu.items():
+        expect((g_gpu[name] is None) == (r is None), f"{name}: a gradient on one side only")
+        if r is None:  # the zero-weight deep-supervision head
+            continue
+        expect(bool(torch.isfinite(g_gpu[name]).all()), f"{name}: non-finite gradient")
+        ratios[name] = float((g_gpu[name] - r).abs().max()) / (GRAD_TOL * float(r.abs().max())
+                                                                + 1e-6)
+    worst_name = max(ratios, key=ratios.get)
+    worst, med = ratios[worst_name], statistics.median(ratios.values())
+    ok = worst <= 1 and abs(a - b) <= LOSS_RTOL * abs(b)
+    phase(label, f"full width float32 {tuple(data.shape)}: loss GPU {a:.7f} vs CPU {b:.7f}; "
+          f"{len(ratios)} gradients, |diff| / (tol {GRAD_TOL:g} max|g| + 1e-6): worst "
+          f"{worst:.3f} at {worst_name}, median {med:.4f}; the CPU ran the GPU's slopes at "
+          f"{len(masks)} LeakyReLUs, {sum(flips)} of whose inputs take the other sign on the "
+          f"CPU -> {'ok' if ok else 'FAIL'} ({card})")
+    expect(ok, f"gradient {worst_name} or the loss outside tolerance")
+
+
+def unet3d_parity(card: str, record: dict) -> None:
+    """Phase 26: the Task002 3d_fullres U-Net GPU (K6 in the z taps) vs CPU
+    (the plain version) at full width, float32: the logits of one
+    80x192x160 patch (MODEL_TOL), then the loss and every gradient of a
+    training step on 1 x 32x96x96 (level 1 is 48 wide, so K6 routes there
+    too: the same 17 K6 + 16 dx) under phase 15's rule (``grad_parity``)."""
+    import torch
+
+    from csof_tpu_torch.config.plans import task002_heart_3d
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    plans = task002_heart_3d()
+    cpu = unet_from_plans(plans, conv_impl="pallas",
+                          generator=torch.Generator().manual_seed(2)).eval()
+    gpu = copy.deepcopy(cpu).cuda()
+    x = torch.from_numpy(np.random.RandomState(12).randn(1, 1, *plans.fullres_stage().patch_size)
+                         .astype(np.float32))
+    with torch.no_grad(), conv_shapes(record):
+        before = k6.launches
+        got = gpu(x.cuda())
+        torch.cuda.synchronize()
+        n = k6.launches - before
+        t0 = time.perf_counter()
+        ref = cpu(x)
+        cpu_s = time.perf_counter() - t0
+    expect(n == U3_K6, f"the GPU forward ran {n} K6, expected {U3_K6}")
+    for i, (g, r) in enumerate(zip(got, ref)):
+        compare("unet3d parity", f"float32 head {i} {tuple(r.shape)} GPU vs CPU", g.cpu(), r,
+                *MODEL_TOL)
+    phase("unet3d parity", f"one patch {tuple(x.shape)}: {n} K6 launches; the CPU forward "
+          f"took {cpu_s:.1f} s ({card})")
+    del gpu, got
+    torch.cuda.empty_cache()
+    train = unet_from_plans(plans, conv_impl="pallas", remat=False,
+                            generator=torch.Generator().manual_seed(3))
+    rng = np.random.RandomState(13)
+    seg = np.zeros((1, *U3_PARITY_PATCH), np.int32)
+    seg[:, 8:24, 30:70, 25:65] = 1
+    data = (rng.randn(1, 1, *U3_PARITY_PATCH) + seg[:, None]).astype(np.float32)
+    with conv_shapes(record):
+        grad_parity("unet3d parity", train, data, seg, "unet3d", (U3_K6, U3_K6_DX), card)
+
+
+def check_unet3d_kernels(card: str, record: dict) -> dict:
+    """Phase 27: K6 and K6 dx against their plain versions at every distinct
+    z-tap shape the 3D runs gave them (phases 23-26: ``record``), float32
+    and bf16 (bf16 also with the float32 output that (3, 3, 3) taps take),
+    phase 9's tolerances; then their times at the Task002 3d_fullres tap
+    shapes (``kernel_times.k6_3d_times``: the forward's 17 launches at the
+    serving batch, the step's 16 dx at batch 2; the plain versions; each
+    routed conv through the tap route and as one F.conv3d, the library
+    call) beside the bound (``bounds.unet3d_work``). Returns K6's and K6
+    dx's entries of the kernels line."""
+    import torch
+
+    from csof_tpu_torch.bounds import bound_ms, unet3d_work
+    from csof_tpu_torch.kernel_times import k6_3d_times
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+
+    def rand(*shape, std=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std
+
+    fwd = sorted({(shape, co) for shape, _, co, _, _ in record})
+    dxs = sorted({(shape, co) for shape, _, co, _, grad in record if grad})
+    expect(fwd and dxs, "the 3D runs gave K6 no shape")
+    err = {"K6": 0.0, "K6_dx": 0.0}
+    for dtype, out_f32 in ((torch.float32, False), (torch.bfloat16, False),
+                           (torch.bfloat16, True)):
+        dname = str(dtype).removeprefix("torch.")
+        tol = UNET_TOL[("K6", "float32" if out_f32 else dname)]
+        for (n, ci, h, w), co in fwd:
+            x = rand(n, ci, h, w).to(dtype)
+            wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5)
+            got = k6.conv3x3_cuda(x, wt, None, out_f32)
+            torch.cuda.synchronize()
+            err["K6"] = max(err["K6"], compare(
+                "unet3d kernels", f"K6 {dname}{' out_f32' if out_f32 else ''} (N, Ci, Co, H, W)="
+                f"({n}, {ci}, {co}, {h}, {w})", got, k6.conv3x3_plain(x, wt, None, out_f32), *tol))
+            del x, got
+        if out_f32:
+            continue
+        for (n, ci, h, w), co in dxs:
+            wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5)
+            dy = rand(n, co, h, w).to(dtype)
+            got = k6.conv3x3_dx_cuda(dy, wt)
+            torch.cuda.synchronize()
+            err["K6_dx"] = max(err["K6_dx"], compare(
+                "unet3d kernels", f"K6 dx {dname} dy (N, Co, H, W)=({n}, {co}, {h}, {w}) -> dx "
+                f"{ci} channels", got, k6.conv3x3_dx_plain(dy, wt), *UNET_TOL[("K6", dname)]))
+            del dy, got
+    torch.cuda.empty_cache()
+    phase("unet3d kernels", f"{len(fwd)} K6 and {len(dxs)} dx z-tap shapes vs plain (float32, "
+          f"bfloat16, bfloat16 out_f32): max abs err K6 {err['K6']:.3e}, dx {err['K6_dx']:.3e}")
+    t = k6_3d_times(gen)
+    out = {"K6": {"max_abs_err": err["K6"]}, "K6_dx": {"max_abs_err": err["K6_dx"]}}
+    for key, tkey, what in (("K6", "K6_3D", "the 17 z-tap launches of one serving forward "
+                             "(TILE_BATCH_3D tiles x 8 mirrors)"),
+                            ("K6_dx", "K6_dx_3D", "the 16 z-tap dx launches of one training "
+                             "step (batch 2)")):
+        for dname, itemsize in (("float32", 4), ("bfloat16", 2)):
+            bnd, by = bound_ms(*unet3d_work(key, itemsize))
+            lib = t[f"K6_3D_convs_{dname}_{'conv3d_serving' if key == 'K6' else 'dgrad3d'}_ms"]
+            entry = {"ms": t[f"{tkey}_{dname}_ms"], "plain_ms": t[f"{tkey}_{dname}_plain_ms"],
+                     "device_ms": t[f"{tkey}_{dname}_device_ms"], "bound_ms": bnd,
+                     "bound_by": by, "library_ms": lib}
+            out[key].update({f"unet3d_{dname}_{k}": v for k, v in entry.items()})
+            phase("unet3d kernels", f"{key} {dname}, {what}: kernel {entry['ms']:.4f} ms (device "
+                  f"{entry['device_ms']:.4f}), plain {entry['plain_ms']:.4f} ms, library "
+                  f"{lib:.4f} ms ({'F.conv3d' if key == 'K6' else 'conv3d_input'} of the "
+                  f"routed convs), bound {bnd:.4f} ms ({by}) ({card})")
+        out[key]["unet3d_launches_per_" + ("forward" if key == "K6" else "step")] = (
+            U3_K6 if key == "K6" else U3_K6_DX)
+    for dname in ("float32", "bfloat16"):
+        convs = t[f"K6_3D_convs_{dname}"]
+        phase("unet3d kernels", f"{dname}, the routed convs at batch 2, tap route vs one "
+              "F.conv3d (ms): " + "; ".join(
+                  f"{c['conv'][0]}->{c['conv'][1]} {tuple(c['conv'][2])} at "
+                  f"{tuple(c['conv'][3])} x{c['convs']}: {c['route_ms']:.3f} vs "
+                  f"{c['conv3d_ms']:.3f}" for c in convs)
+              + f"; summed {t[f'K6_3D_convs_{dname}_route_ms']:.3f} vs "
+              f"{t[f'K6_3D_convs_{dname}_conv3d_ms']:.3f} ({card})")
+        out["K6"][f"unet3d_{dname}_route_b2_ms"] = t[f"K6_3D_convs_{dname}_route_ms"]
+        out["K6"][f"unet3d_{dname}_conv3d_b2_ms"] = t[f"K6_3D_convs_{dname}_conv3d_ms"]
+    return out
+
+
+def cascade_phase(card: str, tmp: Path) -> dict:
+    """Phase 28: the cascade. csof_torch_plan_and_preprocess of a task whose
+    3D plans hold a low-resolution stage (CASCADE_CASES isotropic phantoms
+    of CASCADE_SHAPE, about phase 23's voxels a case, the 3D budget cut to
+    CASCADE_BUDGET as tests/test_torch_data_plane.py's F10 test cuts it)
+    writes both stage folders; predict_next_stage runs the lowres U-Net
+    (random weights from a seed) on the card and on the CPU, and the
+    ``_segFromPrevStage.npy`` files must be equal (or differ only where the
+    CPU softmax's top two are within 1e-4); one forward of the fullres U-Net
+    on concat_prev_stage's input. Returns the launches of the card's run."""
+    import torch
+
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.plans import Plans
+    from csof_tpu_torch.data import planning
+    from csof_tpu_torch.data.conversion.acdc import _phantom_frame
+    from csof_tpu_torch.data.dataset import load_case, load_dataset
+    from csof_tpu_torch.inference.predictor import PredictorConfig, SlidingWindowPredictor
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.training import cascade
+    from csof_tpu_torch.utils.nifti import save_nifti
+
+    task, pre = tmp / "cascade_task", tmp / "cascade_pre"
+    (task / "imagesTr").mkdir(parents=True)
+    (task / "labelsTr").mkdir()
+    rng = np.random.RandomState(21)
+    for i in range(CASCADE_CASES):
+        img, seg = _phantom_frame(CASCADE_SHAPE, i / CASCADE_CASES, rng)
+        save_nifti(img, task / "imagesTr" / f"c{i}_0000.nii.gz", spacing_xyz=(1.5, 1.5, 1.5))
+        save_nifti(seg.astype(np.uint8), task / "labelsTr" / f"c{i}.nii.gz",
+                   spacing_xyz=(1.5, 1.5, 1.5))
+    (task / "dataset.json").write_text(json.dumps({"modality": {"0": "MRI"}, "training": [
+        {"image": f"./imagesTr/c{i}.nii.gz", "label": f"./labelsTr/c{i}.nii.gz"}
+        for i in range(CASCADE_CASES)]}))
+    planner = planning.ExperimentPlanner
+
+    class CutBudget(planner):
+        def __init__(self, props, task_name):
+            super().__init__(props, task_name, budget_3d=CASCADE_BUDGET)
+
+    planning.ExperimentPlanner = CutBudget
+    try:
+        t0 = time.perf_counter()
+        cli.plan_and_preprocess_entry(["-t", str(task), "-o", str(pre), "--num-workers", "2"])
+        secs = time.perf_counter() - t0
+    finally:
+        planning.ExperimentPlanner = planner
+    plans = Plans.from_json(pre / "plans_3D.json")
+    expect(sorted(plans.plans_per_stage) == [0, 1], f"stages {sorted(plans.plans_per_stage)}")
+    low, full = load_dataset(pre / "preprocessed_3d_lowres"), load_dataset(pre / "preprocessed_3d")
+    expect(sorted(low) == sorted(full) and len(low) == CASCADE_CASES, "stage folders' cases")
+    spacings = {name: pickle.loads((pre / name / "c0.pkl").read_bytes())[
+        "spacing_after_resampling"] for name in ("preprocessed_3d", "preprocessed_3d_lowres")}
+    expect(spacings["preprocessed_3d"] == tuple(plans.stage(1).current_spacing)
+           and spacings["preprocessed_3d_lowres"] == tuple(plans.stage(0).current_spacing),
+           f"stage folders hold spacings {spacings}")
+    phase("cascade", f"plan_and_preprocess: {secs:.3f} s host clock; stage 0 patch "
+          f"{plans.stage(0).patch_size} at {plans.stage(0).current_spacing}, stage 1 patch "
+          f"{plans.stage(1).patch_size} at {plans.stage(1).current_spacing}; folders "
+          f"preprocessed_3d (fullres) and preprocessed_3d_lowres ({card})")
+    targets = {c: tuple(load_case(e)[0].shape[1:]) for c, e in full.items()}
+    lowres = unet_from_plans(plans, stage=0, deep_supervision=False,
+                             generator=torch.Generator().manual_seed(5)).eval()
+    k = plans.num_classes_with_background
+    probs, counts = {}, {}
+    for where, device in (("card", "cuda"), ("cpu", "cpu")):
+        net = copy.deepcopy(lowres).to(device)
+        predictor = SlidingWindowPredictor(net, PredictorConfig(
+            patch_size=tuple(plans.stage(0).patch_size), num_classes=k), device=device)
+
+        def predict_fn(data, where=where, predictor=predictor):
+            seg, p = predictor.predict(data)
+            probs.setdefault(where, []).append(p)
+            return seg
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        cascade.predict_next_stage(predict_fn, low, tmp / f"prev_{where}", targets)
+        if where == "card":
+            torch.cuda.synchronize()
+            counts = {n: v for n, v in _read_counts().items() if v}
+        phase("cascade", f"predict_next_stage, lowres U-Net with TTA on the {where}: "
+              f"{time.perf_counter() - t0:.3f} s host clock")
+    differ = 0
+    for case in sorted(low):
+        name = f"{case}_segFromPrevStage.npy"
+        a, b = np.load(tmp / "prev_card" / name), np.load(tmp / "prev_cpu" / name)
+        expect(a.shape == targets[case], f"{name}: shape {a.shape}")
+        differ += int((a != b).sum())
+    for g, c in zip(probs["card"], probs["cpu"]):
+        top2 = np.sort(c, 0)[-2:]
+        flips = g.argmax(0) != c.argmax(0)
+        expect(not flips.any() or (top2[1] - top2[0])[flips].max() < 1e-4,
+               "the lowres argmax differs card vs CPU where the CPU's top two are apart")
+    phase("cascade", f"segFromPrevStage files card vs CPU: {differ} voxels differ "
+          f"({'equal' if differ == 0 else 'only at ties of the lowres softmax'}); the lowres "
+          f"softmax max abs diff {max(float(np.abs(g - c).max()) for g, c in zip(probs['card'], probs['cpu'])):.3e}")
+    case = sorted(full)[0]
+    data = np.asarray(load_case(full[case])[0])[:-1]
+    x = cascade.concat_prev_stage(data, cascade.load_prev_stage_onehot(tmp / "prev_card", case, k))
+    patch = plans.fullres_stage().patch_size
+    crop = np.zeros((x.shape[0], *patch), np.float32)
+    sl = tuple(slice(0, min(p, s)) for p, s in zip(patch, x.shape[1:]))
+    crop[(slice(None),) + sl] = x[(slice(None),) + sl]
+    fullres = unet_from_plans(plans, in_channels=x.shape[0], deep_supervision=False,
+                              generator=torch.Generator().manual_seed(6)).cuda().eval()
+    with torch.inference_mode():
+        logits = fullres(torch.from_numpy(crop)[None].cuda())
+    expect(logits.shape == (1, k, *patch) and bool(torch.isfinite(logits).all()),
+           f"fullres logits {tuple(logits.shape)}")
+    phase("cascade", f"the fullres U-Net on concat_prev_stage's input ({x.shape[0]} channels: "
+          f"{plans.num_modalities} modality + {k - 1} one-hot): logits {tuple(logits.shape)}, "
+          f"finite; launches of the card's lowres run {counts} ({card})")
+    return counts
 
 
 _MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2560,10 +3144,26 @@ def main() -> int:
     phase("cli", f"phase 22 took {time.perf_counter() - t_cli:.1f} s")
     t_dp = time.perf_counter()
     torch.cuda.empty_cache()
-    dp_counts, dp_errs = data_plane_phase(card)
+    record3d = {}
+    dp_counts, dp_errs = data_plane_phase(card, record3d)
     for k, e in dp_errs.items():
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
     phase("data plane", f"phase 23 took {time.perf_counter() - t_dp:.1f} s")
+    t_u3 = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        u3_root, u3_images = unet3d_data(tmp)
+        with conv_shapes(record3d):
+            u3_train_counts, u3_fold = unet3d_train(card, tmp, u3_root)
+            u3_serve_counts = unet3d_serve(card, tmp, u3_fold, u3_images)
+        unet3d_parity(card, record3d)
+        u3 = check_unet3d_kernels(card, record3d)
+        cascade_counts = cascade_phase(card, tmp)
+    for k in ("K6", "K6_dx"):
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], u3[k].pop("max_abs_err"))
+        kernels[k].update(u3[k])
+    phase("unet3d", f"phases 24-28 took {time.perf_counter() - t_u3:.1f} s")
 
     paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
              "unet_training": unet_train_counts, "ncc_op": ncc_counts,
@@ -2573,7 +3173,9 @@ def main() -> int:
              **{name.replace("csof_torch_", "cli ").replace(" --", " "): c
                 for name, c in cli_counts.items()},
              **{name.replace("csof_torch_", "data plane ").replace(" --", " "): c
-                for name, c in dp_counts.items()}}
+                for name, c in dp_counts.items()},
+             "unet3d_training": u3_train_counts, "unet3d_serving": u3_serve_counts,
+             "cascade": cascade_counts}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {

@@ -48,6 +48,29 @@ UNET_K6_DX_SHAPES = [((32, 32, 320, 256), 2), ((32, 64, 320, 256), 1),
                      ((64, 64, 160, 128), 2), ((64, 128, 160, 128), 1)]
 
 
+#: the Task002 3d_fullres U-Net (``task002_heart_3d``: patch 80x192x160,
+#: base 32, cap 320, pools (1, 2, 2) then (2, 2, 2)) under
+#: CSOF_CONV2D_IMPL=pallas: K6 at every z tap of its routed convs ((1, 3, 3)
+#: one tap, (3, 3, 3) three), each launch on (batch x 80 z slices) planes
+#: without bias, as ((Ci, Co, H, W), launches): level 0 (192x160: the
+#: encoder's two (1, 3, 3) convs, the decoder's two (3, 3, 3)) and level 1
+#: (96x80, 80 slices: the encoder's stride-1 conv, the decoder's two); 17 a
+#: forward, and 16 dx a training step (all but the first conv's tap)
+UNET3D_DEPTH = 80
+#: the routed 3D convs themselves, ((Ci, Co, kernel, (D, H, W)), convs of
+#: that shape a forward): each runs as kz K6 launches, or as one F.conv3d
+UNET3D_CONVS = [((1, 32, (1, 3, 3), (80, 192, 160)), 1), ((32, 32, (1, 3, 3), (80, 192, 160)), 1),
+                ((64, 32, (3, 3, 3), (80, 192, 160)), 1), ((32, 32, (3, 3, 3), (80, 192, 160)), 1),
+                ((64, 64, (3, 3, 3), (80, 96, 80)), 2), ((128, 64, (3, 3, 3), (80, 96, 80)), 1)]
+#: batches: a serving forward of 1 tile (``predictor.TILE_BATCH_3D``) x 8
+#: mirrors, a training step of 2
+UNET3D_SERVING_BATCH, UNET3D_TRAIN_BATCH = 8, 2
+UNET3D_K6_SHAPES = [((1, 32, 192, 160), 1), ((32, 32, 192, 160), 4), ((64, 32, 192, 160), 3),
+                    ((64, 64, 96, 80), 6), ((128, 64, 96, 80), 3)]
+UNET3D_K6_DX_SHAPES = [((32, 32, 192, 160), 4), ((32, 64, 192, 160), 3), ((64, 64, 96, 80), 6),
+                       ((64, 128, 96, 80), 3)]
+
+
 def bound_ms(nbytes: float, fp32_flops: float, tc_flops: float = 0.0,
              tf32_flops: float = 0.0) -> tuple[float, str]:
     """(ms, "bytes" or "operations"); tc_flops run at the bf16 tensor-core
@@ -144,6 +167,18 @@ def unet_train_work(kernel: str, itemsize: int = 4) -> tuple[float, ...]:
                                                   else UNET_K6_DX_SHAPES)])
 
 
+def unet3d_work(kernel: str, itemsize: int = 4, batch: int | None = None) -> tuple[float, ...]:
+    """(bytes, FP32 FLOPs, bf16 tensor-core FLOPs, TF32 FLOPs) of K6's z-tap
+    launches ("K6", a forward at ``batch``, by default the serving batch)
+    or their dx ("K6_dx", a training step, by default batch 2) in the
+    Task002 3d_fullres U-Net, summed over the launches."""
+    if batch is None:
+        batch = UNET3D_SERVING_BATCH if kernel == "K6" else UNET3D_TRAIN_BATCH
+    shapes = UNET3D_K6_SHAPES if kernel == "K6" else UNET3D_K6_DX_SHAPES
+    return _summed([(conv3x3_work(batch * UNET3D_DEPTH, h, w, ci, co, itemsize, bias=False), n)
+                    for (ci, co, h, w), n in shapes])
+
+
 def fp32_cores_note(work) -> tuple[float, str]:
     """The bound of float32 K6 work (its 3xTF32 FLOPs / 3) on the FP32 cores,
     where K6 ran before it moved to the tensor cores: a note beside its bound."""
@@ -199,6 +234,12 @@ def rows() -> list[tuple[str, str, float, str]]:
     for name, what in (("K6", "serving forward"), ("K6_dx", "training dx")):
         work = unet_forward_work(name, 2) if name == "K6" else unet_train_work(name, 2)
         out.append((name, f"note: bf16, the {what} launches", *bound_ms(*work)))
+    for name, what in (("K6", "the 17 z-tap launches of one Task002 3d_fullres serving "
+                               "forward (1 tile x 8 mirrors of 80x192x160)"),
+                       ("K6_dx", "the 16 z-tap dx launches of one Task002 3d_fullres training "
+                                 "step (batch 2)")):
+        out.append((name, f"f32 as 3xTF32, {what}", *bound_ms(*unet3d_work(name))))
+        out.append((name, f"note: bf16, {what}", *bound_ms(*unet3d_work(name, 2))))
     # the training shapes the first table used, kept as a note
     out.append(("K5", "note: bf16, (40, 32, 320, 256) (Task002 2d U-Net training batch, "
                 "first stage)", *bound_ms(*norm_act_work(40, 32, 320, 256, 2))))

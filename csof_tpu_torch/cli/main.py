@@ -14,7 +14,7 @@ Console scripts (``pyproject.toml``), or ``python -m csof_tpu_torch.cli.main
   csof_torch_convert_mnms           raw M&Ms (or N synthetic phantoms) -> task layout
   csof_torch_convert_decathlon_task a Decathlon task (4D multi-modality) -> task layout
   csof_torch_plan_and_preprocess    crop, analyze, plan (2D and 3D), preprocess
-  csof_torch_train         train the 2D U-Net or SegFlow from an experiment YAML
+  csof_torch_train         train the 2D or 3D U-Net or SegFlow from an experiment YAML
                            (``--validation-only``: score the fold from its checkpoint)
   csof_torch_predict       sliding-window U-Net segmentation of a folder of NIfTIs
   csof_torch_predict_flow  SegFlow over every cine of a task: Flow/Registered/Segmentation
@@ -94,8 +94,13 @@ def convert_mnms_entry(argv=None):
 
 def plan_and_preprocess_entry(argv=None):
     """Crop the task's training cases, analyze them, plan the 2D and 3D
-    U-Nets and preprocess stage 0 of each plan: ``<out>/cropped``,
-    ``plans_2D.json``, ``plans_3D.json``, ``preprocessed_{2d,3d}/``."""
+    U-Nets and preprocess each plan's fullres stage: ``<out>/cropped``,
+    ``plans_2D.json``, ``plans_3D.json``, ``preprocessed_{2d,3d}/``; 3D plans
+    with a cascade stage ({0: lowres, 1: fullres}) also preprocess stage 0
+    into ``preprocessed_3d_lowres/``. (The JAX entry preprocesses stage 0
+    into ``preprocessed_3d/``, the lowres data that training then cuts the
+    fullres patch from, F10; one-stage plans write the same files in
+    both.)"""
     from csof_tpu_torch.data.analysis import analyze_dataset
     from csof_tpu_torch.data.cropping import run_cropping
     from csof_tpu_torch.data.planning import plan_and_write
@@ -121,9 +126,12 @@ def plan_and_preprocess_entry(argv=None):
     plans = plan_and_write(props, task_dir.name, out, num_mod,
                            {int(k): v for k, v in dj["modality"].items()})
     for key, pl in plans.items():
-        pdir = out / f"preprocessed_{key}"
-        pdir.mkdir(parents=True, exist_ok=True)
-        Preprocessor(pl).run(cropped, pdir, num_workers=a.num_workers)
+        folders = {f"preprocessed_{key}": pl.fullres_stage_id}
+        if len(pl.plans_per_stage) > 1:
+            folders[f"preprocessed_{key}_lowres"] = 0
+        for name, stage in folders.items():
+            (out / name).mkdir(parents=True, exist_ok=True)
+            Preprocessor(pl, stage=stage).run(cropped, out / name, num_workers=a.num_workers)
     print(f"planned + preprocessed {len(cases)} cases -> {out}")
 
 
@@ -175,7 +183,7 @@ def train_entry(argv=None):
     p = argparse.ArgumentParser("csof_torch_train")
     p.add_argument("-c", "--config", help="experiment YAML (defaults used if absent)")
     p.add_argument("-p", "--preprocessed", required=True,
-                   help="preprocessed root (plans_2D.json, preprocessed_2d/)")
+                   help="preprocessed root (plans_{2D,3D}.json, preprocessed_{2d,3d}/)")
     p.add_argument("-t", "--task-dir", help="converted task dir (required for video models)")
     p.add_argument("-o", "--output", required=True)
     p.add_argument("-f", "--fold", type=int, default=0)

@@ -4,9 +4,10 @@ The inverse of ``csof_tpu/compat/torch_import.py``. Port modules are named
 after the flax scopes, so a leaf ``a/b/Conv_0/kernel`` fills the parameter
 ``a.b.Conv_0.weight``; the layout rule follows from the torch module type:
 
-- conv ``kernel`` (kh, kw, in, out) -> ``weight`` (out, in, kh, kw);
-- ``ConvTranspose`` ``kernel`` (k, k, in, out) -> ``weight`` (in, out, k, k),
-  mirrored in both spatial axes (``csof_tpu/models/blocks.py:611-616``);
+- conv ``kernel`` (*k, in, out) -> ``weight`` (out, in, *k), 2-D
+  (kh, kw) or 3-D (kz, ky, kx);
+- ``ConvTranspose`` ``kernel`` (*k, in, out) -> ``weight`` (in, out, *k),
+  mirrored in every spatial axis (``csof_tpu/models/blocks.py:611-616``);
 - Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
 - norm ``scale`` -> ``weight``; ``bias`` -> ``bias``.
 
@@ -20,6 +21,10 @@ scopes of the unfused layout that the port runs.
 out of the step scope into the top-level ``fuse_q_{lvl}`` of
 ``fuse_q_hoist``, on a port ``state_dict``, as the JAX package's function
 of that name moves them on flax variables.
+
+A U-Net whose conv stacks JAX wrapped in ``nn.remat`` (the default for
+3-D plans) holds them as ``CheckpointStackedConvs_k``; ``call_order_stacks``
+gives them the port's call-order names first.
 
 The map is built by walking the flax tree, so flax's auto-numbered scopes
 (``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``; the U-Net's
@@ -42,7 +47,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from csof_tpu_torch.models.blocks import ConvTranspose
+from csof_tpu_torch.models.blocks import Conv, ConvTranspose
 
 
 def _leaves(tree: Mapping, prefix: tuple[str, ...] = ()):
@@ -83,6 +88,33 @@ def unstack_bottleneck_dual(tree: Mapping) -> dict:
     return out
 
 
+def call_order_stacks(tree: Mapping) -> dict:
+    """A U-Net tree with the conv stacks flax wrapped in ``nn.remat`` renamed
+    to the port's call-order names. The JAX package's remat levels (every
+    3-D plan's U-Net) are scoped ``CheckpointStackedConvs_k``, numbered apart
+    from the plain ``StackedConvs_k``; the port's stacks are
+    ``StackedConvs_0 .. 2n`` in call order (encoder levels 0..n, then the
+    decoder's n-1..0), remat or not. JAX remats the levels below a bound,
+    which the number of remat scopes gives. A tree without remat scopes is
+    returned as it is."""
+    remat = [k for k in tree if str(k).startswith("CheckpointStackedConvs_")]
+    if not remat:
+        return dict(tree)
+    plain = [k for k in tree if str(k).startswith("StackedConvs_")]
+    n = (len(remat) + len(plain) - 1) // 2
+    levels = list(range(n + 1)) + list(range(n - 1, -1, -1))  # of the stacks in call order
+    bound = next((b for b in range(n + 2) if sum(lv < b for lv in levels) == len(remat)), None)
+    if bound is None or len(remat) + len(plain) != 2 * n + 1:
+        raise KeyError(f"conv stacks {sorted(remat + plain)} fit no U-Net's remat levels")
+    out = {k: v for k, v in tree.items() if k not in remat and k not in plain}
+    seen = {"CheckpointStackedConvs": 0, "StackedConvs": 0}
+    for i, level in enumerate(levels):
+        kind = "CheckpointStackedConvs" if level < bound else "StackedConvs"
+        out[f"StackedConvs_{i}"] = tree[f"{kind}_{seen[kind]}"]
+        seen[kind] += 1
+    return out
+
+
 def _as_array(leaf) -> np.ndarray:
     """A float32 numpy array of a leaf (numpy, or a torch tensor such as the
     msgpack reader's bfloat16 leaves)."""
@@ -93,10 +125,11 @@ def _as_array(leaf) -> np.ndarray:
 
 def _convert(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.ndarray]:
     if name == "kernel":
+        sp = tuple(range(arr.ndim - 2))  # the spatial axes of a conv kernel
         if isinstance(module, ConvTranspose):
-            return "weight", np.flip(arr, (0, 1)).transpose(2, 3, 0, 1)
-        if isinstance(module, nn.Conv2d):
-            return "weight", arr.transpose(3, 2, 0, 1)
+            return "weight", np.flip(arr, sp).transpose(len(sp), len(sp) + 1, *sp)
+        if isinstance(module, Conv):
+            return "weight", arr.transpose(len(sp) + 1, len(sp), *sp)
         if isinstance(module, nn.Linear):
             return "weight", arr.T
     elif name == "scale":
@@ -113,7 +146,8 @@ def flax_to_torch_arrays(module: nn.Module, params: Mapping) -> dict[str, np.nda
     parameter of another shape, and on a parameter that no leaf fills."""
     targets = dict(module.named_parameters())
     out: dict[str, np.ndarray] = {}
-    for path, leaf in _leaves(unstack_bottleneck_dual(_map_leaves(_as_array, params))):
+    tree = call_order_stacks(unstack_bottleneck_dual(_map_leaves(_as_array, params)))
+    for path, leaf in _leaves(tree):
         scope, name = path[:-1], path[-1]
         where = "/".join(path)
         try:

@@ -8,7 +8,7 @@ refuse unknown keys as it does. YAML goes through
 :mod:`csof_tpu_torch.utils.yaml_subset`, the port's reader and writer of
 the subset configs use, so the port needs no PyYAML.
 
-The model kinds the port trains and serves are ``segflow`` and ``unet2d``;
+The model kinds the port trains and serves are ``segflow``, ``unet2d`` and ``unet3d``;
 the RAFT and VoxelMorph configs are kept so that an ``ExperimentConfig``
 has the same fields in both packages. Every ``SegFlowModelConfig`` field is
 read: each ``corr_fuse`` mode (``fused_cm`` for serving only, as in JAX),

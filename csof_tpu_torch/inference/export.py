@@ -2,11 +2,10 @@
 grid, argmax, embed in the original field of view and write NIfTI; resample
 a flow field back the same way with its magnitudes rescaled, and write npz.
 
-``resample_to_shape``, ``save_segmentation_from_softmax`` and
-``save_flow_field`` of
+``resample_to_shape``, ``save_segmentation_from_softmax`` (with its
+region-based export, ``region_class_order``) and ``save_flow_field`` of
 ``csof_tpu/inference/export.py`` (numpy/scipy), carried here so that the port
-never imports the JAX package. The region-based export
-(``region_class_order``) is not carried.
+never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -43,11 +42,15 @@ def resample_to_shape(data: np.ndarray, new_shape, is_seg: bool = False, spacing
 
 
 def save_segmentation_from_softmax(softmax: np.ndarray, out_file: str | Path, properties: dict,
-                                   order: int = 1, force_separate_z=None,
-                                   interpolation_order_z: int = 0, save_npz: bool = False) -> None:
+                                   order: int = 1, region_class_order=None,
+                                   force_separate_z=None, interpolation_order_z: int = 0,
+                                   save_npz: bool = False) -> None:
     """softmax: (C, *size_after_resampling). Writes ``out_file`` as NIfTI in
     the original image geometry (and the resampled softmax as .npz with
-    ``save_npz``)."""
+    ``save_npz``). Without ``region_class_order`` the label is the argmax;
+    with it, channel i holds the sigmoid of a region and every voxel above
+    0.5 takes label ``region_class_order[i]``, later regions over earlier
+    ones."""
     out_file = Path(out_file)
     shape_original = tuple(int(s) for s in properties["original_size_of_raw_data"])
     shape_after_cropping = tuple(int(s) for s in properties.get("size_after_cropping",
@@ -60,7 +63,12 @@ def save_segmentation_from_softmax(softmax: np.ndarray, out_file: str | Path, pr
     if save_npz:
         np.savez_compressed(out_file.with_suffix("").with_suffix(".npz"), softmax=softmax)
 
-    seg_cropped = softmax.argmax(0)
+    if region_class_order is None:
+        seg_cropped = softmax.argmax(0)
+    else:
+        seg_cropped = np.zeros(shape_after_cropping, dtype=np.uint8)
+        for i, c in enumerate(region_class_order):
+            seg_cropped[softmax[i] > 0.5] = c
     bbox = properties.get("crop_bbox")
     if bbox is not None:
         seg = np.zeros(shape_original, dtype=np.uint8)

@@ -34,6 +34,23 @@ from csof_tpu_torch.ops.sliding_window import (
 )
 
 
+#: tiles a forward of a 3-D network serves (times the 8 mirror variants): at
+#: nnU-Net's 3d_fullres patch of 80x192x160, PredictorConfig's default of 8
+#: would hold 64 patches in one forward, whose level-0 decoder concat alone
+#: is about 40 GB in float32. One forward's peak on an H100 (float32, the
+#: Task002 3d_fullres U-Net): 25.4 GiB at 1 tile, 50.6 GiB at 2, out of
+#: memory at 4 (chip_smoke.py phase 25). Tiles are independent, so the
+#: softmax does not depend on it.
+TILE_BATCH_3D = 1
+
+
+def serving_tile_batch(patch_size) -> int:
+    """The ``tile_batch`` ``predict_case`` and ``validate_fold`` serve a
+    network of ``patch_size`` with: the default for 2-D patches,
+    ``TILE_BATCH_3D`` for 3-D ones."""
+    return PredictorConfig.tile_batch if len(patch_size) == 2 else TILE_BATCH_3D
+
+
 @dataclass
 class PredictorConfig:
     patch_size: tuple[int, ...]
@@ -149,7 +166,8 @@ def predict_case(plans: Plans, network: torch.nn.Module, data_files, out_file: s
                  device: torch.device | str = "cuda") -> dict:
     """What ``csof_predict`` does for one case: preprocess the modality files
     with the plans' fullres stage, predict (2D plans: every slice through
-    ``predict_2d_stack``; else ``predict``), and write the segmentation NIfTI
+    ``predict_2d_stack``; else ``predict``, with ``serving_tile_batch``
+    tiles a forward), and write the segmentation NIfTI
     in the original geometry to ``out_file``. ``network`` (a port
     ``GenericUNet``, weights from ``load_flax_params`` or a seed) must be on
     ``device``. Returns {"softmax", "seg", "properties"} on the preprocessed
@@ -159,7 +177,7 @@ def predict_case(plans: Plans, network: torch.nn.Module, data_files, out_file: s
     data, _, props = pre.run_case_from_files([str(f) for f in data_files], None)
     cfg = PredictorConfig(patch_size=tuple(sp.patch_size),
                           num_classes=plans.num_classes_with_background, step_size=step_size,
-                          do_mirroring=do_mirroring)
+                          do_mirroring=do_mirroring, tile_batch=serving_tile_batch(sp.patch_size))
     predictor = SlidingWindowPredictor(network, cfg, device)
     if len(sp.patch_size) == 2:
         seg, softmax = predictor.predict_2d_stack(data)

@@ -5,6 +5,7 @@ a CUDA device.
 
     python3 -m csof_tpu_torch.kernel_times [out.json] [--only=K4,K5] [--k5-plans]
         [--k4-bands]
+    python3 -m csof_tpu_torch.kernel_times [out.json] --only=K6_3D
 
 K1, K3: B = 8, radius 4, (C, H, W, stride) = (32, 128, 128, 2), (64, 64, 64,
 1), (128, 32, 32, 1); K2: the same levels at the SegFlow training batch, B =
@@ -25,7 +26,13 @@ the wrappers' public entry points are called (``corr_cuda``,
 them, for a before/after comparison in one call. ``--only`` times the named
 kernels alone. ``--k5-plans`` adds K5's device time at every U-Net plane
 under every plan the kernel can run, ``--k4-bands`` K4's device time at 88
-planes under bands of 9 to 63 rows (this tree only).
+planes under bands of 9 to 63 rows (this tree only). ``K6_3D`` (only when
+named) times K6 in the z taps of the Task002 3d_fullres U-Net
+(``bounds.UNET3D_K6_SHAPES``): the forward's 17 launches at the serving
+batch (16 x 80 planes) and the training step's 16 dx at batch 2, the
+plain version beside each, and each routed 3D conv (``bounds.UNET3D_CONVS``,
+batch 2) through the tap route (``ConvNormAct._k6_taps``: the copies, the
+K6 launches, the sum) beside one ``F.conv3d``, the library call.
 """
 
 from __future__ import annotations
@@ -245,6 +252,86 @@ def k5_plan_times(gen) -> dict:
     return res
 
 
+def k6_3d_times(gen) -> dict:
+    """K6 at the Task002 3d_fullres z taps, float32 and bf16: per shape and
+    summed over the launches (weights N(0, 2/(9 Ci)), no bias), the kernel's
+    and the plain version's CUDA-event ms and the kernel's device ms; and per
+    routed 3D conv the tap route's ms, ``F.conv3d``'s and ``conv3d_input``'s
+    at batch 2 and ``F.conv3d``'s at the serving batch."""
+    import torch.nn.functional as F
+
+    from csof_tpu_torch.bounds import (
+        UNET3D_CONVS,
+        UNET3D_DEPTH,
+        UNET3D_K6_DX_SHAPES,
+        UNET3D_K6_SHAPES,
+        UNET3D_SERVING_BATCH,
+        UNET3D_TRAIN_BATCH,
+    )
+    from csof_tpu_torch.models.blocks import ConvNormAct
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for key, shapes, batch in (("K6_3D", UNET3D_K6_SHAPES, UNET3D_SERVING_BATCH),
+                                   ("K6_dx_3D", UNET3D_K6_DX_SHAPES, UNET3D_TRAIN_BATCH)):
+            rows = []
+            for (ci, co, h, w), count in shapes:
+                n = batch * UNET3D_DEPTH
+                x = torch.randn(n, ci, h, w, generator=gen, device="cuda").to(dtype)
+                wt = torch.randn(co, ci, 3, 3, generator=gen, device="cuda") * (2 / (9 * ci)) ** .5
+                if key == "K6_3D":
+                    def call():
+                        return k6.conv3x3_cuda(x, wt)
+
+                    def plain():
+                        return k6.conv3x3_plain(x, wt)
+                else:  # x is dy, Ci' = co of the dx launch: the weight is the forward's
+                    wt = wt.transpose(0, 1).contiguous()
+
+                    def call():
+                        return k6.conv3x3_dx_cuda(x, wt)
+
+                    def plain():
+                        return k6.conv3x3_dx_plain(x, wt)
+                rows.append({"shape": [n, ci, co, h, w], "launches": count,
+                             "ms": median_ms(call), "plain_ms": median_ms(plain),
+                             "device_ms": device_ms(call)["all"]})
+                del x
+            out[f"{key}_{dname}"] = rows
+            for field in ("ms", "plain_ms", "device_ms"):
+                out[f"{key}_{dname}_{field}"] = sum(r["launches"] * r[field] for r in rows)
+        convs = []
+        for (ci, co, kernel, (d, h, w)), count in UNET3D_CONVS:
+            block = ConvNormAct(ci, co, 1, "instance", dtype, kernel_size=kernel,
+                                conv_impl="pallas").cuda()
+            pad = (kernel[0] // 2, 1, 1)
+            conv, bias = block.Conv_0, block.Conv_0.bias.to(dtype)
+            wt = conv.weight.to(dtype)
+            row = {"conv": [ci, co, list(kernel), [d, h, w]], "convs": count}
+            with torch.no_grad():
+                x = torch.randn(UNET3D_TRAIN_BATCH, ci, d, h, w, generator=gen,
+                                device="cuda").to(dtype)
+                row["route_ms"] = median_ms(lambda: block._k6_taps(x))
+                row["conv3d_ms"] = median_ms(lambda: F.conv3d(x, wt, bias, 1, pad))
+                dy = torch.randn(UNET3D_TRAIN_BATCH, co, d, h, w, generator=gen,
+                                 device="cuda").to(dtype)
+                row["dgrad3d_ms"] = median_ms(lambda: torch.nn.grad.conv3d_input(
+                    x.shape, wt, dy, 1, pad))
+                del x, dy
+                x = torch.randn(UNET3D_SERVING_BATCH, ci, d, h, w, generator=gen,
+                                device="cuda").to(dtype)
+                row["conv3d_serving_ms"] = median_ms(lambda: F.conv3d(x, wt, bias, 1, pad),
+                                                     reps=5, warmup=1)
+                del x
+            convs.append(row)
+        out[f"K6_3D_convs_{dname}"] = convs
+        for field in ("route_ms", "conv3d_ms", "dgrad3d_ms", "conv3d_serving_ms"):
+            out[f"K6_3D_convs_{dname}_{field}"] = sum(c["convs"] * c[field] for c in convs)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_times: no CUDA device", file=sys.stderr)
@@ -322,6 +409,8 @@ def main() -> int:
         out[f"K5_{dname}_per_shape_device_ms"] = per_shape_device
     if "K4" in wanted:
         out.update(k4_times(gen))
+    if "K6_3D" in wanted:
+        out.update(k6_3d_times(gen))
     if "--k5-plans" in sys.argv:
         out["K5_plans"] = k5_plan_times(gen)
     if "--k4-bands" in sys.argv:

@@ -1,4 +1,5 @@
-"""Conv/norm building blocks, NCHW (port of ``csof_tpu/models/blocks.py``).
+"""Conv/norm building blocks, NCHW and NCDHW (port of
+``csof_tpu/models/blocks.py``).
 
 Parameters are float32, as in flax, and cast to the compute dtype at use.
 Submodules are named after the flax scopes they mirror (``Conv_0``,
@@ -16,6 +17,7 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from csof_tpu_torch.ops.kernels.conv import conv3x3, conv3x3_worthwhile
 from csof_tpu_torch.ops.kernels.norm_act import instance_norm_leaky_relu
@@ -50,33 +52,42 @@ def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return torch.where(x >= 0, x, x * scalar_in(negative_slope, x.dtype))
 
 
-class Conv(nn.Conv2d):
-    """flax ``nn.Conv`` on NCHW: explicit ((top, bottom), (left, right))
-    padding, by default ((k-1)//2, k//2) per axis, the conv rounded to the
-    compute dtype and the bias added in it. Kernel and stride are an int or
-    a per-axis pair."""
+def _per_axis(v, nd: int) -> tuple[int, ...]:
+    return (v,) * nd if isinstance(v, int) else tuple(v)
+
+
+class Conv(nn.Module):
+    """flax ``nn.Conv`` on NCHW or NCDHW: explicit (lo, hi) padding per axis,
+    by default ((k-1)//2, k//2), the conv rounded to the compute dtype and
+    the bias added in it. Kernel and stride are an int (2-D) or a per-axis
+    pair or triple; the weight is torch's (Co, Ci, *kernel), he_normal over
+    the fan-in Ci * prod(kernel)."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=None,
                  bias=True, dtype=torch.float32, init="he_normal", generator=None):
-        super().__init__(in_channels, out_channels, kernel_size, stride=stride, bias=bias)
-        kh, kw = self.kernel_size
-        self.pads = padding if padding is not None else (((kh - 1) // 2, kh // 2),
-                                                         ((kw - 1) // 2, kw // 2))
+        super().__init__()
+        nd = 2 if isinstance(kernel_size, int) else len(kernel_size)
+        self.kernel_size = _per_axis(kernel_size, nd)
+        self.stride = _per_axis(stride, nd)
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.pads = (tuple(tuple(p) for p in padding) if padding is not None
+                     else tuple(((k - 1) // 2, k // 2) for k in self.kernel_size))
         self.compute_dtype = dtype
-        init_kernel_(self.weight, in_channels * kh * kw, init, generator)
-        if bias:
-            nn.init.zeros_(self.bias)
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *self.kernel_size))
+        init_kernel_(self.weight, in_channels * math.prod(self.kernel_size), init, generator)
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, x):
-        (top, bottom), (left, right) = self.pads
+        conv = F.conv2d if len(self.kernel_size) == 2 else F.conv3d
         x = x.to(self.compute_dtype)
         w = self.weight.to(self.compute_dtype)
-        if top == bottom and left == right:
-            y = F.conv2d(x, w, None, self.stride, (top, left))
+        if all(lo == hi for lo, hi in self.pads):
+            y = conv(x, w, None, self.stride, tuple(lo for lo, _ in self.pads))
         else:
-            y = F.conv2d(F.pad(x, (left, right, top, bottom)), w, None, self.stride)
+            y = conv(F.pad(x, [p for lo_hi in self.pads[::-1] for p in lo_hi]), w, None,
+                     self.stride)
         if self.bias is not None:
-            y = y + self.bias.to(self.compute_dtype).view(1, -1, 1, 1)
+            y = y + self.bias.to(self.compute_dtype).view(1, -1, *(1,) * (y.dim() - 2))
         return y
 
 
@@ -197,20 +208,29 @@ CONV_IMPLS = ("native", "pallas", "tapsum")
 class ConvNormAct(nn.Module):
     """conv -> norm -> LeakyReLU (flax ``ConvNormAct`` and
     ``_NCHWConvNormAct``: same params; per-axis kernel and stride with
-    ((k-1)//2, k//2) padding, so a stride-2 3x3 conv pads (1, 1)).
+    ((k-1)//2, k//2) padding, so a stride-2 3x3 conv pads (1, 1)). A 3-D
+    kernel makes it the 3D block (NCDHW).
 
     The JAX package's two switches, as explicit arguments (parameters are
     the same either way):
 
     - ``conv_impl="pallas"`` (``CSOF_CONV2D_IMPL=pallas``) runs the conv as
-      kernel K6 where the JAX package runs its Pallas conv: stride-1 3x3,
-      Co < 128, an input at least 32 wide; its gradient runs K6 too (dx), as
-      ``Conv3x3Function``;
+      kernel K6 where the JAX package runs its Pallas conv: a stride-1 3x3
+      kernel (in y and x for a 3-D one), Co < 128, an input at least 32
+      wide; its gradient runs K6 too (dx), as ``Conv3x3Function``. A 3-D
+      conv runs as JAX's ``Conv3dVia2D`` runs it there: one K6 launch per z
+      tap (:meth:`_k6_taps`). ``CSOF_CONV3D_IMPL=native`` (JAX's plain 3D
+      conv) is ``conv_impl="native"`` on a 3D block
+      (:func:`csof_tpu_torch.models.unet.conv_impl_from_env`);
     - ``fused_norm_act=True`` (``CSOF_FUSED_NORM=1``) runs InstanceNorm +
-      LeakyReLU as kernel K5 (GroupNorm blocks ignore it, as in JAX).
+      LeakyReLU as kernel K5 on a 2D block (GroupNorm blocks and 3D blocks
+      ignore it, as in JAX).
 
     ``conv_impl="tapsum"`` (the JAX package's tap-sum form, a TPU
-    reformulation of the same conv) runs the native conv.
+    reformulation of the same conv) runs the native conv. ``remat_norm_act``
+    recomputes the norm and activation in the backward pass from the saved
+    conv output (``torch.utils.checkpoint``; JAX's ``save_conv`` remat
+    policy).
     """
 
     def __init__(self, in_channels, features, stride=1, norm="group", dtype=torch.float32,
@@ -221,25 +241,61 @@ class ConvNormAct(nn.Module):
         self.Conv_0 = Conv(in_channels, features, kernel_size, stride, dtype=dtype,
                            generator=generator)
         self.norm_name = add_norm(self, norm, features, 0)
-        self.fused_norm_act = fused_norm_act and norm == "instance"
+        self.fused_norm_act = (fused_norm_act and norm == "instance"
+                               and len(self.Conv_0.kernel_size) == 2)
         self.conv_impl = conv_impl
+        self.remat_norm_act = False
 
     def uses_k6(self, width: int) -> bool:
-        """Whether an input ``width`` pixels wide runs the conv as K6."""
+        """Whether an input ``width`` pixels wide runs the conv as K6 (a 3D
+        block: once per z tap)."""
         conv = self.Conv_0
         return self.conv_impl == "pallas" and conv3x3_worthwhile(
-            conv.kernel_size, conv.stride, conv.in_channels, conv.out_channels, width)
+            conv.kernel_size[-2:], conv.stride[-2:], conv.in_channels, conv.out_channels, width)
 
-    def forward(self, x):
+    def _k6_taps(self, x):
+        """The 3D conv as the JAX package's ``Conv3dVia2D`` computes it under
+        the Pallas switch: z padded, then for each z tap dz the input's z
+        slices (stride sz) folded into the batch, ``(N * D_out, Ci, H, W)``
+        contiguous, through K6 without bias (a float32 output where the
+        dtype is narrower and kz > 1, JAX's ``acc_t``); the taps summed in dz
+        order, rounded to the dtype, unfolded to ``(N, Co, D_out, H, W)``,
+        and the bias added in the dtype."""
         conv = self.Conv_0
-        if self.uses_k6(x.shape[-1]):
-            x = conv3x3(x.to(conv.compute_dtype).contiguous(), conv.weight, conv.bias)
-        else:
-            x = conv(x)
+        dt = conv.compute_dtype
+        kz, sz = conv.kernel_size[0], conv.stride[0]
+        out_f32 = kz > 1 and dt != torch.float32
+        x = F.pad(x.to(dt), (0, 0, 0, 0, *conv.pads[0]))
+        n, ci, d, h, w = x.shape
+        d_out = (d - kz) // sz + 1
+        y = None
+        for dz in range(kz):
+            xs = x[:, :, dz:dz + (d_out - 1) * sz + 1:sz]
+            xs = xs.transpose(1, 2).contiguous().view(n * d_out, ci, h, w)
+            yz = conv3x3(xs, conv.weight[:, :, dz].contiguous(), None, out_f32)
+            y = yz if y is None else y + yz
+        y = y.view(n, d_out, -1, h, w).transpose(1, 2).contiguous().to(dt)
+        if conv.bias is not None:
+            y = y + conv.bias.to(dt).view(1, -1, 1, 1, 1)
+        return y
+
+    def _norm_act(self, x):
         norm = getattr(self, self.norm_name)
         if self.fused_norm_act:
             return instance_norm_leaky_relu(x.contiguous(), norm.weight, norm.bias, norm.eps)
         return leaky_relu(norm(x))
+
+    def forward(self, x):
+        conv = self.Conv_0
+        if not self.uses_k6(x.shape[-1]):
+            x = conv(x)
+        elif len(conv.kernel_size) == 3:
+            x = self._k6_taps(x)
+        else:
+            x = conv3x3(x.to(conv.compute_dtype).contiguous(), conv.weight, conv.bias)
+        if self.remat_norm_act and torch.is_grad_enabled():
+            return checkpoint(self._norm_act, x, use_reentrant=False)
+        return self._norm_act(x)
 
 
 class StackedConvs(nn.Module):
@@ -263,9 +319,9 @@ class StackedConvs(nn.Module):
 
 
 class ConvTranspose(nn.Module):
-    """flax ``ConvTranspose`` with kernel == stride (an int or a per-axis
-    pair), VALID. Torch layout (C_in, C_out, kh, kw); the flax kernel maps
-    onto it mirrored."""
+    """flax ``ConvTranspose`` with kernel == stride (an int, or one entry per
+    spatial axis: 2-D or 3-D), VALID. Torch layout (C_in, C_out, *kernel);
+    the flax kernel maps onto it mirrored in every spatial axis."""
 
     def __init__(self, in_channels, features, kernel=2, dtype=torch.float32, generator=None,
                  init="lecun_normal"):
@@ -275,12 +331,13 @@ class ConvTranspose(nn.Module):
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(in_channels, features, *kernel))
         self.bias = nn.Parameter(torch.zeros(features))
-        init_kernel_(self.weight, in_channels * kernel[0] * kernel[1], init, generator)
+        init_kernel_(self.weight, in_channels * math.prod(kernel), init, generator)
 
     def forward(self, x):
         dt = self.compute_dtype
-        y = F.conv_transpose2d(x.to(dt), self.weight.to(dt), stride=self.kernel)
-        return y + self.bias.to(dt).view(1, -1, 1, 1)
+        tconv = F.conv_transpose2d if len(self.kernel) == 2 else F.conv_transpose3d
+        y = tconv(x.to(dt), self.weight.to(dt), stride=self.kernel)
+        return y + self.bias.to(dt).view(1, -1, *(1,) * len(self.kernel))
 
 
 def upsample_linear(x: torch.Tensor, factors) -> torch.Tensor:

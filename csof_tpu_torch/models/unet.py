@@ -1,14 +1,18 @@
-"""The plans-driven 2D U-Net of nnU-Net, NCHW (port of
+"""The plans-driven U-Net of nnU-Net, 2D (NCHW) and 3D (NCDHW) (port of
 ``csof_tpu/models/unet.py`` ``GenericUNet`` / ``unet_from_plans``).
 
 Strided-conv pooling, transposed-conv upsampling, InstanceNorm + LeakyReLU
 0.01, a bias-free 1x1 deep-supervision head at every decoder level, features
-doubled per level and capped at 480. Submodules carry the flax scope names
-(``StackedConvs_0`` .. ``StackedConvs_{2 * num_pool}`` in call order:
-encoder, bottleneck, decoder; ``ConvTranspose_{u}``; ``seg_head_{level}``),
-so :func:`csof_tpu_torch.compat.flax_import.load_flax_params` fills it from a
+doubled per level and capped at 480 (2D) or 320 (3D). Submodules carry the
+flax scope names (``StackedConvs_0`` .. ``StackedConvs_{2 * num_pool}`` in
+call order: encoder, bottleneck, decoder; ``ConvTranspose_{u}``;
+``seg_head_{level}``), so
+:func:`csof_tpu_torch.compat.flax_import.load_flax_params` fills it from a
 flax tree. Deep supervision returns the heads full resolution first, in
-float32. 3D plans are not ported.
+float32. ``remat`` recomputes activations in the backward pass as JAX's
+``nn.remat`` does, with ``torch.utils.checkpoint``: policy ``full``
+recomputes a whole conv stack, ``save_conv`` only each norm + activation
+from its saved conv output; the parameters are the same either way.
 """
 
 from __future__ import annotations
@@ -18,18 +22,33 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from csof_tpu_torch.config.plans import Plans
 from csof_tpu_torch.models.blocks import Conv, ConvTranspose, StackedConvs
 
 MAX_FILTERS_2D = 480
 MAX_FILTERS_3D = 320
+REMAT_POLICIES = ("full", "save_conv")
+
+
+def conv_impl_from_env(ndim: int) -> str:
+    """The conv route the JAX package's switches select for an ``ndim``-D
+    U-Net: ``CSOF_CONV2D_IMPL`` (default ``native``); a 3D net runs its
+    Pallas conv only inside ``Conv3dVia2D``, which ``CSOF_CONV3D_IMPL``
+    other than ``2d`` (the default) turns off."""
+    if ndim == 3 and os.environ.get("CSOF_CONV3D_IMPL", "2d") != "2d":
+        return "native"
+    return os.environ.get("CSOF_CONV2D_IMPL", "native")
 
 
 class GenericUNet(nn.Module):
-    """x ``(N, in_channels, H, W)`` -> logits ``(N, num_classes, H, W)``, or
-    the tuple of deep-supervision logits. ``fused_norm_act`` and
-    ``conv_impl`` select kernels K5 and K6 (see ``ConvNormAct``)."""
+    """x ``(N, in_channels, *spatial)`` -> logits ``(N, num_classes,
+    *spatial)``, or the tuple of deep-supervision logits; 2-D or 3-D by the
+    kernels' length. ``fused_norm_act`` and ``conv_impl`` select kernels K5
+    and K6 (see ``ConvNormAct``); ``remat`` / ``remat_levels`` /
+    ``remat_policy`` as the JAX module's (levels below ``remat_levels``,
+    all if None)."""
 
     def __init__(self, num_classes: int, in_channels: int = 1, base_num_features: int = 32,
                  pool_kernel_sizes: Sequence[Sequence[int]] = ((2, 2),) * 5,
@@ -37,18 +56,24 @@ class GenericUNet(nn.Module):
                  conv_per_stage: int = 2, max_features: int | None = None,
                  norm: str = "instance", deep_supervision: bool = True,
                  dtype: torch.dtype = torch.float32, fused_norm_act: bool = False,
-                 conv_impl: str = "native", generator: torch.Generator | None = None):
+                 conv_impl: str = "native", remat: bool = False, remat_levels: int | None = None,
+                 remat_policy: str = "full", generator: torch.Generator | None = None):
         super().__init__()
-        if any(len(k) != 2 for k in (*pool_kernel_sizes, *conv_kernel_sizes)):
-            raise ValueError("only the 2D U-Net is ported: kernels and pools must be 2D")
+        ndim = len(conv_kernel_sizes[0])
+        if ndim not in (2, 3) or any(len(k) != ndim
+                                     for k in (*pool_kernel_sizes, *conv_kernel_sizes)):
+            raise ValueError("kernels and pools must all be 2-D or all 3-D")
         if len(conv_kernel_sizes) != len(pool_kernel_sizes) + 1:
             raise ValueError("conv_kernel_sizes needs one entry per level (num_pool + 1)")
+        if remat and remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} is not one of {REMAT_POLICIES}")
         self.num_pool = num_pool = len(pool_kernel_sizes)
         self.pool_kernel_sizes = [tuple(p) for p in pool_kernel_sizes]
         self.conv_kernel_sizes = [tuple(k) for k in conv_kernel_sizes]
         self.base_num_features = base_num_features
         self.max_features = max_features
         self.deep_supervision = deep_supervision
+        self.remat, self.remat_levels, self.remat_policy = remat, remat_levels, remat_policy
         stack = dict(norm=norm, dtype=dtype, generator=generator,
                      fused_norm_act=fused_norm_act, conv_impl=conv_impl)
         feats = [self.features_at(level) for level in range(num_pool + 1)]
@@ -66,70 +91,108 @@ class GenericUNet(nn.Module):
                 2 * feats[level], feats[level], conv_per_stage, self.conv_kernel_sizes[level + 1],
                 **stack))
             self.add_module(f"seg_head_{level}", Conv(
-                feats[level], num_classes, 1, bias=False, dtype=dtype, init="lecun_normal",
-                generator=generator))
+                feats[level], num_classes, (1,) * ndim, bias=False, dtype=dtype,
+                init="lecun_normal", generator=generator))
+        if remat and remat_policy == "save_conv":
+            for name, level in self._stages():
+                if self._remat_at(level):
+                    for block in getattr(self, name).children():
+                        block.remat_norm_act = True
 
     def features_at(self, level: int) -> int:
-        return min(self.base_num_features * (2 ** level), self.max_features or MAX_FILTERS_2D)
+        cap = self.max_features or (MAX_FILTERS_3D if len(self.conv_kernel_sizes[0]) == 3
+                                    else MAX_FILTERS_2D)
+        return min(self.base_num_features * (2 ** level), cap)
+
+    def _stages(self) -> list[tuple[str, int]]:
+        """(StackedConvs name, resolution level) in call order."""
+        n = self.num_pool
+        return ([(f"StackedConvs_{d}", d) for d in range(n + 1)]
+                + [(f"StackedConvs_{n + 1 + u}", n - 1 - u) for u in range(n)])
+
+    def _remat_at(self, level: int) -> bool:
+        return self.remat and (self.remat_levels is None or level < self.remat_levels)
+
+    def _stack(self, name: str, level: int, x):
+        stack = getattr(self, name)
+        if self.remat_policy == "full" and self._remat_at(level) and torch.is_grad_enabled():
+            return checkpoint(stack, x, use_reentrant=False)
+        return stack(x)
 
     def forward(self, x):
         n = self.num_pool
         skips = []
         for d in range(n):
-            x = getattr(self, f"StackedConvs_{d}")(x)
+            x = self._stack(f"StackedConvs_{d}", d, x)
             skips.append(x)
-        x = getattr(self, f"StackedConvs_{n}")(x)
+        x = self._stack(f"StackedConvs_{n}", n, x)
         seg_outputs = []
         for u in range(n):
             level = n - 1 - u
             x = getattr(self, f"ConvTranspose_{u}")(x)
             x = torch.cat([x, skips[level]], 1)
-            x = getattr(self, f"StackedConvs_{n + 1 + u}")(x)
+            x = self._stack(f"StackedConvs_{n + 1 + u}", level, x)
             seg_outputs.append(getattr(self, f"seg_head_{level}")(x).float())
         seg_outputs = seg_outputs[::-1]  # full resolution first
         return tuple(seg_outputs) if self.deep_supervision else seg_outputs[0]
 
     def kernel_launches(self, width: int, backward: bool = False) -> dict[str, int]:
         """K5 and K6 launches of one forward of an input ``width`` pixels
-        wide, counted from the modules without running them. With
-        ``backward``, also ``K6_dx``: the K6 launches of the backward, one
-        dx for each K6 conv whose input needs a gradient (every one but a
-        first conv on the data)."""
+        wide (the last axis), counted from the modules without running them:
+        a routed 2D conv launches K6 once, a routed 3D conv once per z tap.
+        With ``backward``, also ``K6_dx``: the K6 launches of the backward,
+        one dx for each K6 launch whose input needs a gradient (every one
+        but a first conv on the data); under ``remat`` with policy ``full``
+        the backward runs the remat levels' convs again, which counts in
+        ``K6``."""
         n = self.num_pool
         widths = [width]  # per level; level d's first conv has stride pool[d-1]
         for d in range(1, n + 1):
-            widths.append((widths[-1] - 1) // self.pool_kernel_sizes[d - 1][1] + 1)
-        stages = [(f"StackedConvs_{d}", widths[max(d - 1, 0)], widths[d]) for d in range(n + 1)]
-        stages += [(f"StackedConvs_{n + 1 + u}", widths[n - 1 - u], widths[n - 1 - u])
-                   for u in range(n)]
+            widths.append((widths[-1] - 1) // self.pool_kernel_sizes[d - 1][-1] + 1)
         k5 = k6 = dx = 0
-        for name, w_in, w_out in stages:
-            for i, block in enumerate(getattr(self, name).children()):
+        for name, level in self._stages():
+            stack = getattr(self, name)
+            w_in = widths[max(level - 1, 0)] if name == f"StackedConvs_{level}" else widths[level]
+            again = backward and self.remat_policy == "full" and self._remat_at(level)
+            for i, block in enumerate(stack.children()):
                 k5 += block.fused_norm_act
-                uses = block.uses_k6(w_in if i == 0 else w_out)
-                k6 += uses
-                dx += uses and (name, i) != ("StackedConvs_0", 0)
+                taps = block.uses_k6(w_in if i == 0 else widths[level]) * (
+                    block.Conv_0.kernel_size[0] if len(block.Conv_0.kernel_size) == 3 else 1)
+                k6 += taps * (2 if again else 1)
+                dx += taps * ((name, i) != ("StackedConvs_0", 0))
         return {"K5": k5, "K6": k6, **({"K6_dx": dx} if backward else {})}
 
 
 def unet_from_plans(plans: Plans, stage: int | None = None, deep_supervision: bool = True,
                     dtype: torch.dtype = torch.float32, fused_norm_act: bool | None = None,
-                    conv_impl: str | None = None,
+                    conv_impl: str | None = None, remat: bool | None = None,
+                    remat_policy: str | None = None, in_channels: int | None = None,
                     generator: torch.Generator | None = None) -> GenericUNet:
     """Build the network the plans prescribe (the fullres stage unless
     ``stage`` is given). ``fused_norm_act`` and ``conv_impl`` default to the
     JAX package's switches, read the same way: ``CSOF_FUSED_NORM=1`` and
-    ``CSOF_CONV2D_IMPL`` (default ``native``), so one setting selects the same
-    path in both packages."""
+    :func:`conv_impl_from_env`, so one setting selects the same path in both
+    packages. ``remat`` defaults to on for 3-D plans, with the policy
+    ``CSOF_REMAT_POLICY`` names (default ``save_conv`` there, else
+    ``full``), as in JAX. ``in_channels`` overrides the plans' modality
+    count (the cascade's fullres stage takes the previous stage's one-hot
+    channels beside them)."""
     sp = plans.stage(stage) if stage is not None else plans.fullres_stage()
+    ndim = len(sp.conv_kernel_sizes[0])
     if fused_norm_act is None:
         fused_norm_act = os.environ.get("CSOF_FUSED_NORM", "0") == "1"
     if conv_impl is None:
-        conv_impl = os.environ.get("CSOF_CONV2D_IMPL", "native")
+        conv_impl = conv_impl_from_env(ndim)
+    if remat is None:
+        remat = ndim == 3
+    if remat_policy is None:
+        remat_policy = os.environ.get("CSOF_REMAT_POLICY", "save_conv" if remat else "full")
     return GenericUNet(
-        num_classes=plans.num_classes_with_background, in_channels=plans.num_modalities,
+        num_classes=plans.num_classes_with_background,
+        in_channels=plans.num_modalities if in_channels is None else in_channels,
         base_num_features=plans.base_num_features,
         pool_kernel_sizes=[tuple(p) for p in sp.pool_op_kernel_sizes],
         conv_kernel_sizes=[tuple(k) for k in sp.conv_kernel_sizes],
         conv_per_stage=plans.conv_per_stage, deep_supervision=deep_supervision, dtype=dtype,
-        fused_norm_act=fused_norm_act, conv_impl=conv_impl, generator=generator)
+        fused_norm_act=fused_norm_act, conv_impl=conv_impl, remat=remat,
+        remat_policy=remat_policy, generator=generator)

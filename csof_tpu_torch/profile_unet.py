@@ -2,8 +2,8 @@
 """Profile one nnU-Net Task002 2d serving forward, or one training step, of
 the PyTorch port on a CUDA device.
 
-    python3 -m csof_tpu_torch.profile_unet [out.txt]
-    python3 -m csof_tpu_torch.profile_unet --train [out.txt]
+    python3 -m csof_tpu_torch.profile_unet [--3d] [out.txt]
+    python3 -m csof_tpu_torch.profile_unet --train [--3d] [out.txt]
 
 Serving: the forward ``predict_2d_stack`` runs, batch 32 (8 tiles x 4
 mirrors) of 320x256, float32, the full-width U-Net of ``task002_heart_2d``
@@ -18,6 +18,13 @@ time of the step's kernels in groups by kernel name (K6 forward, K6 dx,
 cuDNN dgrad and wgrad, other convolutions, elementwise, reductions, the
 optimizer) and the CUDA-event time of the step's phases (forward + loss,
 backward, clip + SGD) in one unprofiled step.
+
+``--3d``: the Task002 3d_fullres U-Net of ``task002_heart_3d`` instead
+(2 classes, base 32, cap 320, float32, remat at its default, ``save_conv``),
+with K6 in the z taps (``CSOF_CONV2D_IMPL=pallas``): a serving forward of
+``TILE_BATCH_3D`` tiles x 8 mirrors of 80x192x160 (``predict_case``'s tile
+batch for 3-D plans), or a training step at batch 2; the peak device memory
+(``max_memory_allocated``) beside the summary.
 
 Both print the device-time table (torch.profiler) and the summary line of
 ``profile_serving``: the host-clock time without the profiler (median of 10
@@ -37,12 +44,16 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from csof_tpu_torch.config.plans import task002_heart_2d
+from csof_tpu_torch.config.plans import task002_heart_2d, task002_heart_3d
+from csof_tpu_torch.inference.predictor import TILE_BATCH_3D
 from csof_tpu_torch.models.unet import unet_from_plans
 from csof_tpu_torch.profile_serving import device_summary, forward_ms, report
 
 BATCH, PATCH = 32, (320, 256)
 TRAIN_BATCH = 40
+#: 3d_fullres: serving forward batch (predict_case's tiles x 8 mirrors),
+#: training batch, patch
+BATCH_3D, TRAIN_BATCH_3D, PATCH_3D = 8 * TILE_BATCH_3D, 2, (80, 192, 160)
 #: device kernels grouped by the first name fragment they contain
 TRAIN_GROUPS = [
     ("K6 dx (conv3x3_dx_kernel)", ("conv3x3_dx_kernel",)),
@@ -90,22 +101,28 @@ def phase_ms(trainer, batch) -> dict[str, float]:
     return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
 
 
-def train_main(out_path) -> int:
+def peak_gib() -> str:
+    return f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
+
+
+def train_main(out_path, three_d: bool = False) -> int:
     from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig, OptimConfig
     from csof_tpu_torch.training.trainer import Trainer
 
     os.environ["CSOF_CONV2D_IMPL"] = "pallas"
     os.environ.pop("CSOF_FUSED_NORM", None)
-    config = ExperimentConfig(model="unet2d", optim=OptimConfig(
+    batch_n, patch = (TRAIN_BATCH_3D, PATCH_3D) if three_d else (TRAIN_BATCH, PATCH)
+    config = ExperimentConfig(model="unet3d" if three_d else "unet2d", optim=OptimConfig(
         optimizer="sgd", scheduler="poly", initial_lr=1e-2, weight_decay=3e-5),
         data=DataConfig(do_data_aug=False))
     rng = np.random.RandomState(0)
-    seg = np.zeros((TRAIN_BATCH, *PATCH), np.int32)
-    seg[:, 100:200, 80:170] = 1
-    batch = {"data": (rng.randn(TRAIN_BATCH, *PATCH, 1) + seg[..., None]).astype(np.float32),
+    seg = np.zeros((batch_n, *patch), np.int32)
+    seg[..., 100:200, 80:150 if three_d else 170] = 1
+    batch = {"data": (rng.randn(batch_n, *patch, 1) + seg[..., None]).astype(np.float32),
              "seg": seg}
+    plans = task002_heart_3d() if three_d else task002_heart_2d()
     with tempfile.TemporaryDirectory() as tmp:
-        trainer = Trainer(config, tmp, plans=task002_heart_2d(), device="cuda").initialize()
+        trainer = Trainer(config, tmp, plans=plans, device="cuda").initialize()
         for _ in range(3):
             trainer.run_iteration(batch)
         times = []
@@ -122,8 +139,9 @@ def train_main(out_path) -> int:
     wall = statistics.median(times)
     summary, table = device_summary(prof, wall, "train step")
     groups = grouped_device_time(prof)
-    lines = [f"{summary}; {TRAIN_BATCH / wall * 1e3:.2f} train slices/s unprofiled "
-             f"({torch.cuda.get_device_name(0)})",
+    rate = (f"{batch_n / wall * 1e3:.3f} train patches/s" if three_d
+            else f"{TRAIN_BATCH / wall * 1e3:.2f} train slices/s")
+    lines = [f"{summary}; {rate} unprofiled; {peak_gib()} ({torch.cuda.get_device_name(0)})",
              "device time by kernel group (ms, kernels): "
              + "; ".join(f"{name} {ms:.3f} ({n})" for name, ms, n in groups),
              "CUDA-event phases of one unprofiled step (ms): "
@@ -134,19 +152,20 @@ def train_main(out_path) -> int:
 
 def main() -> int:
     args = sys.argv[1:]
-    train = "--train" in args
-    args = [a for a in args if a != "--train"]
+    train, three_d = "--train" in args, "--3d" in args
+    args = [a for a in args if a not in ("--train", "--3d")]
     out_path = args[0] if args else None
     if not torch.cuda.is_available():
         print("profile_unet: no CUDA device", file=sys.stderr)
         return 1
     torch.backends.cudnn.allow_tf32 = False
     if train:
-        return train_main(out_path)
-    net = unet_from_plans(task002_heart_2d(), fused_norm_act=True, conv_impl="pallas",
+        return train_main(out_path, three_d)
+    plans, shape = ((task002_heart_3d(), (BATCH_3D, 1, *PATCH_3D)) if three_d
+                    else (task002_heart_2d(), (BATCH, 1, *PATCH)))
+    net = unet_from_plans(plans, fused_norm_act=True, conv_impl="pallas",
                           generator=torch.Generator().manual_seed(0)).cuda().eval()
-    x = torch.from_numpy(np.random.RandomState(0).randn(BATCH, 1, *PATCH)
-                         .astype(np.float32)).cuda()
+    x = torch.from_numpy(np.random.RandomState(0).randn(*shape).astype(np.float32)).cuda()
     with torch.inference_mode():
         for _ in range(3):
             net(x)
@@ -155,7 +174,7 @@ def main() -> int:
             net(x)
             torch.cuda.synchronize()
     summary, table = device_summary(prof, wall, "forward")
-    report(f"{summary} ({torch.cuda.get_device_name(0)})", table, out_path)
+    report(f"{summary}; {peak_gib()} ({torch.cuda.get_device_name(0)})", table, out_path)
     return 0
 
 

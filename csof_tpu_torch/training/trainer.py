@@ -1,19 +1,20 @@
 """Training: the losses, the train step and the epoch loop (port of
-``csof_tpu/training/trainer.py`` for ``model="segflow"`` and
-``model="unet2d"``).
+``csof_tpu/training/trainer.py`` for ``model="segflow"``, ``"unet2d"`` and
+``"unet3d"``).
 
 A SegFlow step is: batch to the device, the batched SegFlow forward, the
 loss of each video (means over the batch of per-video losses, as the JAX
 package's ``vmap`` gives), backward (K1 forward, K2 backward in every skip
 fuse on CUDA tensors), clip by global norm, AdamW under the warm-up cosine
-schedule. A U-Net step is nnU-Net's 2D recipe: the channels-last patch batch
-moved to NCHW on the device, the deep-supervision Dice + CE over the heads,
+schedule. A U-Net step is nnU-Net's recipe: the channels-last patch batch
+moved to NCHW (NCDHW for ``unet3d``) on the device, the deep-supervision Dice + CE over the heads,
 backward (K6 forward and dx where ``CSOF_CONV2D_IMPL=pallas`` routes a conv
 to it), clip 12, SGD with Nesterov momentum under the poly schedule; the
 validation batches' Dice statistics give the online foreground Dice. With
 ``config.data.do_data_aug`` a train step first augments its batch on the
 device (:mod:`csof_tpu_torch.data.augment`: ``augment_batch_2d`` for the
-U-Net, ``augment_video`` for SegFlow, whose unlabelled frames stay -1), from
+2D U-Net, ``augment_video`` for SegFlow, whose unlabelled frames stay -1;
+the 3D U-Net is not augmented, as in JAX), from
 a generator of the seed and the step, as the JAX step does; validation
 batches are not augmented. The epoch loop keeps the JAX trainer's
 best-criterion EMA, patience and checkpoint cadence; ``load_checkpoint``
@@ -42,35 +43,38 @@ from csof_tpu_torch.compat.flax_import import load_flax_train_state
 from csof_tpu_torch.config.experiment import ExperimentConfig
 from csof_tpu_torch.data.augment import augment_batch_2d, augment_video, step_generator
 from csof_tpu_torch.models.segflow import SegFlow
-from csof_tpu_torch.models.unet import GenericUNet, unet_from_plans
+from csof_tpu_torch.models.unet import GenericUNet, conv_impl_from_env, unet_from_plans
 from csof_tpu_torch.ops import losses as L
 from csof_tpu_torch.ops.warp import warp_image_cm
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.schedules import build_optimizer
 
 TRAINED_CORR_FUSE = ("concat", "split", "project", "mean1", "concat_cm")
-TRAINED_KINDS = ("segflow", "unet2d")
+TRAINED_KINDS = ("segflow", "unet2d", "unet3d")
+UNET_KINDS = ("unet2d", "unet3d")
 
 
 def build_model(config: ExperimentConfig, num_classes: int | None = None,
                 generator: torch.Generator | None = None, plans=None) -> torch.nn.Module:
-    """The model of ``config``: SegFlow, or the 2D U-Net of ``plans`` (without
-    plans the JAX package's default: base 16, 4 (2, 2) pools). Both models
-    read their kernel switches from the environment as the JAX package
-    reads them (``CSOF_CONV2D_IMPL``, ``CSOF_FUSED_NORM``)."""
+    """The model of ``config``: SegFlow, or the U-Net of ``plans`` (without
+    plans the JAX package's default: base 16, 4 pools of 2 and kernels of 3
+    in every axis, 2-D for ``unet2d`` and 3-D for ``unet3d``, no remat). The
+    models read their kernel switches from the environment as the JAX
+    package reads them (``CSOF_CONV2D_IMPL``, ``CSOF_CONV3D_IMPL``,
+    ``CSOF_FUSED_NORM``, and for plans ``CSOF_REMAT_POLICY``)."""
     kind = config.model
     if kind == "segflow":
         return SegFlow(config.segflow, num_classes or 4, generator=generator)
-    if kind == "unet2d":
+    if kind in UNET_KINDS:
         if plans is not None:
             return unet_from_plans(plans, deep_supervision=config.deep_supervision,
                                    generator=generator)
+        nd = 2 if kind == "unet2d" else 3
         return GenericUNet(num_classes=num_classes or 4, base_num_features=16,
-                           pool_kernel_sizes=((2, 2),) * 4, conv_kernel_sizes=((3, 3),) * 5,
+                           pool_kernel_sizes=((2,) * nd,) * 4, conv_kernel_sizes=((3,) * nd,) * 5,
                            deep_supervision=config.deep_supervision,
                            fused_norm_act=os.environ.get("CSOF_FUSED_NORM", "0") == "1",
-                           conv_impl=os.environ.get("CSOF_CONV2D_IMPL", "native"),
-                           generator=generator)
+                           conv_impl=conv_impl_from_env(nd), generator=generator)
     raise NotImplementedError(f"model {kind!r} is not ported (ported: {TRAINED_KINDS})")
 
 
@@ -84,7 +88,9 @@ def _check_trainable(config: ExperimentConfig, for_training: bool = True) -> Non
         raise NotImplementedError(
             f"training with corr_fuse={config.segflow.corr_fuse!r} is not ported: kernel K3 "
             f"has no backward, in the JAX package either (trained: {TRAINED_CORR_FUSE})")
-    if os.environ.get("CSOF_FUSED_NORM", "0") == "1":
+    # K5 runs on 2D blocks only (InstanceNorm on a 4-D tensor in JAX): a 3D
+    # U-Net trains with the switch set, as it does in the JAX package
+    if config.model != "unet3d" and os.environ.get("CSOF_FUSED_NORM", "0") == "1":
         raise NotImplementedError(
             "CSOF_FUSED_NORM=1 (fused_norm_act) runs kernel K5, which has no backward: the "
             "JAX package uses it for inference only. Unset it to train.")
@@ -195,7 +201,7 @@ def make_segflow_loss(config: ExperimentConfig):
 
 def make_loss_fn(config: ExperimentConfig):
     """The loss of ``config.model``: loss_fn(model, batch) -> (loss, aux)."""
-    if config.model == "unet2d":
+    if config.model in UNET_KINDS:
         return make_seg_loss(config)
     if config.model == "segflow":
         return make_segflow_loss(config)
@@ -283,8 +289,8 @@ class Trainer:
             if v is None:
                 continue
             t = torch.as_tensor(v).to(self.device, non_blocking=True)
-            if k == "data" and self.config.model == "unet2d":
-                t = t.movedim(-1, 1).contiguous()  # channels-last patches -> NCHW
+            if k == "data" and self.config.model in UNET_KINDS:
+                t = t.movedim(-1, 1).contiguous()  # channels-last patches -> NC(D)HW
             out[k] = t
         return out
 
@@ -306,7 +312,8 @@ class Trainer:
             raise RuntimeError("initialize() first")
         t0 = time.perf_counter()
         batch = self._to_device(batch)
-        if train and self.config.data.do_data_aug:
+        # the JAX step augments only the 2D U-Net's and SegFlow's batches
+        if train and self.config.data.do_data_aug and self.config.model != "unet3d":
             batch = self.augment(batch)
         if train:
             loss, aux = self.loss_fn(self.model, batch)

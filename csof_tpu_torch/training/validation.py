@@ -16,7 +16,11 @@ from csof_tpu_torch.config.plans import Plans
 from csof_tpu_torch.data.dataset import do_split, load_case, load_dataset
 from csof_tpu_torch.evaluation.evaluator import evaluate_case
 from csof_tpu_torch.inference.export import save_segmentation_from_softmax
-from csof_tpu_torch.inference.predictor import PredictorConfig, SlidingWindowPredictor
+from csof_tpu_torch.inference.predictor import (
+    PredictorConfig,
+    SlidingWindowPredictor,
+    serving_tile_batch,
+)
 
 
 def validate_fold(trainer, plans: Plans, preprocessed_dir: str | Path, fold: int,
@@ -33,7 +37,8 @@ def validate_fold(trainer, plans: Plans, preprocessed_dir: str | Path, fold: int
     predictor = SlidingWindowPredictor(
         net, PredictorConfig(patch_size=tuple(sp.patch_size),
                              num_classes=plans.num_classes_with_background,
-                             step_size=step_size, do_mirroring=do_mirroring),
+                             step_size=step_size, do_mirroring=do_mirroring,
+                             tile_batch=serving_tile_batch(sp.patch_size)),
         device=trainer.device)
 
     all_scores = []

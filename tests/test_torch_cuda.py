@@ -877,3 +877,117 @@ def test_a_worker_pool_after_cuda_use_equals_one_worker(cuda, tmp_path):
                 assert all(za.read(n) == zb.read(n) for n in za.namelist()), rel
         else:
             assert (a / rel).read_bytes() == (b / rel).read_bytes(), rel
+
+
+#: K6's z-tap route at the Task002 3d_fullres levels 0 and 1 (192x160 and
+#: 96x80 planes; the depth cut): (Ci, Co, kernel, (D, H, W))
+UNET3D_ROUTES = [(1, 32, (1, 3, 3), (4, 192, 160)), (64, 32, (3, 3, 3), (4, 192, 160)),
+                 (64, 64, (3, 3, 3), (4, 96, 80)), (128, 64, (3, 3, 3), (6, 96, 80))]
+#: the route against its plain tap sum (the same roundings: K6's float32 sum
+#: in another order; bf16 rounds once) and against one F.conv3d (TF32 off;
+#: bf16: cuDNN rounds its own sum and the bias add once more)
+UNET3D_TOL = {torch.float32: ((1e-4, 1e-4), (1e-4, 1e-4)),
+              torch.bfloat16: ((2e-2, 1e-2), (5e-2, 2e-2))}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ci,co,kernel,dhw", UNET3D_ROUTES)
+def test_unet3d_k6_route_matches_its_plain_tap_sum_and_conv3d(cuda, ci, co, kernel, dhw, dtype):
+    """A 3D ConvNormAct under pallas: its conv as one K6 launch a z tap on
+    the card, against the same route on the CPU (the plain version in every
+    tap) and against the block's F.conv3d on the card."""
+    from csof_tpu_torch.models.blocks import ConvNormAct
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    block = ConvNormAct(ci, co, 1, "instance", dtype, generator=torch.Generator().manual_seed(0),
+                        kernel_size=kernel, conv_impl="pallas")
+    with torch.no_grad():
+        block.Conv_0.bias.normal_(0.0, 0.1, generator=torch.Generator().manual_seed(2))
+    x = torch.randn(2, ci, *dhw, generator=torch.Generator().manual_seed(1)).to(dtype)
+    with torch.no_grad():
+        ref = block._k6_taps(x)
+        block = block.to(cuda)
+        before = k6.launches
+        got = block._k6_taps(x.to(cuda))
+        torch.cuda.synchronize()
+        launched = k6.launches - before
+        lib = block.Conv_0(x.to(cuda))
+    assert launched == kernel[0] and got.dtype == dtype and got.is_contiguous()
+    tol_plain, tol_lib = UNET3D_TOL[dtype]
+    _close(got.cpu(), ref, tol_plain)
+    _close(got, lib, tol_lib)
+
+
+@pytest.mark.cuda
+def test_unet3d_training_step_launches_match_the_device_events(cuda):
+    """The Task002 3d_fullres U-Net at full width on a cut patch (1 x
+    16x96x96: level 1 is 48 wide, so K6 routes at levels 0 and 1), one
+    training step under pallas: the wrappers' counts equal kernel_launches
+    (17 K6, 16 dx), and so do the conv3x3_kernel and conv3x3_dx_kernel
+    events of a traced step."""
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
+    from csof_tpu_torch.config.plans import task002_heart_3d
+    from csof_tpu_torch.kernel_times import device_events
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.training.trainer import make_seg_loss
+
+    net = unet_from_plans(task002_heart_3d(), conv_impl="pallas",
+                          generator=torch.Generator().manual_seed(0)).to(cuda)
+    per = net.kernel_launches(96, backward=True)
+    assert per == {"K5": 0, "K6": 17, "K6_dx": 16}
+    rng = np.random.RandomState(0)
+    seg = np.zeros((1, 16, 96, 96), np.int64)
+    seg[:, 4:12, 30:60, 20:70] = 1
+    batch = {"data": torch.from_numpy((rng.randn(1, 1, 16, 96, 96) + seg[:, None])
+                                      .astype(np.float32)).to(cuda),
+             "seg": torch.from_numpy(seg).to(cuda)}
+    loss_fn = make_seg_loss(ExperimentConfig(model="unet3d", data=DataConfig(do_data_aug=False)))
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(net, batch)
+        loss.backward()
+
+    before = (k6.launches, k6.bwd_launches)
+    step()
+    torch.cuda.synchronize()
+    assert (k6.launches - before[0], k6.bwd_launches - before[1]) == (17, 16)
+    events, _ = device_events(step, reps=1)
+    fwd = sum("conv3x3_kernel" in e.name for e in events)
+    dx = sum("conv3x3_dx_kernel" in e.name for e in events)
+    assert (fwd, dx) == (per["K6"], per["K6_dx"]), (fwd, dx)
+
+
+@pytest.mark.cuda
+def test_unet3d_predict_case_fits_at_its_tile_batch(cuda, tmp_path):
+    """predict_case of the Task002 3d_fullres U-Net (mirror TTA, pallas) on
+    a case of 96 x 200 x 176 at the plans' spacing: TILE_BATCH_3D tiles x 8
+    mirrors a forward, 17 K6 a forward, a finite softmax, and a peak device
+    memory below half the card's."""
+    from csof_tpu_torch.config.plans import task002_heart_3d
+    from csof_tpu_torch.inference.predictor import TILE_BATCH_3D, predict_case
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.sliding_window import bucket_image_shape, step_grid
+    from csof_tpu_torch.utils.nifti import save_nifti
+
+    plans = task002_heart_3d()
+    patch = plans.fullres_stage().patch_size
+    shape = (96, 200, 176)
+    img = (20 + 30 * np.random.RandomState(1).rand(*shape)).astype(np.float32)
+    save_nifti(img, tmp_path / "la_000_0000.nii.gz", spacing_xyz=(1.25, 1.25, 1.37))
+    net = unet_from_plans(plans, conv_impl="pallas",
+                          generator=torch.Generator().manual_seed(0)).to(cuda).eval()
+    tiles = len(step_grid(patch, bucket_image_shape(shape, patch, 0.5, 32), 0.5))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = k6.launches
+    res = predict_case(plans, net, [tmp_path / "la_000_0000.nii.gz"], tmp_path / "la_000.nii.gz",
+                       device="cuda")
+    peak = torch.cuda.max_memory_allocated()
+    assert k6.launches - before == 17 * -(-tiles // TILE_BATCH_3D)
+    assert res["softmax"].shape == (2, *shape) and np.isfinite(res["softmax"]).all()
+    total = torch.cuda.get_device_properties(0).total_memory
+    assert peak < total / 2, f"peak {peak / 2**30:.2f} GiB of {total / 2**30:.2f}"

@@ -336,15 +336,20 @@ print(len(names), bad)
     assert int(count) > 60 and bad.strip() == "[]", res.stdout
 
 
-def test_f10_cascade_plans_preprocess_only_their_lowres_stage_in_both_packages(tmp_path,
-                                                                              monkeypatch):
-    """F10 (open, both packages): with a 3D cascade ({0: lowres, 1: fullres})
-    plan_and_preprocess preprocesses stage 0 only, so preprocessed_3d holds
-    the low-resolution data that the fullres stage's patch is then cut from.
-    Two isotropic phantoms and a small 3D budget make the cascade; the port
-    writes what the JAX package writes."""
+def test_f10_cascade_plans_preprocess_each_stage_into_its_own_folder(tmp_path, monkeypatch):
+    """F10, repaired in the port: with a 3D cascade ({0: lowres, 1: fullres})
+    the JAX package's plan_and_preprocess preprocesses stage 0 only, into
+    preprocessed_3d, the low-resolution data that the fullres stage's patch
+    is then cut from. The port writes the fullres stage there (equal to a
+    JAX ``Preprocessor`` of stage 1) and stage 0 into preprocessed_3d_lowres
+    (equal to the JAX package's preprocessed_3d); every other file is the
+    JAX package's. Two isotropic phantoms and a small 3D budget make the
+    cascade."""
+    import shutil
+
     import csof_tpu.data.planning as jp
     import csof_tpu_torch.data.planning as tp
+    from csof_tpu.data.preprocessing import Preprocessor as JPreprocessor
 
     task = tmp_path / "task"
     (task / "imagesTr").mkdir(parents=True)
@@ -362,13 +367,21 @@ def test_f10_cascade_plans_preprocess_only_their_lowres_stage_in_both_packages(t
             "__init__": lambda self, props, task, _b=mod.ExperimentPlanner.__init__:
                 _b(self, props, task, budget_3d=1e6)})
         monkeypatch.setattr(mod, "ExperimentPlanner", small)
-    jcli.plan_and_preprocess_entry(["-t", str(task), "-o", str(tmp_path / "j"),
-                                    "--num-workers", "1"])
-    tcli.plan_and_preprocess_entry(["-t", str(task), "-o", str(tmp_path / "t"),
-                                    "--num-workers", "1"])
-    assert assert_trees_equal(tmp_path / "t", tmp_path / "j") == 3 * 2 * 2 + 1 + 2
-    plans = TPlans.from_json(tmp_path / "t" / "plans_3D.json")
+    j, t = tmp_path / "j", tmp_path / "t"
+    jcli.plan_and_preprocess_entry(["-t", str(task), "-o", str(j), "--num-workers", "1"])
+    tcli.plan_and_preprocess_entry(["-t", str(task), "-o", str(t), "--num-workers", "1"])
+    plans = TPlans.from_json(t / "plans_3D.json")
     assert sorted(plans.plans_per_stage) == [0, 1]
-    props = pickle.loads((tmp_path / "t" / "preprocessed_3d" / "c0.pkl").read_bytes())
+    assert assert_trees_equal(t / "preprocessed_3d_lowres", j / "preprocessed_3d") == 2 * 2
+    JPreprocessor(JPlans.from_json(j / "plans_3D.json"), stage=1).run(
+        j / "cropped", tmp_path / "j_fullres", num_workers=1)
+    assert assert_trees_equal(t / "preprocessed_3d", tmp_path / "j_fullres") == 2 * 2
     low, full = (plans.plans_per_stage[s].current_spacing for s in (0, 1))
-    assert low != full and props["spacing_after_resampling"] == low
+    for folder, spacing in (("preprocessed_3d", full), ("preprocessed_3d_lowres", low)):
+        props = pickle.loads((t / folder / "c0.pkl").read_bytes())
+        assert props["spacing_after_resampling"] == spacing
+    assert low != full
+    for root in (t, j):  # the rest of the two roots: cropped, 2D, plans, properties
+        shutil.rmtree(root / "preprocessed_3d")
+    shutil.rmtree(t / "preprocessed_3d_lowres")
+    assert assert_trees_equal(t, j) == 2 * 2 * 2 + 1 + 2

@@ -69,8 +69,9 @@ def _batch(model: str, seed: int) -> dict:
         seg[:, 1] = -1  # an unlabelled frame
         return {"video": rng.rand(1, 3, 16, 16, 1).astype(np.float32), "seg": seg,
                 "labeled_mask": np.array([[1.0, 0.0, 1.0]], np.float32)}
-    seg = rng.randint(0, 3, (2, 32, 32)).astype(np.int32)
-    return {"data": (rng.randn(2, 32, 32, 1) + seg[..., None]).astype(np.float32), "seg": seg}
+    spatial = (8, 16, 16) if model == "unet3d" else (32, 32)
+    seg = rng.randint(0, 3, (2, *spatial)).astype(np.int32)
+    return {"data": (rng.randn(2, *spatial, 1) + seg[..., None]).astype(np.float32), "seg": seg}
 
 
 def _filled_params(model, example):
@@ -88,13 +89,26 @@ def _filled_params(model, example):
     return jax.tree_util.tree_map_with_path(fill, shapes)
 
 
+def _plans3d():
+    """Small 3D plans (remat on with save_conv, as every 3D plan's U-Net in
+    JAX): base 8, pools (1, 2, 2), (2, 2, 2), 8x16x16 patches, 3 classes."""
+    plans = _plans(jplans, patch=(16, 16))
+    stage = plans.plans_per_stage[0]
+    stage.patch_size, stage.current_spacing = (8, 16, 16), (2.0, 1.25, 1.25)
+    stage.original_spacing = stage.current_spacing
+    stage.pool_op_kernel_sizes = [[1, 2, 2], [2, 2, 2]]
+    stage.conv_kernel_sizes = [[1, 3, 3], [3, 3, 3], [3, 3, 3]]
+    return plans
+
+
 def _jax_folder(tmp_path, model: str, optim: str):
     """A JAX results folder after one train step: sidecars and the msgpack
     triad's final checkpoint. Returns the JAX trainer."""
     config = _config(model, optim)
     cls = JaxSegFlow if model == "segflow" else JaxUNet
     # the U-Net of small 2D plans: base 8, two pools, 32^2 patches, 3 classes
-    plans = None if model == "segflow" else _plans(jplans, patch=(32, 32))
+    plans = (None if model == "segflow" else _plans3d() if model == "unet3d"
+             else _plans(jplans, patch=(32, 32)))
     example = _batch(model, 0)
     first = example["video"][0] if model == "segflow" else example["data"][:1]
     with pytest.MonkeyPatch.context() as mp:
@@ -133,7 +147,7 @@ def _jax_forward(tr, model: str, batch: dict):
         out = fwd(tr.state.params, jnp.asarray(batch["video"]))
         return {k: np.asarray(out[k]) for k in ("seg_logits", "cum_flow", "registered")}
     out = fwd(tr.state.params, jnp.asarray(batch["data"]))
-    return {"logits": np.asarray(out[0]).transpose(0, 3, 1, 2)}
+    return {"logits": np.moveaxis(np.asarray(out[0]), -1, 1)}
 
 
 def _port_forward(trainer, model: str, batch: dict):
@@ -150,9 +164,10 @@ def test_a_jax_folder_restores_and_trains_on_in_the_port(optim, tmp_path):
     check_restore("segflow", optim, tmp_path)
 
 
-def check_restore(model: str, optim: str, tmp_path) -> None:
+def check_restore(model: str, optim: str, tmp_path, grad_tol: float = GRAD_TOL) -> None:
     """The checks of the module docstring for one model and optimizer (the
-    U-Net's cases are in test_torch_restore_unet.py)."""
+    U-Net's cases are in test_torch_restore_unet.py); ``grad_tol`` bounds
+    the whole step's gradients."""
     tr = _jax_folder(tmp_path, model, optim)
     port = restore_trainer(tmp_path, device="cpu", for_training=True)
     assert port.checkpoint_format == "msgpack" and port.optimizer.count == 1
@@ -183,7 +198,7 @@ def check_restore(model: str, optim: str, tmp_path) -> None:
     for name, p in port.model.named_parameters():
         ref = want[name]
         err = np.abs(p.grad.numpy() - ref).max()
-        assert err <= GRAD_TOL * np.abs(ref).max() + 1e-6, f"gradient of {name}: error {err:.2e}"
+        assert err <= grad_tol * np.abs(ref).max() + 1e-6, f"gradient of {name}: error {err:.2e}"
     if optim == "sgd":
         _assert_params(port.model, tr.state.params)
 

@@ -507,7 +507,7 @@ def test_trainer_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         trainer.Trainer(cfg, tmp_path, device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.build_model(dataclasses.replace(_torch_config(), model="unet3d"))
+        trainer.build_model(dataclasses.replace(_torch_config(), model="raft"))
     for seg_kw in (dict(corr_fuse="split", fuse_q_hoist=True, remat=True),
                    dict(corr_fuse="project", dec_upsample="linear"),
                    dict(corr_fuse="mean1", deep_supervision=True)):
