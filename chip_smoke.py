@@ -3,7 +3,8 @@
 nnU-Net 2D serving and training paths once on one NVIDIA GPU, then SegFlow
 under the JAX package's kernel switches and in its other configurations,
 then the port's command line, its strain analysis and its data plane, then
-the nnU-Net 3d_fullres U-Net's training and serving and the cascade.
+the nnU-Net 3d_fullres U-Net's training and serving and the cascade, then
+the flow models: RAFT, VoxelMorph and FinalFlow.
 
     python3 chip_smoke.py
 
@@ -177,6 +178,34 @@ Phases, each printed on its own line:
    predict_next_stage with the lowres U-Net on the card and on the CPU
    (equal files, or differing only at ties of the softmax); one forward of
    the fullres U-Net on concat_prev_stage's input.
+29. raft: RAFT at RaftModelConfig() (feature 256, hidden and context 128,
+   4 levels, radius 4, 12 iterations, bf16, random weights) serving 8 ED->ES
+   pairs at 224^2 (the JAX package's sweep geometry): CUDA-event ms a
+   forward, pairs/s, the device busy share (traced in a fresh process, as
+   phase 30's and 31's), peak memory, no kernel of the port launched; one
+   pair float32 card vs CPU; scan_unroll=-1 (fault F4)
+   runs and gives scan_unroll=1's flows; csof_torch_train raft on phase 22's
+   cines (default config, 3 steps + 1 validation batch at 4 x 6 x 128^2);
+   one supervised Trainer step with flow_gt from a known smooth warp; the
+   float32 loss and every gradient of both routes card vs CPU (1 pair of
+   64^2; phase 8's tolerances, the CPU replaying the card's ReLU signs; a
+   leaf whose float64 gradient is zero held to phase 8's tolerance of the
+   model's largest entry).
+30. voxelmorph: VoxelMorph at VoxelMorphModelConfig() (diffeomorphic, 7
+   steps, bf16): register_sequence over a 17-frame cine at 192^2 (16 pairs)
+   with its ms, pairs/s, busy share and peak memory; the flows' Jacobian
+   determinants card vs CPU; one 3-D pair of 10 x 224 x 256 (z padded to
+   16); csof_torch_train voxelmorph as phase 29 trains RAFT; the float32
+   loss and gradients card vs CPU as phase 29's.
+31. finalflow: FinalFlow at FinalFlowConfig() over 8 cines x 12 frames x
+   128^2 bf16: each bottleneck (gru, 3d, transformer) and gru with
+   diffeomorphic=True, with CSOF_CONV2D_IMPL unset and =pallas (56 K6 a
+   forward, counted by the wrapper and as device events in a fresh process,
+   equal to FinalFlow.kernel_launches), norm="instance" with CSOF_FUSED_NORM=1 (63
+   K5); K6 and K5 against their plain versions at every distinct shape these
+   forwards gave them, float32 and bf16, with one forward's kernel, plain,
+   library and bound ms; each bottleneck's float32 forward under pallas card
+   vs CPU at 1 x 6 x 128^2.
 
 Then one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -237,6 +266,9 @@ MODEL_TOL = (2e-3, 2e-3)  # GPU vs CPU float32 forward: reduction order only
 #: max|leaf| + 1e-6 per leaf): reduction order only, as in the CPU tests
 #: against JAX
 LOSS_RTOL, GRAD_TOL = 1e-4, 2e-3
+#: a leaf whose float64 gradient is at most this share of the model's
+#: largest entry has an exact gradient of zero (loss_grad_parity)
+ZERO_GRAD = 1e-10
 T_FRAMES, DEPTH, CINE_HW = 12, 8, (160, 176)
 #: K5 and K6 (atol, rtol): the same float32 sums in another order; bf16
 #: rounds once (K5: one bf16 ulp after a normalization by 1/std; K6: the
@@ -347,6 +379,20 @@ U3_TILE_BATCHES = (1, 2, 4)
 #: stall the planner's patch shrinking, so its 3D plans get no lowres stage),
 #: the 3D budget cut to 1e6 as the F10 test cuts it
 CASCADE_CASES, CASCADE_SHAPE, CASCADE_BUDGET = 4, (64, 96, 96), 1e6
+#: phase 29, RAFT at the JAX package's serving sweep geometry
+#: (tools/bench_raft_sweep.py b8_*: 8 ED->ES pairs at 224^2); the float32
+#: loss and gradients card vs CPU on 1 pair of 64^2 (8 x 8 at 1/8, 4 levels)
+RAFT_PAIRS, RAFT_HW, RAFT_REPS, RAFT_PARITY_HW = 8, 224, 5, 64
+#: phases 29-30: csof_torch_train of RAFT and VoxelMorph on phase 22's cines,
+#: 1 epoch x 3 steps + 1 validation batch at TRAIN_BATCH x TRAIN_T x TRAIN_HW^2
+FLOW_TRAIN_STEPS, FLOW_TRAIN_VAL = 3, 1
+#: phase 30, VoxelMorph: register_sequence over a 17-frame cine at 192^2 (16
+#: pairs, tools/bench_all.py:104's geometry) and one 3-D pair at phase 23's
+#: ACDC geometry (10 x 224 x 256)
+VXM_T, VXM_HW, VXM_3D = 17, 192, (10, 224, 256)
+#: phase 31, FinalFlow at bench.py:98's geometry (8 cines x 12 frames x
+#: 128^2); its float32 GPU-vs-CPU forwards at 1 cine x 6 frames
+FF_B, FF_T, FF_HW, FF_PARITY_T = 8, 12, 128, 6
 
 
 class PhaseError(RuntimeError):
@@ -1555,15 +1601,16 @@ def conv_shapes(record: dict):
 
 
 @contextlib.contextmanager
-def norm_act_shapes(record: set):
-    """Record the shape of each K5 call a model makes, by wrapping the
-    function ConvNormAct calls (the wrapper still counts its launches)."""
+def norm_act_shapes(record: dict):
+    """Count the K5 calls a model makes by shape, by wrapping the function
+    ConvNormAct calls (the wrapper still counts its launches)."""
     from csof_tpu_torch.models import blocks
 
     orig = blocks.instance_norm_leaky_relu
 
     def rec(x, *args, **kw):
-        record.add(tuple(x.shape))
+        key = tuple(x.shape)
+        record[key] = record.get(key, 0) + 1
         return orig(x, *args, **kw)
 
     blocks.instance_norm_leaky_relu = rec
@@ -1813,7 +1860,7 @@ def segflow_modes(card: str) -> dict:
                   fused_norm_act=True).eval()
     gpu = copy.deepcopy(cpu).cuda()
     video = torch.from_numpy(batch["video"])
-    k5_shapes = set()
+    k5_shapes = {}
     with torch.inference_mode():
         _reset_counts()
         with norm_act_shapes(k5_shapes):
@@ -1968,21 +2015,14 @@ def check_ncc_wide(card: str) -> tuple[dict, dict]:
 
 #: the keys every kernel has in the kernels line; a kernel's other measured
 #: numbers (bf16 or float32 times, library notes, K3's passes) follow them
-def cli_inputs(tmp: Path, plans) -> tuple[Path, Path, Path]:
-    """Phase 22's inputs, written with the port's NIfTI writer: a task with
-    CLI_CINES cines (cine/<pid>_4d.nii.gz), their ED/ES numbers in
-    dataset.json and ED/ES labels in labelsTr; CLI_UNET_CASES Task002-like
-    volumes as a folder of *_0000.nii.gz with their labels; and a 2d
-    preprocessed root (plans_2D.json, preprocessed_2d/) built as phase 14
-    builds one. Returns (task, U-Net task, preprocessed root)."""
-    from csof_tpu_torch.data.cropping import run_cropping
-    from csof_tpu_torch.data.preprocessing import Preprocessor
+def cine_task(task: Path, rng: np.random.RandomState) -> Path:
+    """A task with CLI_CINES cines (cine/<pid>_4d.nii.gz, T_FRAMES x DEPTH x
+    CINE_HW), their ED/ES numbers in dataset.json and ED/ES labels in
+    labelsTr, written with the port's NIfTI writer."""
     from csof_tpu_torch.utils.nifti import save_nifti
 
-    task = tmp / "task"
     for sub in ("cine", "labelsTr"):
         (task / sub).mkdir(parents=True)
-    rng = np.random.RandomState(11)
     ed_es = {}
     for i in range(CLI_CINES):
         pid = f"patient{i + 1:03d}"
@@ -1994,7 +2034,22 @@ def cli_inputs(tmp: Path, plans) -> tuple[Path, Path, Path]:
                        spacing_xyz=(1.5, 1.5, 10.0))
         ed_es[pid] = {"ed": CLI_ED_ES[0], "es": CLI_ED_ES[1]}
     (task / "dataset.json").write_text(json.dumps({"name": "synthetic", "ed_es_numbers": ed_es}))
+    return task
 
+
+def cli_inputs(tmp: Path, plans) -> tuple[Path, Path, Path]:
+    """Phase 22's inputs, written with the port's NIfTI writer: a task with
+    CLI_CINES cines (cine/<pid>_4d.nii.gz), their ED/ES numbers in
+    dataset.json and ED/ES labels in labelsTr; CLI_UNET_CASES Task002-like
+    volumes as a folder of *_0000.nii.gz with their labels; and a 2d
+    preprocessed root (plans_2D.json, preprocessed_2d/) built as phase 14
+    builds one. Returns (task, U-Net task, preprocessed root)."""
+    from csof_tpu_torch.data.cropping import run_cropping
+    from csof_tpu_torch.data.preprocessing import Preprocessor
+    from csof_tpu_torch.utils.nifti import save_nifti
+
+    rng = np.random.RandomState(11)
+    task = cine_task(tmp / "task", rng)
     unet_task, pre = tmp / "unet_task", tmp / "pre"
     for sub in ("imagesTs", "labelsTs"):
         (unet_task / sub).mkdir(parents=True)
@@ -2320,7 +2375,7 @@ def cli_strain(tmp: Path, task: Path, card: str, counts: dict) -> None:
 
 
 def check_planned_unet_kernels(card: str, trained: dict, served: dict,
-                               k5_shapes: set) -> dict:
+                               k5_shapes: dict) -> dict:
     """Phase 23: K5, K6 and K6 dx at every distinct shape the planned U-Net's
     training and serving gave them (conv_shapes / norm_act_shapes records),
     float32 and bfloat16, against their plain versions at phase 9's
@@ -2437,7 +2492,7 @@ def data_plane_phase(card: str, record3d: dict) -> tuple[dict, dict]:
         cfg = ExperimentConfig(model="unet2d", max_num_epochs=1, num_batches_per_epoch=DP_STEPS,
                                num_val_batches_per_epoch=DP_VAL)
         cfg.to_yaml(tmp / "unet.yaml")
-        train_convs, serve_convs, k5_shapes = {}, {}, set()
+        train_convs, serve_convs, k5_shapes = {}, {}, {}
         with conv_shapes(train_convs):
             run("csof_torch_train unet2d planned", cli.train_entry,
                 ["-c", tmp / "unet.yaml", "-p", a, "-o", tmp / "unet"],
@@ -2720,33 +2775,40 @@ def unet3d_serve(card: str, tmp: Path, fold: Path, images: Path) -> dict:
 
 
 @contextlib.contextmanager
-def leaky_slopes(masks: list, replay: bool, flips: list):
-    """Record (``replay=False``) the sign mask of every LeakyReLU the
-    ConvNormAct blocks apply, in call order, or replay recorded masks in
-    place of the signs, counting in ``flips`` the entries where the replayed
-    mask differs from the input's own sign."""
+def leaky_slopes(masks: list, replay: bool, flips: list, sites=None):
+    """Record (``replay=False``) the sign mask of every LeakyReLU called
+    through ``sites``, in call order, or replay recorded masks in place of
+    the signs, counting in ``flips`` the entries where the replayed mask
+    differs from the input's own sign. ``sites``: (owner, attribute, default
+    slope) triples, by default the ConvNormAct blocks' ``blocks.leaky_relu``
+    (``torch.relu`` is the site with slope 0)."""
     import torch
 
     from csof_tpu_torch.models import blocks
 
-    orig = blocks.leaky_relu
+    sites = sites or [(blocks, "leaky_relu", 0.01)]
     replayed = iter(masks)
 
-    def act(x, negative_slope=0.01):
-        own = x >= 0
-        if replay:
-            mask = next(replayed).to(x.device)
-            flips.append(int((mask != own).sum()))
-        else:
-            mask = own
-            masks.append(own.cpu())
-        return torch.where(mask, x, x * blocks.scalar_in(negative_slope, x.dtype))
+    def site(default):
+        def act(x, negative_slope=default):
+            own = x >= 0
+            if replay:
+                mask = next(replayed).to(x.device)
+                flips.append(int((mask != own).sum()))
+            else:
+                mask = own
+                masks.append(own.cpu())
+            return torch.where(mask, x, x * blocks.scalar_in(negative_slope, x.dtype))
+        return act
 
-    blocks.leaky_relu = act
+    origs = [(owner, name, getattr(owner, name)) for owner, name, _ in sites]
+    for owner, name, default in sites:
+        setattr(owner, name, site(default))
     try:
         yield
     finally:
-        blocks.leaky_relu = orig
+        for owner, name, orig in origs:
+            setattr(owner, name, orig)
 
 
 def grad_parity(label: str, cpu, data: np.ndarray, seg: np.ndarray, model: str,
@@ -3051,6 +3113,494 @@ def cascade_phase(card: str, tmp: Path) -> dict:
     return counts
 
 
+def smooth_flow_pairs(n: int, hw: int, seed: int):
+    """n pairs of hw^2 float32 images (N, H, W, 1) and their flow (N, H, W,
+    2): image2 a textured disk phantom, flow_gt a smooth field of up to 3
+    pixels, image1 = image2 warped by it (border), so that image1(x) =
+    image2(x + flow_gt(x)), RAFT's convention."""
+    import torch
+
+    from csof_tpu_torch.ops.warp import warp_batch
+
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[:hw, :hw] / hw
+    image2, flow = [], []
+    for _ in range(n):
+        a, b, c, d = rng.rand(4)
+        disk = np.hypot(yy - 0.45 - 0.1 * a, xx - 0.55 + 0.1 * b) < 0.22 + 0.05 * c
+        image2.append(0.2 + 0.6 * disk + 0.1 * np.sin(23 * yy + 6 * d) * np.cos(19 * xx)
+                      + 0.03 * rng.rand(hw, hw))
+        flow.append(np.stack([3 * np.sin(2 * np.pi * (xx + d)), 2 * np.cos(2 * np.pi * yy + a)],
+                             -1))
+    image2 = np.asarray(image2, np.float32)[..., None]
+    flow = np.asarray(flow, np.float32)
+    image1 = warp_batch(torch.from_numpy(image2), torch.from_numpy(flow), padding="border")
+    return image1.numpy(), image2, flow
+
+
+def flow_device_events() -> dict:
+    """``python -m csof_tpu_torch.profile_flow --launches`` in a fresh
+    process (one that has taken many traces can lose kernels from its later
+    ones): RAFT's and VoxelMorph's host-clock ms, device events and busy ms
+    a call at phases 29-30's geometries, and FinalFlow's K5 and K6 device
+    events a forward (phase 31)."""
+    child = subprocess.run([sys.executable, "-m", "csof_tpu_torch.profile_flow", "--launches"],
+                           capture_output=True, text=True, timeout=300)
+    expect(child.returncode == 0, f"profile_flow --launches failed: {child.stderr[-2000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def busy_line(dev: dict) -> str:
+    return (f"a fresh process's trace (profile_flow): host clock {dev['wall_ms']:.3f} ms, "
+            f"{dev['events']} device events, busy {dev['busy_ms']:.3f} ms, busy share "
+            f"{dev['busy_ms'] / dev['wall_ms']:.3f}")
+
+
+@contextlib.contextmanager
+def float64_math():
+    """``Tensor.float()`` gives float64: with the model's parameters and
+    compute dtypes in float64 (``float64_copy``), a flow model's forward and
+    backward run in float64 throughout."""
+    import torch
+
+    orig = torch.Tensor.float
+    torch.Tensor.float = lambda self, *args, **kwargs: self.double()
+    try:
+        yield
+    finally:
+        torch.Tensor.float = orig
+
+
+def float64_copy(model):
+    import torch
+
+    model = copy.deepcopy(model).double()
+    for mod in model.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    return model
+
+
+def loss_grad_parity(label: str, make_model, loss_fn, batch: dict, sites: list,
+                     card: str) -> None:
+    """The float32 loss and every gradient of one step, card vs CPU, with
+    phase 8's tolerances: the loss within LOSS_RTOL and each gradient within
+    GRAD_TOL of its largest entry + 1e-6. As in ``grad_parity``, an
+    activation whose input is within rounding of 0 can take the other branch
+    on the other device: one ReLU of RAFT's 124 so flipped moves an encoder's
+    weight gradient by 3 % of its largest entry (those gradients are sums
+    over pixels that nearly cancel). So the CPU's run replays the signs the
+    card's run took at ``sites`` (``leaky_slopes``). A leaf whose exact
+    gradient is zero (a conv bias in front of an InstanceNorm) is rounding
+    alone on either device: it is told by a float64 backward of the same
+    step on the CPU (largest entry at most ZERO_GRAD of the model's largest)
+    and held to GRAD_TOL of the model's largest gradient entry instead."""
+    import torch
+
+    cpu = make_model()
+    gpu = copy.deepcopy(cpu).cuda()
+
+    def grads(model, device, dtype=np.float32):
+        model.zero_grad()
+        loss, _ = loss_fn(model, {k: torch.from_numpy(v.astype(dtype)).to(device)
+                                  for k, v in batch.items()})
+        loss.backward()
+        return loss.item(), {n: p.grad.detach().cpu().clone() for n, p in model.named_parameters()}
+
+    masks, flips = [], []
+    with leaky_slopes(masks, False, flips, sites):
+        a, g_gpu = grads(gpu, "cuda")
+    with leaky_slopes(masks, True, flips, sites):
+        b, g_cpu = grads(cpu, "cpu")
+    expect(len(flips) == len(masks), f"{label}: {len(flips)} activations replayed of "
+           f"{len(masks)}")
+    with float64_math():
+        _, g64 = grads(float64_copy(cpu), "cpu", np.float64)
+    expect(all(g.dtype == torch.float64 for g in g64.values()), f"{label}: a float32 leaf in "
+           "the float64 backward")
+    top = max(float(g.abs().max()) for g in g64.values())
+    zero = {n for n, g in g64.items() if float(g.abs().max()) <= ZERO_GRAD * top}
+    expect(abs(a - b) <= LOSS_RTOL * abs(b), f"{label}: loss GPU {a} vs CPU {b}")
+    worst, worst_name = -1.0, None
+    for n, g in g_gpu.items():
+        r = g_cpu[n]
+        expect(bool(torch.isfinite(g).all()), f"{label}: {n}: non-finite gradient")
+        if n in zero:
+            ratio = float(g.abs().max()) / (GRAD_TOL * top)
+        else:
+            ratio = float((g - r).abs().max()) / (GRAD_TOL * float(r.abs().max()) + 1e-6)
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    phase(label, f"float32 loss GPU {a:.7f} vs CPU {b:.7f}; {len(g_gpu)} gradients, worst "
+          f"|diff| / (tol {GRAD_TOL:g} max|g| + 1e-6) = {worst:.3f} at {worst_name}; "
+          f"{len(zero)} leaves with a zero float64 gradient held to {GRAD_TOL:g} of the model's "
+          f"largest entry; the CPU ran the card's signs at {len(masks)} activations, "
+          f"{sum(flips)} of whose inputs take the other sign on the CPU -> "
+          f"{'ok' if worst <= 1 else 'FAIL'} ({card})")
+    expect(worst <= 1, f"{label}: gradient {worst_name} outside tolerance")
+
+
+def flow_train_command(card: str, tmp: Path, task: Path, kind: str, counts: dict) -> None:
+    """csof_torch_train of ``kind`` at its default config (full width, bf16)
+    on the cine task: FLOW_TRAIN_STEPS steps + FLOW_TRAIN_VAL validation
+    batches of TRAIN_BATCH x TRAIN_T x TRAIN_HW^2 chunks; no kernel of the
+    port runs."""
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
+
+    cfg = ExperimentConfig(model=kind, max_num_epochs=1, num_batches_per_epoch=FLOW_TRAIN_STEPS,
+                           num_val_batches_per_epoch=FLOW_TRAIN_VAL,
+                           data=DataConfig(batch_size=TRAIN_BATCH, video_length=TRAIN_T,
+                                           crop_size=TRAIN_HW))
+    cfg.to_yaml(tmp / f"{kind}.yaml")
+    run_command(counts, kind, f"csof_torch_train {kind}", cli.train_entry,
+                ["-c", tmp / f"{kind}.yaml", "-p", tmp / "unused", "-t", task, "-o", tmp / kind],
+                {}, card)
+    fold = tmp / kind / "fold_0"
+    for name in ("config.yaml", "meta.json", "model_final_checkpoint.pt", "training_log.txt"):
+        expect((fold / name).is_file(), f"csof_torch_train {kind}: {name} not written")
+    line = (fold / "training_log.txt").read_text().splitlines()[0]
+    losses = [float(line.split(" train ")[1].split()[0]), float(line.split(" val ")[1].split()[0])]
+    expect(all(np.isfinite(losses)), f"csof_torch_train {kind}: losses {losses}")
+    phase(kind, f"csof_torch_train {kind}: {line}")
+
+
+def raft_phase(card: str, tmp: Path, task: Path, dev: dict) -> dict:
+    """Phase 29: RAFT at RaftModelConfig() (feature 256, hidden and context
+    128, 4 levels, radius 4, 12 iterations, bf16), random weights from a
+    seed, serving RAFT_PAIRS ED->ES pairs at RAFT_HW^2: CUDA-event ms a
+    forward, pairs/s, peak memory, and the device busy share of ``dev``
+    (``flow_device_events``: random pairs, the same geometry); one pair float32
+    card vs CPU; scan_unroll=-1 (F4) runs; then csof_torch_train raft, one
+    supervised Trainer step, and the float32 loss and gradients card vs CPU
+    on both routes. Returns the launches (none: RAFT runs the library's
+    convs)."""
+    import dataclasses
+
+    import torch
+
+    from csof_tpu_torch.config.experiment import ExperimentConfig, RaftModelConfig
+    from csof_tpu_torch.models.raft import RAFT
+    from csof_tpu_torch.training.trainer import Trainer, make_raft_loss
+
+    cfg = RaftModelConfig()
+    expect((cfg.feature_dim, cfg.hidden_dim, cfg.context_dim, cfg.corr_levels, cfg.corr_radius,
+            cfg.iters, cfg.dtype) == (256, 128, 128, 4, 4, 12, "bfloat16"),
+           f"RaftModelConfig() is {cfg}")
+    im1, im2, gt = smooth_flow_pairs(RAFT_PAIRS, RAFT_HW, 31)
+    cpu = RAFT(cfg, generator=torch.Generator().manual_seed(31)).eval()
+    model = copy.deepcopy(cpu).cuda()
+    a, b = torch.from_numpy(im1).cuda(), torch.from_numpy(im2).cuda()
+    counts = {}
+    with torch.inference_mode():
+        _reset_counts()
+        flows = model(a, b)
+        torch.cuda.synchronize()
+        counts["raft_serving"] = {k: v for k, v in _read_counts().items() if v}
+        expect(tuple(flows.shape) == (cfg.iters, RAFT_PAIRS, RAFT_HW, RAFT_HW, 2)
+               and flows.dtype == torch.float32 and bool(torch.isfinite(flows).all()),
+               f"RAFT flows {tuple(flows.shape)} {flows.dtype}")
+        epe = float((flows[-1].float().cpu() - torch.from_numpy(gt)).norm(dim=-1).mean())
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(lambda: model(a, b), reps=RAFT_REPS, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase("raft", f"forward ({RAFT_PAIRS}, {RAFT_HW}, {RAFT_HW}, 1) x 2 bf16, {cfg.iters} "
+          f"iterations: {ms:.3f} ms (CUDA events, median of {RAFT_REPS}), "
+          f"{RAFT_PAIRS / ms * 1e3:.1f} pairs/s; {busy_line(dev)}; peak {peak:.3f} GiB; "
+          f"random weights: mean endpoint error {epe:.3f} px; launches {counts['raft_serving']} "
+          f"({card})")
+    expect(not counts["raft_serving"], "RAFT launched a kernel of the port")
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    cpu32 = RAFT(f32, generator=torch.Generator().manual_seed(32)).eval()
+    gpu32 = copy.deepcopy(cpu32).cuda()
+    x1, x2 = torch.from_numpy(im1[:1]), torch.from_numpy(im2[:1])
+    with torch.inference_mode():
+        got = gpu32(x1.cuda(), x2.cuda()).cpu()
+        ref = cpu32(x1, x2)
+        f4 = RAFT(dataclasses.replace(f32, scan_unroll=-1)).cuda().eval()
+        f4.load_state_dict(gpu32.state_dict())
+        unrolled = f4(x1.cuda(), x2.cuda()).cpu()
+    compare("raft", f"float32 forward (1, {RAFT_HW}, {RAFT_HW}, 1), {cfg.iters} iterations, "
+            "GPU vs CPU", got, ref, *MODEL_TOL)
+    compare("raft", "scan_unroll=-1 (F4) vs scan_unroll=1 on the card", unrolled, got, 1e-6, 1e-6)
+
+    flow_train_command(card, tmp, task, "raft", counts)
+    train_cfg = ExperimentConfig(model="raft", max_num_epochs=1, num_batches_per_epoch=1)
+    trainer = Trainer(train_cfg, tmp / "raft_step", device="cuda").initialize()
+    sup = {"image1": im1[:TRAIN_BATCH, :TRAIN_HW, :TRAIN_HW],
+           "image2": im2[:TRAIN_BATCH, :TRAIN_HW, :TRAIN_HW],
+           "flow_gt": gt[:TRAIN_BATCH, :TRAIN_HW, :TRAIN_HW]}
+    _reset_counts()
+    loss, aux = trainer.run_iteration(sup)
+    torch.cuda.synchronize()
+    expect(np.isfinite(loss) and set(aux) == {"seq_loss"}, f"supervised step: {loss} {aux}")
+    step_ms = host_ms(lambda: trainer.run_iteration(sup), reps=3, warmup=1)
+    phase("raft", f"Trainer step, supervised route ({TRAIN_BATCH}, {TRAIN_HW}, {TRAIN_HW}, 1) "
+          f"bf16 with flow_gt: sequence loss {loss:.5f}, {step_ms:.3f} ms host clock ({card})")
+    p = RAFT_PARITY_HW
+    loss_fn = make_raft_loss(ExperimentConfig(model="raft", raft=f32))
+    for route in ("unsupervised", "supervised"):
+        batch = {"image1": im1[:1, :p, :p], "image2": im2[:1, :p, :p]}
+        if route == "supervised":
+            batch["flow_gt"] = gt[:1, :p, :p]
+        loss_grad_parity(f"raft {route} (1, {p}, {p}, 1)",
+                         lambda: RAFT(f32, generator=torch.Generator().manual_seed(33)),
+                         loss_fn, {k: np.ascontiguousarray(v) for k, v in batch.items()},
+                         [(torch, "relu", 0.0)], card)
+    return counts
+
+
+def voxelmorph_phase(card: str, tmp: Path, task: Path, dev: dict) -> dict:
+    """Phase 30: VoxelMorph at VoxelMorphModelConfig() (diffeomorphic, 7
+    steps, bf16), random weights: register_sequence over a VXM_T-frame cine
+    at VXM_HW^2 (VXM_T - 1 pairs, tools/bench_all.py:104's geometry) with
+    its ms, pairs/s and peak memory, and the busy share of ``dev`` (as
+    phase 29's); the flows' Jacobian
+    determinants (ops/jacobian.py) card vs CPU; one 3-D pair of
+    VXM_3D (z replicate-padded to a multiple of 8, the U-Net's 3 halvings);
+    csof_torch_train voxelmorph; the float32 loss and gradients card vs
+    CPU."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from csof_tpu_torch.config.experiment import ExperimentConfig, VoxelMorphModelConfig
+    from csof_tpu_torch.models import voxelmorph
+    from csof_tpu_torch.models.voxelmorph import VoxelMorph, register_sequence
+    from csof_tpu_torch.ops.jacobian import jacobian_determinant_batch
+    from csof_tpu_torch.training.trainer import make_voxelmorph_loss
+
+    cfg = VoxelMorphModelConfig()
+    expect(cfg.diffeomorphic and cfg.int_steps == 7 and cfg.dtype == "bfloat16",
+           f"VoxelMorphModelConfig() is {cfg}")
+    rng = np.random.RandomState(41)
+    yy, xx = np.mgrid[:VXM_HW, :VXM_HW]
+    frames = []
+    for t in range(VXM_T):
+        r = 40 + 12 * np.cos(2 * np.pi * t / (VXM_T - 1))
+        disk = (yy - 0.48 * VXM_HW) ** 2 + (xx - 0.52 * VXM_HW) ** 2 <= r * r
+        frames.append(0.15 + 0.7 * disk + 0.1 * rng.rand(VXM_HW, VXM_HW))
+    cine = torch.from_numpy(np.asarray(frames, np.float32)[..., None])
+    model = VoxelMorph(cfg, generator=torch.Generator().manual_seed(41)).eval()
+    with torch.no_grad():  # the flow head's init is near zero: fields of a few pixels instead
+        model.flow_head.weight.mul_(3e4)
+    model = model.cuda()
+    counts = {}
+    with torch.inference_mode():
+        c = cine.cuda()
+        _reset_counts()
+        out = register_sequence(model, c)
+        torch.cuda.synchronize()
+        counts["voxelmorph_sequence"] = {k: v for k, v in _read_counts().items() if v}
+        n = VXM_T - 1
+        for k, shape in (("flow", (n, VXM_HW, VXM_HW, 2)), ("flow_inverse", (n, VXM_HW, VXM_HW, 2)),
+                         ("registered", (n, VXM_HW, VXM_HW, 1))):
+            expect(tuple(out[k].shape) == shape and bool(torch.isfinite(out[k]).all()),
+                   f"register_sequence {k}: {tuple(out[k].shape)}")
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(lambda: register_sequence(model, c), reps=10, warmup=2)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        phase("voxelmorph", f"register_sequence ({VXM_T}, {VXM_HW}, {VXM_HW}, 1) bf16, {n} pairs: "
+              f"{ms:.3f} ms (CUDA events, median of 10), {n / ms * 1e3:.1f} pairs/s; "
+              f"{busy_line(dev)}; peak {peak:.3f} GiB; launches "
+              f"{counts['voxelmorph_sequence']} ({card})")
+        flows = out["flow"]
+        det = jacobian_determinant_batch(flows)
+        ref = jacobian_determinant_batch(flows.cpu())
+        compare("voxelmorph", f"Jacobian determinants of the {n} flows, card vs CPU",
+                det.cpu(), ref, 1e-5, 1e-5)
+        phase("voxelmorph", f"flows up to {float(flows.abs().max()):.3f} px; det J: min "
+              f"{float(ref.min()):.4f}, max {float(ref.max()):.4f}, share <= 0 "
+              f"{float((ref <= 0).float().mean()):.5f}")
+
+        d, h, w = VXM_3D
+        pad = -(-d // 8) * 8 - d
+        vol = torch.from_numpy(rng.rand(2, 1, d, h, w).astype(np.float32))
+        vol = F.pad(vol, (0, 0, 0, 0, 0, pad), mode="replicate").movedim(1, -1).cuda()
+        model3 = VoxelMorph(cfg, ndim=3, generator=torch.Generator().manual_seed(42)).cuda().eval()
+        torch.cuda.reset_peak_memory_stats()
+        out3 = model3(vol[:1], vol[1:])
+        torch.cuda.synchronize()
+        expect(tuple(out3["flow"].shape) == (1, d + pad, h, w, 3)
+               and bool(torch.isfinite(out3["flow"]).all())
+               and bool(torch.isfinite(out3["registered"]).all()), "3-D pair outputs")
+        ms3 = median_ms(lambda: model3(vol[:1], vol[1:]), reps=5, warmup=1)
+        peak3 = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase("voxelmorph", f"one 3-D pair {VXM_3D} (z padded to {d + pad}) bf16: {ms3:.3f} ms, peak "
+          f"{peak3:.3f} GiB, flow {tuple(out3['flow'].shape)} finite ({card})")
+
+    flow_train_command(card, tmp, task, "voxelmorph", counts)
+    f32 = dataclasses.replace(cfg, dtype="float32")
+    loss_fn = make_voxelmorph_loss(ExperimentConfig(model="voxelmorph", voxelmorph=f32))
+    fr = np.asarray(frames, np.float32)[..., None]
+    batch = {"moving": fr[[VXM_T // 3, VXM_T // 2], :128, :128], "fixed": fr[[0, 0], :128, :128]}
+    loss_grad_parity("voxelmorph",
+                     lambda: VoxelMorph(f32, generator=torch.Generator().manual_seed(43)),
+                     loss_fn, {k: np.ascontiguousarray(v) for k, v in batch.items()},
+                     [(voxelmorph, "leaky_relu", 0.2)], card)
+    return counts
+
+
+def finalflow_phase(card: str, dev: dict) -> tuple[dict, dict]:
+    """Phase 31: FinalFlow at FinalFlowConfig() (widths 32, 64, 128, group
+    norm, bf16), random weights, over FF_B cines x FF_T frames x FF_HW^2
+    (bench.py:98's geometry): each bottleneck (gru, 3d, transformer) and gru
+    with diffeomorphic=True, with CSOF_CONV2D_IMPL unset and =pallas (ms a
+    forward, CUDA events; under pallas K6 counted by the wrapper, equal to
+    FinalFlow.kernel_launches); norm="instance" with CSOF_FUSED_NORM=1 under
+    pallas (K5 likewise); the same forwards' K5 and K6 as device events,
+    ``dev``, from a fresh process (``flow_device_events``); K6 and K5 against
+    their plain versions at every distinct shape these forwards gave them
+    (bf16 as run and float32), with one forward's kernel, plain, library and
+    bound ms; then each bottleneck's float32 forward under pallas, card vs
+    CPU, at 1 x FF_PARITY_T x FF_HW^2. Returns (launches, kernel entries)."""
+    import torch
+
+    from csof_tpu_torch.bounds import bound_ms, conv3x3_work, norm_act_work
+    from csof_tpu_torch.models.finalflow import FinalFlow, FinalFlowConfig
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    rng = np.random.RandomState(51)
+    yy, xx = np.mgrid[:FF_HW, :FF_HW]
+    videos = np.empty((FF_B, FF_T, FF_HW, FF_HW, 1), np.float32)
+    for b in range(FF_B):
+        cy, cx = FF_HW * (0.45 + 0.1 * rng.rand()), FF_HW * (0.45 + 0.1 * rng.rand())
+        for t in range(FF_T):
+            r = 22 + 6 * np.cos(2 * np.pi * t / FF_T)
+            videos[b, t, ..., 0] = (0.7 * ((yy - cy) ** 2 + (xx - cx) ** 2 <= r * r)
+                                    + 0.15 + 0.1 * rng.rand(FF_HW, FF_HW))
+    video = torch.from_numpy(videos).cuda()
+    counts, k6_calls, k5_calls = {}, {}, {}
+    runs = [(f"{bt}", dict(bottleneck_type=bt)) for bt in ("gru", "3d", "transformer")]
+    runs += [("gru diffeomorphic", dict(diffeomorphic=True)), ("instance + K5", dict(
+        norm="instance"))]
+    for name, kw in runs:
+        cfg = FinalFlowConfig(**kw)
+        models = {}
+        for switch in ("native", "pallas"):
+            fused = "1" if name == "instance + K5" and switch == "pallas" else "0"
+            with env(CSOF_CONV2D_IMPL=switch, CSOF_FUSED_NORM=fused):
+                model = FinalFlow(cfg, generator=torch.Generator().manual_seed(52)).cuda().eval()
+            models[switch] = model
+            want = model.kernel_launches(FF_T, FF_HW)
+            with torch.inference_mode():
+                _reset_counts()
+                if switch == "pallas":
+                    with conv_shapes(k6_calls), norm_act_shapes(k5_calls):
+                        out = model(video)
+                else:
+                    out = model(video)
+                torch.cuda.synchronize()
+                got = {k: v for k, v in _read_counts().items() if v}
+                expect(got == {k: v for k, v in want.items() if v},
+                       f"finalflow {name} {switch}: launches {got}, expected {want}")
+                if got:
+                    counts[f"finalflow {name}"] = got
+                for k in ("flow", "flow_forward", "registered"):
+                    expect(bool(torch.isfinite(out[k]).all()), f"finalflow {name}: {k} not finite")
+                expect(tuple(out["flow"].shape) == (FF_B, FF_T, FF_HW, FF_HW, 2)
+                       and not bool(out["flow"][:, 0].any()), f"finalflow {name}: flow")
+        with torch.inference_mode():
+            torch.cuda.reset_peak_memory_stats()
+            t_on, t_off = timed_pair(lambda: models["pallas"](video),
+                                     lambda: models["native"](video))
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        phase("finalflow", f"{name}: forward ({FF_B}, {FF_T}, {FF_HW}, {FF_HW}, 1) bf16 "
+              f"{t_off:.3f} ms with the switch unset, {t_on:.3f} ms under pallas"
+              f"{' + CSOF_FUSED_NORM=1' if name == 'instance + K5' else ''} (CUDA events, "
+              f"medians of 20 in the order unset, pallas, pallas, unset); launches under it "
+              f"{counts.get(f'finalflow {name}', {})} = kernel_launches; peak {peak:.3f} GiB "
+              f"({card})")
+    # the same forwards' K5 and K6 as device events, traced in a fresh process
+    for name, _ in runs:
+        got = {k: dev[name][k] for k in ("K5", "K6")}
+        expect(got == {k: dev[name]["want"][k] for k in ("K5", "K6")}
+               == {k: counts[f"finalflow {name}"].get(k, 0) for k in ("K5", "K6")},
+               f"finalflow {name}: device events {got}, wrapper {counts[f'finalflow {name}']}, "
+               f"kernel_launches {dev[name]['want']}")
+    phase("finalflow", f"K5 and K6 as device events of one forward each (a fresh process): "
+          f"{ {name: {k: dev[name][k] for k in ('K5', 'K6')} for name, _ in runs} } = the "
+          f"wrapper counts = FinalFlow.kernel_launches")
+
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    err = {"K5": 0.0, "K6": 0.0}
+    sums = {"K5": [0.0, 0.0, 0.0], "K6": [0.0, 0.0, 0.0]}
+    works = {"K5": [], "K6": []}
+    for (shape, dtype, co, bias, _), calls in sorted(k6_calls.items(), key=str):
+        n, ci, h, w = shape
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).removeprefix("torch.")
+            x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
+            wt = torch.randn(co, ci, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * ci)) ** 0.5
+            bb = torch.randn(co, generator=gen, device="cuda") * 0.1 if bias else None
+            got = k6.conv3x3_cuda(x, wt, bb)
+            torch.cuda.synchronize()
+            err["K6"] = max(err["K6"], compare(
+                "finalflow", f"K6 {dname} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, {w})", got,
+                k6.conv3x3_plain(x, wt, bb), *UNET_TOL[("K6", dname)]))
+            if dt != dtype:
+                continue
+            per = calls / len(runs)  # one forward's calls at this shape (each run's are equal)
+            t, p = timed_pair(lambda: k6.conv3x3_cuda(x, wt, bb),
+                              lambda: k6.conv3x3_plain(x, wt, bb))
+            lib = median_ms(lambda: torch.nn.functional.conv2d(
+                x, wt.to(dt), None if bb is None else bb.to(dt), padding=1))
+            sums["K6"] = [a + per * v for a, v in zip(sums["K6"], (t, p, lib))]
+            works["K6"].append((conv3x3_work(n, h, w, ci, co, 2, bias), per))
+    dtype = torch.bfloat16  # FinalFlowConfig()'s: K5 ran on bf16 tensors
+    for shape, calls in sorted(k5_calls.items()):
+        n, c, h, w = shape
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).removeprefix("torch.")
+            x = (torch.randn(*shape, generator=gen, device="cuda") * 2 + 0.5).to(dt)
+            scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+            bias = 0.2 * torch.randn(c, generator=gen, device="cuda")
+            got = k5.norm_act_cuda(x, scale, bias)
+            torch.cuda.synchronize()
+            err["K5"] = max(err["K5"], compare(
+                "finalflow", f"K5 {dname} (N, C, H, W)={shape}", got,
+                k5.norm_act_plain(x, scale, bias), *UNET_TOL[("K5", dname)]))
+            if dt != dtype:
+                continue
+            t, p = timed_pair(lambda: k5.norm_act_cuda(x, scale, bias),
+                              lambda: k5.norm_act_plain(x, scale, bias))
+            lib = median_ms(lambda: torch.nn.functional.leaky_relu(
+                torch.nn.functional.instance_norm(x, weight=scale.to(dt), bias=bias.to(dt),
+                                                  eps=1e-5), 0.01))
+            sums["K5"] = [a + calls * v for a, v in zip(sums["K5"], (t, p, lib))]
+            works["K5"].append((norm_act_work(n, c, h, w, 2), calls))
+    entries = {}
+    for key, what in (("K6", "one gru forward under pallas"),
+                      ("K5", "one instance-norm forward")):
+        summed = [sum(c * wk[i] for wk, c in works[key]) for i in range(len(works[key][0][0]))]
+        bnd, by = bound_ms(*summed)
+        t, p, lib = sums[key]
+        phase("finalflow", f"{key} bf16, {what} ({sum(c for _, c in works[key]):.0f} launches at "
+              f"{len(works[key])} shapes): kernel {t:.4f} ms, plain {p:.4f} ms, "
+              f"{'library' if key == 'K6' else 'library note (F.instance_norm + F.leaky_relu)'} "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}) ({card})")
+        entries[key] = {"ms": t, "plain_ms": p, ("library_ms" if key == "K6" else
+                                                  "library_note_ms"): lib,
+                        "bound_ms": bnd, "bound_by": by, "max_abs_err": err[key]}
+
+    small = torch.from_numpy(videos[:1, :FF_PARITY_T])
+    for bt in ("gru", "3d", "transformer"):
+        cpu = FinalFlow(FinalFlowConfig(bottleneck_type=bt, dtype="float32"),
+                        generator=torch.Generator().manual_seed(54), conv_impl="pallas").eval()
+        with torch.no_grad():  # the head's init is near zero: flows of a few pixels instead
+            cpu.flow_decoder.Conv_0.weight.mul_(1e4)
+        gpu = copy.deepcopy(cpu).cuda()
+        with torch.inference_mode():
+            got, ref = gpu(small.cuda()), cpu(small)
+        for k in ("flow", "registered"):
+            compare("finalflow", f"float32 {bt} under pallas (1, {FF_PARITY_T}, {FF_HW}, {FF_HW}, "
+                    f"1): {k} GPU vs CPU (flows up to {float(ref['flow'].abs().max()):.2f} px)",
+                    got[k].cpu(), ref[k], *MODEL_TOL)
+    return counts, entries
+
+
 _MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -3164,6 +3714,21 @@ def main() -> int:
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], u3[k].pop("max_abs_err"))
         kernels[k].update(u3[k])
     phase("unet3d", f"phases 24-28 took {time.perf_counter() - t_u3:.1f} s")
+    t_flow = time.perf_counter()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        flow_cines = cine_task(tmp / "flow_task", np.random.RandomState(11))  # phase 22's
+        dev = flow_device_events()
+        raft_counts = raft_phase(card, tmp, flow_cines, dev["raft"])
+        vxm_counts = voxelmorph_phase(card, tmp, flow_cines, dev["voxelmorph"])
+    torch.cuda.empty_cache()
+    ff_counts, ff_entries = finalflow_phase(card, dev["finalflow"])
+    for k in ("K5", "K6"):
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"],
+                                        ff_entries[k].pop("max_abs_err"))
+        kernels[k].update({f"finalflow_bf16_{name}": v for name, v in ff_entries[k].items()})
+    phase("flow models", f"phases 29-31 took {time.perf_counter() - t_flow:.1f} s")
 
     paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
              "unet_training": unet_train_counts, "ncc_op": ncc_counts,
@@ -3175,7 +3740,7 @@ def main() -> int:
              **{name.replace("csof_torch_", "data plane ").replace(" --", " "): c
                 for name, c in dp_counts.items()},
              "unet3d_training": u3_train_counts, "unet3d_serving": u3_serve_counts,
-             "cascade": cascade_counts}
+             "cascade": cascade_counts, **raft_counts, **vxm_counts, **ff_counts}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {

@@ -9,16 +9,18 @@ itself (pandas only to read an M&Ms .xlsx table, on that route alone).
   same ``config.yaml``), plans, dataset folders
 - :mod:`csof_tpu_torch.compat`    — flax msgpack reader, flax parameter trees and optimizer
   state -> torch
-- :mod:`csof_tpu_torch.ops`       — warp, correlation, losses, tiling, resampling, jacobian,
+- :mod:`csof_tpu_torch.ops`       — warp, integration, correlation, losses, tiling,
+  resampling, jacobian,
   strain, smoothing, CUDA kernels (``ops/kernels``, ``csrc``)
-- :mod:`csof_tpu_torch.models`    — SegFlow, the nnU-Net ``GenericUNet``, their blocks (NCHW)
+- :mod:`csof_tpu_torch.models`    — SegFlow, the nnU-Net ``GenericUNet``, RAFT, VoxelMorph,
+  FinalFlow, their blocks (NCHW)
 - :mod:`csof_tpu_torch.inference` — the serving remap, ``FlowPredictor``,
   ``SlidingWindowPredictor`` and ``predict_case``
 - :mod:`csof_tpu_torch.data`      — dataset conversion, cropping, analysis, planning, the
   ``Preprocessor``, the dataset files and split, the U-Net patch loader, the cine datasets
   and video chunk loader, augmentation
 - :mod:`csof_tpu_torch.training`  — schedules, optimizer, checkpoints (the port's ``.pt``
-  and the JAX package's msgpack), the SegFlow and U-Net losses, ``Trainer``,
+  and the JAX package's msgpack), the losses of every model kind, ``Trainer``,
   ``restore_trainer``, fold validation
 - :mod:`csof_tpu_torch.evaluation` — segmentation metrics, SSIM and the folder evaluator
 - :mod:`csof_tpu_torch.analysis`  — jacobian, strain and contour reports of a Flow tree,

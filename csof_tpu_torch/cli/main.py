@@ -14,7 +14,8 @@ Console scripts (``pyproject.toml``), or ``python -m csof_tpu_torch.cli.main
   csof_torch_convert_mnms           raw M&Ms (or N synthetic phantoms) -> task layout
   csof_torch_convert_decathlon_task a Decathlon task (4D multi-modality) -> task layout
   csof_torch_plan_and_preprocess    crop, analyze, plan (2D and 3D), preprocess
-  csof_torch_train         train the 2D or 3D U-Net or SegFlow from an experiment YAML
+  csof_torch_train         train the 2D or 3D U-Net, SegFlow, RAFT or VoxelMorph from an
+                           experiment YAML
                            (``--validation-only``: score the fold from its checkpoint)
   csof_torch_predict       sliding-window U-Net segmentation of a folder of NIfTIs
   csof_torch_predict_flow  SegFlow over every cine of a task: Flow/Registered/Segmentation
@@ -240,7 +241,9 @@ def train_entry(argv=None):
 
 
 def _train_video(a, config, device):
-    """The video branch of csof_torch_train (SegFlow)."""
+    """The video branch of csof_torch_train: SegFlow on the chunks, RAFT on
+    (frame 0, last frame) pairs, VoxelMorph on (moving = last frame, fixed =
+    frame 0), as the JAX entry's ``to_model_batch`` maps them."""
     from csof_tpu_torch.data.loaders import VideoChunkLoader
     from csof_tpu_torch.data.video_dataset import build_video_datasets, split_videos
     from csof_tpu_torch.training.restore import save_trainer_sidecar
@@ -256,13 +259,22 @@ def _train_video(a, config, device):
                                 batch_size=config.data.batch_size,
                                 crop_size=config.data.crop_size, seed=seed)
 
+    def model_batches(loader):
+        for batch in loader:
+            v = batch["video"]
+            if config.model == "raft":
+                batch = {"image1": v[:, 0], "image2": v[:, -1]}
+            elif config.model == "voxelmorph":
+                batch = {"moving": v[:, -1], "fixed": v[:, 0]}
+            yield batch
+
     out = Path(a.output) / f"fold_{config.fold}"
     trainer = Trainer(config, out, num_classes=4, device=device).initialize()
     save_trainer_sidecar(out, config, None, 4)
     if a.continue_training:
         trainer.load_checkpoint()
-    trainer.run_training(make_loader(tr_videos, config.seed),
-                         make_loader(va_videos or tr_videos, config.seed + 1),
+    trainer.run_training(model_batches(make_loader(tr_videos, config.seed)),
+                         model_batches(make_loader(va_videos or tr_videos, config.seed + 1)),
                          max_epochs=a.max_epochs)
     print(f"training done -> {out}")
 

@@ -8,7 +8,9 @@ after the flax scopes, so a leaf ``a/b/Conv_0/kernel`` fills the parameter
   (kh, kw) or 3-D (kz, ky, kx);
 - ``ConvTranspose`` ``kernel`` (*k, in, out) -> ``weight`` (in, out, *k),
   mirrored in every spatial axis (``csof_tpu/models/blocks.py:611-616``);
-- Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in);
+- Dense ``kernel`` (in, out) -> Linear ``weight`` (out, in); a
+  ``DenseGeneral`` kernel split into (in, heads, head_dim) or (heads,
+  head_dim, out) (flax attention) flattened first, its bias too;
 - norm ``scale`` -> ``weight``; ``bias`` -> ``bias``.
 
 A ``bottleneck_dual`` scope (SegFlow with ``attn_fused``: the two
@@ -25,6 +27,16 @@ of that name moves them on flax variables.
 A U-Net whose conv stacks JAX wrapped in ``nn.remat`` (the default for
 3-D plans) holds them as ``CheckpointStackedConvs_k``; ``call_order_stacks``
 gives them the port's call-order names first.
+
+The flow models name their modules after JAX's scopes too: RAFT's
+``FeatureEncoder_0``, ``FeatureEncoder_1``, ``context_encoder`` and
+``Scan_RaftUpdateStep_0/UpdateBlock_0`` (``nn.scan`` with broadcast
+parameters stores one copy for every iteration), VoxelMorph's
+``VxmUNet_0/Conv_0..k`` and ``flow_head``, FinalFlow's ``current_encoder``,
+``past_encoder``, ``fuse_{l}``, ``Scan_GRUStep_0/ConvGRUCell_0``,
+``flow_decoder`` and ``st_transformer`` or ``conv3d_1`` / ``conv3d_2``; so
+their trees, and the optimizer moments of RAFT's and VoxelMorph's
+``TrainState``, load by the same walk.
 
 The map is built by walking the flax tree, so flax's auto-numbered scopes
 (``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``; the U-Net's
@@ -130,12 +142,12 @@ def _convert(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.nda
             return "weight", np.flip(arr, sp).transpose(len(sp), len(sp) + 1, *sp)
         if isinstance(module, Conv):
             return "weight", arr.transpose(len(sp) + 1, len(sp), *sp)
-        if isinstance(module, nn.Linear):
-            return "weight", arr.T
+        if isinstance(module, nn.Linear):  # DenseGeneral's split kernels flattened
+            return "weight", arr.reshape(module.in_features, module.out_features).T
     elif name == "scale":
         return "weight", arr
     elif name == "bias":
-        return "bias", arr
+        return "bias", arr.reshape(-1)
     raise KeyError(f"no rule for leaf {name!r} of a {type(module).__name__}")
 
 

@@ -8,16 +8,17 @@ refuse unknown keys as it does. YAML goes through
 :mod:`csof_tpu_torch.utils.yaml_subset`, the port's reader and writer of
 the subset configs use, so the port needs no PyYAML.
 
-The model kinds the port trains and serves are ``segflow``, ``unet2d`` and ``unet3d``;
-the RAFT and VoxelMorph configs are kept so that an ``ExperimentConfig``
-has the same fields in both packages. Every ``SegFlowModelConfig`` field is
+The port trains every model kind: ``segflow``, ``unet2d``, ``unet3d``,
+``raft`` and ``voxelmorph``. Every ``SegFlowModelConfig`` field is
 read: each ``corr_fuse`` mode (``fused_cm`` for serving only, as in JAX),
 ``fuse_q_hoist``, ``deep_supervision``, both ``dec_upsample`` modes, and
 ``remat`` (``torch.utils.checkpoint``). The port's temporal loop is always a
 Python loop with the frame-0 prime step, and every JAX temporal path
 computes the same math, so ``scan_unroll``, ``scan_while1`` and
 ``attn_fused`` (the two bottlenecks run unfused) change nothing but the
-program form.
+program form. So does ``RaftModelConfig.scan_unroll``: the port's RAFT
+runs the same refinement loop for any value, -1 included, which the JAX
+package's ``lax.scan`` refuses (ROADMAP fault F4).
 """
 
 from __future__ import annotations
@@ -54,7 +55,8 @@ class OptimConfig:
 
 @dataclass
 class LossWeights:
-    """Flow-model loss weights (:func:`csof_tpu_torch.training.trainer.make_segflow_loss`)."""
+    """Flow-model loss weights (:mod:`csof_tpu_torch.training.trainer`'s
+    SegFlow, VoxelMorph and RAFT losses)."""
 
     image_flow_global: float = 0.5      # NCC(warped, fixed)
     regularization_xy: float = 1.0      # spatial flow-gradient^2
@@ -102,7 +104,8 @@ class SegFlowModelConfig:
 
 @dataclass(frozen=True)
 class RaftModelConfig:
-    """RAFT hyperparameters (model not ported)."""
+    """RAFT hyperparameters (:class:`csof_tpu_torch.models.raft.RAFT`);
+    ``scan_unroll`` is a program form of the JAX package, read and unused."""
 
     iters: int = 12
     corr_levels: int = 4
@@ -116,7 +119,8 @@ class RaftModelConfig:
 
 @dataclass(frozen=True)
 class VoxelMorphModelConfig:
-    """VoxelMorph hyperparameters (model not ported)."""
+    """VoxelMorph hyperparameters
+    (:class:`csof_tpu_torch.models.voxelmorph.VoxelMorph`)."""
 
     enc_features: tuple[int, ...] = (16, 32, 32, 32)
     dec_features: tuple[int, ...] = (32, 32, 32, 32, 32, 16, 16)

@@ -56,12 +56,25 @@ def _per_axis(v, nd: int) -> tuple[int, ...]:
     return (v,) * nd if isinstance(v, int) else tuple(v)
 
 
+def same_pads(sizes, kernel_size, stride) -> tuple[tuple[int, int], ...]:
+    """flax's ``padding="SAME"`` per axis: the output ceil(size / stride)
+    wide, the total padding split with the odd pixel at the end, so a
+    stride-2 conv on an even size pads (2, 3) for 7 taps, (0, 1) for 3 and
+    nothing for 1."""
+    pads = []
+    for n, k, s in zip(sizes, kernel_size, stride):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv`` on NCHW or NCDHW: explicit (lo, hi) padding per axis,
-    by default ((k-1)//2, k//2), the conv rounded to the compute dtype and
-    the bias added in it. Kernel and stride are an int (2-D) or a per-axis
-    pair or triple; the weight is torch's (Co, Ci, *kernel), he_normal over
-    the fan-in Ci * prod(kernel)."""
+    by default ((k-1)//2, k//2), or ``padding="SAME"`` (flax's, from the
+    input's size: :func:`same_pads`), the conv rounded to the compute dtype
+    and the bias added in it. Kernel and stride are an int (2-D) or a
+    per-axis pair or triple; the weight is torch's (Co, Ci, *kernel),
+    he_normal over the fan-in Ci * prod(kernel)."""
 
     def __init__(self, in_channels, out_channels, kernel_size=3, stride=1, padding=None,
                  bias=True, dtype=torch.float32, init="he_normal", generator=None):
@@ -70,8 +83,9 @@ class Conv(nn.Module):
         self.kernel_size = _per_axis(kernel_size, nd)
         self.stride = _per_axis(stride, nd)
         self.in_channels, self.out_channels = in_channels, out_channels
-        self.pads = (tuple(tuple(p) for p in padding) if padding is not None
-                     else tuple(((k - 1) // 2, k // 2) for k in self.kernel_size))
+        self.same = padding == "SAME"
+        self.pads = (tuple(((k - 1) // 2, k // 2) for k in self.kernel_size)
+                     if padding is None or self.same else tuple(tuple(p) for p in padding))
         self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, *self.kernel_size))
         init_kernel_(self.weight, in_channels * math.prod(self.kernel_size), init, generator)
@@ -81,11 +95,12 @@ class Conv(nn.Module):
         conv = F.conv2d if len(self.kernel_size) == 2 else F.conv3d
         x = x.to(self.compute_dtype)
         w = self.weight.to(self.compute_dtype)
-        if all(lo == hi for lo, hi in self.pads):
-            y = conv(x, w, None, self.stride, tuple(lo for lo, _ in self.pads))
+        pads = (same_pads(x.shape[2:], self.kernel_size, self.stride) if self.same
+                else self.pads)
+        if all(lo == hi for lo, hi in pads):
+            y = conv(x, w, None, self.stride, tuple(lo for lo, _ in pads))
         else:
-            y = conv(F.pad(x, [p for lo_hi in self.pads[::-1] for p in lo_hi]), w, None,
-                     self.stride)
+            y = conv(F.pad(x, [p for lo_hi in pads[::-1] for p in lo_hi]), w, None, self.stride)
         if self.bias is not None:
             y = y + self.bias.to(self.compute_dtype).view(1, -1, *(1,) * (y.dim() - 2))
         return y

@@ -4,8 +4,8 @@ Conventions as in the JAX package: logits are channels-last
 ``(N, *spatial, C)``; targets are integer label maps ``(N, *spatial)`` unless
 stated; reductions return scalars. Ported: the soft confusion statistics,
 soft Dice, cross-entropy with an ignore index, nnU-Net's Dice + CE and its
-deep-supervision weighting, the windowed NCC and the spatial and temporal
-flow-smoothness penalties.
+deep-supervision weighting, the windowed NCC (2D and 3D), the spatial and
+temporal flow-smoothness penalties, and RAFT's sequence loss.
 """
 
 from __future__ import annotations
@@ -123,12 +123,14 @@ def downsample_seg_for_ds(seg: torch.Tensor, pool_kernel_sizes) -> list[torch.Te
 
 
 def _box_sum(x: torch.Tensor, window: int) -> torch.Tensor:
-    """Zero-padded "SAME" window sums over the two spatial axes of
-    ``(N, C, H, W)``: average pooling with a divisor of 1 sums each window
-    directly (no convolution, so no TF32 on the card)."""
+    """Zero-padded "SAME" window sums over the spatial axes of ``(N, C, H,
+    W)`` or ``(N, C, D, H, W)``: average pooling with a divisor of 1 sums
+    each window directly (no convolution, so no TF32 on the card)."""
+    nd = x.dim() - 2
     lo = (window - 1) // 2
-    x = F.pad(x, (lo, window - 1 - lo) * 2)
-    return F.avg_pool2d(x, window, stride=1, divisor_override=1)
+    x = F.pad(x, (lo, window - 1 - lo) * nd)
+    pool = F.avg_pool2d if nd == 2 else F.avg_pool3d
+    return pool(x, window, stride=1, divisor_override=1)
 
 
 def ncc_loss(pred: torch.Tensor, target: torch.Tensor, window: int = 9, eps: float = 1e-3,
@@ -136,8 +138,9 @@ def ncc_loss(pred: torch.Tensor, target: torch.Tensor, window: int = 9, eps: flo
              reduction: str = "mean") -> torch.Tensor:
     """1 - windowed local NCC (squared correlation over a window x window
     box, clipped to ``clip``); ``reduction="none"`` returns the per-pixel
-    map. pred, target ``(N, H, W, C)``, computed in float32."""
-    win_size = float(window * window)
+    map. pred, target ``(N, H, W, C)`` or ``(N, D, H, W, C)``, computed in
+    float32."""
+    win_size = float(window ** (pred.dim() - 2))
     i = pred.float().movedim(-1, 1)
     j = target.float().movedim(-1, 1)
     c = i.shape[1]
@@ -184,3 +187,22 @@ def temporal_gradient_penalty(flow_seq: torch.Tensor, order: int = 2, reduction:
     the map without the channel axis."""
     m = (_central_gradient(flow_seq, 0).abs() ** order).mean(channel_axis)
     return m if reduction == "none" else m.mean()
+
+
+def raft_sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, gamma: float = 0.8,
+                       valid: torch.Tensor | None = None,
+                       max_flow: float = 400.0) -> torch.Tensor:
+    """RAFT's exponentially weighted L1 over the iterations: iteration i of
+    n weighs gamma^(n-1-i); pixels whose ground-truth flow is max_flow or
+    longer (or outside ``valid``) are left out. flow_preds (iters, N, H, W,
+    2), flow_gt (N, H, W, 2)."""
+    n = flow_preds.shape[0]
+    mag = flow_gt.square().sum(-1).sqrt()
+    v = (mag < max_flow).float()
+    if valid is not None:
+        v = v * valid.float()
+    weights = gamma ** torch.arange(n - 1, -1, -1, dtype=torch.float32,
+                                    device=flow_preds.device)
+    l1 = (flow_preds - flow_gt[None]).abs().mean(-1)  # (iters, N, H, W)
+    per_iter = (l1 * v[None]).sum((1, 2, 3)) / v.sum().clamp_min(1.0)
+    return (weights * per_iter).sum()

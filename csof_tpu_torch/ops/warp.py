@@ -8,15 +8,18 @@ nearest by ``round`` (half to even), ``"zeros"`` padding per corner or
 sliding-window flow predictor. ``warp_points`` advects contour points
 through a flow with that sampler (bilinear, border).
 
-``warp_image_cm``, on ``F.grid_sample``: warped(x) = image(x + flow(x)),
-bilinear, with the flow channel-major in voxels, channel 0 along H (dy) and
-channel 1 along W (dx). ``padding="border"`` clamps the sample coordinates to
+``warp_batch``, on ``F.grid_sample``: warped(x) = image(x + flow(x)),
+bilinear or trilinear, channels last, for 2D and 3D: images
+``(N, *spatial, C)``, flows ``(N, *spatial, ndim)`` in voxels with channel d
+along spatial axis d. ``padding="border"`` clamps the sample coordinates to
 the image, which is what the JAX sampler's index clamp computes;
 ``padding="zeros"`` samples zero outside it. The gradient with respect to the
 flow is autograd's through ``grid_sample``; it agrees with ``jax.grad`` of the
 JAX sampler off the integer coordinates of the border (there the two pick
 other one-sided derivatives). A non-finite flow gives NaN where it is
-non-finite, as in JAX.
+non-finite, as in JAX. ``warp_image`` takes one image without the batch
+axis; ``warp_image_cm`` is the same warp for a channel-major 2D batch,
+``(B, C, H, W)`` by ``(B, 2, H, W)``.
 """
 
 from __future__ import annotations
@@ -28,25 +31,7 @@ import torch.nn.functional as F
 def warp_image_cm(image: torch.Tensor, flow_cm: torch.Tensor,
                   padding: str = "zeros") -> torch.Tensor:
     """image (B, C, H, W), flow (B, 2, H, W) -> (B, C, H, W) in the image dtype."""
-    if padding not in ("border", "zeros"):
-        raise ValueError(f"padding must be 'border' or 'zeros', got {padding!r}")
-    _, _, h, w = image.shape
-    ys = torch.arange(h, device=flow_cm.device, dtype=torch.float32).view(1, h, 1)
-    xs = torch.arange(w, device=flow_cm.device, dtype=torch.float32).view(1, 1, w)
-    flow = flow_cm.float()
-    # voxel coordinates -> grid_sample's normalized (x, y), align_corners=True
-    gx = (xs + flow[:, 1]) * (2.0 / max(w - 1, 1)) - 1.0
-    gy = (ys + flow[:, 0]) * (2.0 / max(h - 1, 1)) - 1.0
-    grid = torch.stack([gx, gy], dim=-1)
-    # grid_sample clamps a NaN coordinate to a finite one under "border" (and
-    # its CPU backward then reads out of bounds): sample a stand-in there and
-    # put the NaN back in the result
-    finite = torch.isfinite(grid).all(-1)
-    grid = torch.where(finite[..., None], grid, -2.0)
-    out = F.grid_sample(image.float(), grid, mode="bilinear", padding_mode=padding,
-                        align_corners=True)
-    out = torch.where(finite[:, None], out, float("nan"))
-    return out.to(image.dtype)
+    return warp_batch(image.movedim(1, -1), flow_cm.movedim(1, -1), padding).movedim(-1, 1)
 
 
 def identity_grid(shape, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -113,3 +98,39 @@ def warp_points(points: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     sampled = grid_sample(flow.permute(2, 0, 1)[None], points[None, None], mode="bilinear",
                           padding="border")
     return points + sampled[0, :, 0].T
+
+
+def warp_batch(images: torch.Tensor, flows: torch.Tensor,
+               padding: str = "zeros") -> torch.Tensor:
+    """images (N, *spatial, C), flows (N, *spatial, ndim), ndim 2 or 3 ->
+    (N, *spatial, C) in the image dtype: warped(x) = image(x + flow(x))."""
+    if padding not in ("border", "zeros"):
+        raise ValueError(f"padding must be 'border' or 'zeros', got {padding!r}")
+    nd = flows.shape[-1]
+    spatial = flows.shape[1:-1]
+    if nd not in (2, 3) or len(spatial) != nd or tuple(images.shape[1:-1]) != tuple(spatial):
+        raise ValueError(f"images {tuple(images.shape)} and flows {tuple(flows.shape)}: "
+                         "2D or 3D, one flow channel per spatial axis")
+    flow = flows.float()
+    axes = []
+    for d, size in enumerate(spatial):  # pixel coordinates -> align_corners=True units
+        shape = [1] * (nd + 1)
+        shape[d + 1] = size
+        pos = torch.arange(size, device=flow.device, dtype=torch.float32).view(shape)
+        axes.append((pos + flow[..., d]) * (2.0 / max(size - 1, 1)) - 1.0)
+    grid = torch.stack(axes[::-1], dim=-1)  # grid_sample's (x, y[, z]) order
+    # grid_sample clamps a NaN coordinate to a finite one under "border" (and
+    # its CPU backward then reads out of bounds): sample a stand-in there and
+    # put the NaN back in the result
+    finite = torch.isfinite(grid).all(-1)
+    grid = torch.where(finite[..., None], grid, -2.0)
+    out = F.grid_sample(images.float().movedim(-1, 1), grid, mode="bilinear",
+                        padding_mode=padding, align_corners=True)
+    out = torch.where(finite[:, None], out, float("nan"))
+    return out.movedim(1, -1).to(images.dtype)
+
+
+def warp_image(image: torch.Tensor, flow: torch.Tensor,
+               padding: str = "zeros") -> torch.Tensor:
+    """One image (*spatial, C) warped by flow (*spatial, ndim)."""
+    return warp_batch(image[None], flow[None], padding)[0]

@@ -1,6 +1,6 @@
 """Training: the losses, the train step and the epoch loop (port of
-``csof_tpu/training/trainer.py`` for ``model="segflow"``, ``"unet2d"`` and
-``"unet3d"``).
+``csof_tpu/training/trainer.py``, every model kind: ``"segflow"``,
+``"unet2d"``, ``"unet3d"``, ``"raft"`` and ``"voxelmorph"``).
 
 A SegFlow step is: batch to the device, the batched SegFlow forward, the
 loss of each video (means over the batch of per-video losses, as the JAX
@@ -22,9 +22,14 @@ reads the port's ``.pt`` triad or the JAX package's msgpack one. SegFlow
 trains in every ``corr_fuse`` mode but the forward-only ``fused_cm``, with
 ``fuse_q_hoist``, ``deep_supervision`` (its loss branch),
 ``dec_upsample="linear"`` and ``remat``; under ``CSOF_CONV2D_IMPL=pallas``
-its routed convs run K6 both ways. Not ported: the other model kinds,
-sharding over a mesh, compile-draw autotuning, TensorBoard and progress
-plots.
+its routed convs run K6 both ways. A RAFT step takes "image1" and
+"image2" (B, H, W, C): the sequence loss over the iterations where the
+batch holds "flow_gt", else the NCC of "image2" warped (border) by the last
+flow against "image1" plus its smoothness; a VoxelMorph step takes
+"moving" and "fixed" (B, H, W, C): ``image_flow_global`` x NCC(registered,
+fixed) + ``regularization_xy`` x the flow's smoothness. Neither is
+augmented, as in JAX; both run the library's convs. Not ported: sharding
+over a mesh, compile-draw autotuning, TensorBoard and progress plots.
 """
 
 from __future__ import annotations
@@ -42,21 +47,26 @@ import torch
 from csof_tpu_torch.compat.flax_import import load_flax_train_state
 from csof_tpu_torch.config.experiment import ExperimentConfig
 from csof_tpu_torch.data.augment import augment_batch_2d, augment_video, step_generator
+from csof_tpu_torch.models.raft import RAFT
 from csof_tpu_torch.models.segflow import SegFlow
 from csof_tpu_torch.models.unet import GenericUNet, conv_impl_from_env, unet_from_plans
+from csof_tpu_torch.models.voxelmorph import VoxelMorph
 from csof_tpu_torch.ops import losses as L
-from csof_tpu_torch.ops.warp import warp_image_cm
+from csof_tpu_torch.ops.warp import warp_batch, warp_image_cm
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.schedules import build_optimizer
 
 TRAINED_CORR_FUSE = ("concat", "split", "project", "mean1", "concat_cm")
-TRAINED_KINDS = ("segflow", "unet2d", "unet3d")
+TRAINED_KINDS = ("segflow", "unet2d", "unet3d", "raft", "voxelmorph")
 UNET_KINDS = ("unet2d", "unet3d")
+#: the kinds whose train step augments its batch (as in JAX)
+AUGMENTED_KINDS = ("unet2d", "segflow")
 
 
 def build_model(config: ExperimentConfig, num_classes: int | None = None,
                 generator: torch.Generator | None = None, plans=None) -> torch.nn.Module:
-    """The model of ``config``: SegFlow, or the U-Net of ``plans`` (without
+    """The model of ``config``: SegFlow, RAFT or 2D VoxelMorph on one-channel
+    frames, or the U-Net of ``plans`` (without
     plans the JAX package's default: base 16, 4 pools of 2 and kernels of 3
     in every axis, 2-D for ``unet2d`` and 3-D for ``unet3d``, no remat). The
     models read their kernel switches from the environment as the JAX
@@ -65,6 +75,10 @@ def build_model(config: ExperimentConfig, num_classes: int | None = None,
     kind = config.model
     if kind == "segflow":
         return SegFlow(config.segflow, num_classes or 4, generator=generator)
+    if kind == "raft":
+        return RAFT(config.raft, 1, generator)
+    if kind == "voxelmorph":
+        return VoxelMorph(config.voxelmorph, 1, 2, generator)
     if kind in UNET_KINDS:
         if plans is not None:
             return unet_from_plans(plans, deep_supervision=config.deep_supervision,
@@ -75,7 +89,7 @@ def build_model(config: ExperimentConfig, num_classes: int | None = None,
                            deep_supervision=config.deep_supervision,
                            fused_norm_act=os.environ.get("CSOF_FUSED_NORM", "0") == "1",
                            conv_impl=conv_impl_from_env(nd), generator=generator)
-    raise NotImplementedError(f"model {kind!r} is not ported (ported: {TRAINED_KINDS})")
+    raise ValueError(f"unknown model kind {kind!r}")
 
 
 def _check_trainable(config: ExperimentConfig, for_training: bool = True) -> None:
@@ -89,8 +103,9 @@ def _check_trainable(config: ExperimentConfig, for_training: bool = True) -> Non
             f"training with corr_fuse={config.segflow.corr_fuse!r} is not ported: kernel K3 "
             f"has no backward, in the JAX package either (trained: {TRAINED_CORR_FUSE})")
     # K5 runs on 2D blocks only (InstanceNorm on a 4-D tensor in JAX): a 3D
-    # U-Net trains with the switch set, as it does in the JAX package
-    if config.model != "unet3d" and os.environ.get("CSOF_FUSED_NORM", "0") == "1":
+    # U-Net trains with the switch set, as it does in the JAX package, and so
+    # do RAFT and VoxelMorph, which never run it
+    if config.model in ("unet2d", "segflow") and os.environ.get("CSOF_FUSED_NORM", "0") == "1":
         raise NotImplementedError(
             "CSOF_FUSED_NORM=1 (fused_norm_act) runs kernel K5, which has no backward: the "
             "JAX package uses it for inference only. Unset it to train.")
@@ -199,13 +214,55 @@ def make_segflow_loss(config: ExperimentConfig):
     return loss_fn
 
 
+def make_voxelmorph_loss(config: ExperimentConfig):
+    """loss_fn(model, batch) -> (image_flow_global * NCC(registered, fixed) +
+    regularization_xy * smoothness of the flow, {"ncc", "smooth"}). batch:
+    "moving", "fixed" (B, *spatial, C)."""
+    w = config.loss_weights
+
+    def loss_fn(model: torch.nn.Module, batch: dict):
+        out = model(batch["moving"], batch["fixed"])
+        ncc = L.ncc_loss(out["registered"], batch["fixed"])
+        smooth = L.spatial_gradient_penalty(out["flow"])
+        return w.image_flow_global * ncc + w.regularization_xy * smooth, {"ncc": ncc,
+                                                                          "smooth": smooth}
+
+    return loss_fn
+
+
+def make_raft_loss(config: ExperimentConfig):
+    """loss_fn(model, batch) -> (loss, metrics). batch: "image1", "image2"
+    (B, H, W, C) and optionally "flow_gt" (B, H, W, 2): with it, the sequence
+    loss over the iterations (gamma ``raft_sequence_gamma``); without, NCC of
+    image2 warped (border) by the last flow against image1, plus that flow's
+    smoothness."""
+    gamma = config.loss_weights.raft_sequence_gamma
+
+    def loss_fn(model: torch.nn.Module, batch: dict):
+        flows = model(batch["image1"], batch["image2"])  # (iters, B, H, W, 2)
+        if "flow_gt" in batch:
+            loss = L.raft_sequence_loss(flows, batch["flow_gt"], gamma=gamma)
+            return loss, {"seq_loss": loss}
+        final = flows[-1]
+        warped = warp_batch(batch["image2"], final, padding="border")
+        ncc = L.ncc_loss(warped, batch["image1"])
+        smooth = L.spatial_gradient_penalty(final)
+        return ncc + smooth, {"ncc": ncc, "smooth": smooth}
+
+    return loss_fn
+
+
 def make_loss_fn(config: ExperimentConfig):
     """The loss of ``config.model``: loss_fn(model, batch) -> (loss, aux)."""
     if config.model in UNET_KINDS:
         return make_seg_loss(config)
     if config.model == "segflow":
         return make_segflow_loss(config)
-    raise NotImplementedError(f"the loss of model {config.model!r} is not ported")
+    if config.model == "voxelmorph":
+        return make_voxelmorph_loss(config)
+    if config.model == "raft":
+        return make_raft_loss(config)
+    raise ValueError(f"unknown model kind {config.model!r}")
 
 
 @dataclass
@@ -231,7 +288,7 @@ class _TrainingLog:
 
 
 class Trainer:
-    """Config-driven trainer of SegFlow or the 2D U-Net on one device
+    """Config-driven trainer of any model kind on one device
     (``"cuda"`` unless told otherwise). ``train_iter`` / ``val_iter`` yield
     host (numpy) batch dicts with a leading batch axis, as
     :class:`csof_tpu_torch.data.loaders.VideoChunkLoader` and
@@ -313,7 +370,7 @@ class Trainer:
         t0 = time.perf_counter()
         batch = self._to_device(batch)
         # the JAX step augments only the 2D U-Net's and SegFlow's batches
-        if train and self.config.data.do_data_aug and self.config.model != "unet3d":
+        if train and self.config.data.do_data_aug and self.config.model in AUGMENTED_KINDS:
             batch = self.augment(batch)
         if train:
             loss, aux = self.loss_fn(self.model, batch)

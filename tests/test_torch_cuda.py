@@ -991,3 +991,67 @@ def test_unet3d_predict_case_fits_at_its_tile_batch(cuda, tmp_path):
     assert res["softmax"].shape == (2, *shape) and np.isfinite(res["softmax"]).all()
     total = torch.cuda.get_device_properties(0).total_memory
     assert peak < total / 2, f"peak {peak / 2**30:.2f} GiB of {total / 2**30:.2f}"
+
+
+@pytest.mark.cuda
+def test_small_finalflow_on_the_card_launches_k6_k5_and_matches_the_cpu(cuda):
+    """FinalFlow under both switches (instance norm): K6 and K5 on the card
+    as often as FinalFlow.kernel_launches says, the outputs against the CPU's
+    plain versions (float32)."""
+    from csof_tpu_torch.models.finalflow import FinalFlow, FinalFlowConfig
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    for bottleneck in ("gru", "3d", "transformer"):
+        cfg = FinalFlowConfig(out_encoder_dims=(8, 16), bottleneck_type=bottleneck,
+                              bottleneck_heads=2, norm="instance", diffeomorphic=True,
+                              int_steps=3, dtype="float32")
+        cpu = FinalFlow(cfg, torch.Generator().manual_seed(0), conv_impl="pallas",
+                        fused_norm_act=True).eval()
+        gpu = FinalFlow(cfg, conv_impl="pallas", fused_norm_act=True).to(cuda).eval()
+        gpu.load_state_dict(cpu.state_dict())
+        video = torch.from_numpy(np.random.RandomState(1).rand(2, 3, 64, 64, 1)
+                                 .astype(np.float32))
+        k5.launches = k6.launches = 0
+        with torch.inference_mode():
+            got = gpu(video.to(cuda))
+            torch.cuda.synchronize()
+            want = gpu.kernel_launches(3, 64)
+            assert (k5.launches, k6.launches) == (want["K5"], want["K6"]) == (16, 14)
+            ref = cpu(video)
+        for k in ("flow", "flow_forward", "registered", "velocity"):
+            _close(got[k], ref[k], (1e-3, 1e-3))
+
+
+@pytest.mark.cuda
+def test_small_raft_and_voxelmorph_on_the_card_match_the_cpu(cuda):
+    """RAFT (the all-pairs volume, the window lookup, convex upsampling) and
+    VoxelMorph 2D and 3D (the warps, the integration) on the card against
+    the CPU, float32."""
+    from csof_tpu_torch.config.experiment import RaftModelConfig, VoxelMorphModelConfig
+    from csof_tpu_torch.models.raft import RAFT
+    from csof_tpu_torch.models.voxelmorph import VoxelMorph
+
+    rng = np.random.RandomState(3)
+    cfg = RaftModelConfig(feature_dim=32, hidden_dim=16, context_dim=16, iters=3,
+                          corr_levels=3, dtype="float32")
+    cpu = RAFT(cfg, generator=torch.Generator().manual_seed(0)).eval()
+    gpu = RAFT(cfg).to(cuda).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    a = torch.from_numpy(rng.rand(2, 48, 64, 1).astype(np.float32))
+    b = torch.roll(a, (1, 2), (1, 2))
+    with torch.inference_mode():
+        _close(gpu(a.to(cuda), b.to(cuda)), cpu(a, b), (1e-3, 1e-3))
+    vcfg = VoxelMorphModelConfig(enc_features=(4, 8, 8), dec_features=(8, 8, 8, 4),
+                                 dtype="float32")
+    for shape in ((3, 32, 40, 1), (2, 8, 16, 24, 1)):
+        cpu = VoxelMorph(vcfg, ndim=len(shape) - 2, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            cpu.flow_head.weight.mul_(3e4)  # fields of a few pixels
+        gpu = VoxelMorph(vcfg, ndim=len(shape) - 2).to(cuda)
+        gpu.load_state_dict(cpu.state_dict())
+        moving, fixed = (torch.from_numpy(rng.rand(*shape).astype(np.float32)) for _ in "ab")
+        with torch.inference_mode():
+            got, ref = gpu(moving.to(cuda), fixed.to(cuda)), cpu(moving, fixed)
+        for k in ("flow", "flow_inverse", "registered"):
+            _close(got[k], ref[k], (1e-4, 1e-4))

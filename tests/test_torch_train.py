@@ -496,8 +496,9 @@ def test_trainer_runs_an_epoch_and_writes_the_checkpoint_triad(tmp_path):
 
 def test_trainer_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path):
     """What the trainer still refuses: fused_cm (K3 has no backward, in the
-    JAX package either) and unported model kinds. Augmentation, every other
-    corr_fuse mode, deep supervision, the linear decoder and remat train."""
+    JAX package either) and unknown model kinds. Augmentation, every other
+    corr_fuse mode, deep supervision, the linear decoder and remat train, and
+    every model kind of the JAX trainer builds (RAFT since it was ported)."""
     assert trainer.Trainer(_torch_config(), tmp_path).device.type == "cuda"
     aug = _torch_config()
     aug.data.do_data_aug = True
@@ -506,8 +507,10 @@ def test_trainer_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path):
         _torch_config().segflow, corr_fuse="fused_cm"))
     with pytest.raises(NotImplementedError, match="not ported"):
         trainer.Trainer(cfg, tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.build_model(dataclasses.replace(_torch_config(), model="raft"))
+    assert type(trainer.build_model(dataclasses.replace(_torch_config(), model="raft"))
+                ).__name__ == "RAFT"
+    with pytest.raises(ValueError, match="unknown model kind"):
+        trainer.build_model(dataclasses.replace(_torch_config(), model="swin"))
     for seg_kw in (dict(corr_fuse="split", fuse_q_hoist=True, remat=True),
                    dict(corr_fuse="project", dec_upsample="linear"),
                    dict(corr_fuse="mean1", deep_supervision=True)):

@@ -523,13 +523,14 @@ def test_unet_trainer_refuses_fused_norm_augmentation_and_3d(tmp_path, monkeypat
     aug.data.do_data_aug = True  # augmentation trains since it was ported
     trainer.Trainer(aug, tmp_path, device="cpu")
     # the 3D U-Net trains since it was ported, with CSOF_FUSED_NORM=1 too (K5
-    # never runs on its 5-D tensors); unported kinds are refused
+    # never runs on its 5-D tensors), and so does VoxelMorph since it was
+    # ported (it runs no K5); unknown kinds are refused
     monkeypatch.setenv("CSOF_FUSED_NORM", "1")
     trainer.Trainer(dataclasses.replace(_config(), model="unet3d"), tmp_path, device="cpu")
+    trainer.Trainer(dataclasses.replace(_config(), model="voxelmorph"), tmp_path, device="cpu")
     monkeypatch.delenv("CSOF_FUSED_NORM")
     with pytest.raises(NotImplementedError, match="not ported"):
-        trainer.Trainer(dataclasses.replace(_config(), model="voxelmorph"), tmp_path,
-                        device="cpu")
+        trainer.Trainer(dataclasses.replace(_config(), model="swin"), tmp_path, device="cpu")
     net = trainer.build_model(_config(), 3)  # the no-plans default: base 16, 4 pools
     assert net.num_pool == 4 and net.base_num_features == 16
 
