@@ -4,7 +4,9 @@ nnU-Net 2D serving and training paths once on one NVIDIA GPU, then SegFlow
 under the JAX package's kernel switches and in its other configurations,
 then the port's command line, its strain analysis and its data plane, then
 the nnU-Net 3d_fullres U-Net's training and serving and the cascade, then
-the flow models: RAFT, VoxelMorph and FinalFlow.
+the flow models: RAFT, VoxelMorph and FinalFlow; model selection,
+postprocessing and the model zoo on phase 23's folds; MTL, Swin, the
+temporal and the deformable models.
 
     python3 chip_smoke.py
 
@@ -206,8 +208,27 @@ Phases, each printed on its own line:
    forwards gave them, float32 and bf16, with one forward's kernel, plain,
    library and bound ms; each bottleneck's float32 forward under pallas card
    vs CPU at 1 x 6 x 128^2.
+32. nnunet tail (run inside phase 23's folder, after it): the planned 2d
+   and 3d U-Nets predict phase 23's served cases with --save-npz (both
+   softmaxes at the cropped original geometry, as JAX compares them; the
+   3d_fullres U-Net of phases 24-27 and the 2d U-Net of phase 14 trained
+   on other cases); csof_torch_find_best_configuration over the two and
+   their ensemble, csof_torch_determine_postprocessing on the 2d
+   predictions; csof_torch_export_model_to_zip -> install_model_from_zip
+   of the 2d fold, whose predictions must be the same bits;
+   print_available_models, change_model, plot_task_pngs; the fold's
+   debug.json, network_architecture.txt, progress.png (decoded, 1000 x
+   600) and timestamped training log; each command's host seconds.
+33. family: MTL (conv and Swin encoders, reconstruction and directional
+   field, MTLConfig() widths, 16 x 256 x 224), the temporal model (8 cines
+   x 12 frames x 128^2, 12 frames past its bus of 8) and the deformable
+   layer (d = 128, 32 x 32 maps, batch 96), float32 and bf16, the switches
+   off and on (with instance norm: CSOF_FUSED_NORM=1 too): K6 and K5
+   launches = kernel_launches = a fresh process's device events, outputs
+   on vs off, ms a forward, peak memory, busy share; K6 and K5 vs plain at
+   every shape these forwards gave them; float32 card vs CPU at batch 1.
 
-Then one JSON line with each kernel's launches, error and times, and, last,
+Then the script's total seconds, one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
 """
 
@@ -218,11 +239,13 @@ import copy
 import json
 import os
 import pickle
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from pathlib import Path
 
 import numpy as np
@@ -350,6 +373,14 @@ CLI_UNET_CASES, CLI_UNET_DEPTH, CLI_UNET_STEPS, CLI_UNET_VAL = 2, 16, 4, 1
 #: the strain analysis card vs CPU (rtol, atol): float32 reductions in
 #: another order; a strain in percent carries 100x a thickness's rounding
 STRAIN_TOL = (1e-5, 1e-4)
+#: phase 33, bf16 forwards with the switches on vs off: within this many
+#: times the largest difference of the switches-off bf16 forward from the
+#: float32 one (bf16's own rounding at that model, measured in the run): K6
+#: and cuDNN (K5 and the plain norm) each round a bf16 output once, and a
+#: one-ulp change moves every layer after it
+FAMILY_BF16_FACTOR = 3.0
+#: phase 33's forwards timed per median (20 cost the phase about 13 s more)
+FAMILY_REPS = 10
 #: phase 23, the data plane at ACDC size: ACDC cines hold about 10 slices of
 #: 200-260 pixels at 1.5 x 1.5 x 5 mm; 4 patients (8 ED/ES cases), the
 #: planned U-Net trained 1 epoch x 3 steps + 1 validation batch, 2 cases served
@@ -462,11 +493,12 @@ def unaligned(t):
     return out
 
 
-def timed_pair(kern, plain) -> tuple[float, float]:
-    """Median ms of kernel and plain version, in the order plain, kernel,
-    kernel, plain, so that drift cancels in the pair."""
-    p1, t1 = median_ms(plain), median_ms(kern)
-    t2, p2 = median_ms(kern), median_ms(plain)
+def timed_pair(kern, plain, reps: int = 20) -> tuple[float, float]:
+    """Median ms of kernel and plain version (``reps`` calls each time), in
+    the order plain, kernel, kernel, plain, so that drift cancels in the
+    pair."""
+    p1, t1 = median_ms(plain, reps), median_ms(kern, reps)
+    t2, p2 = median_ms(kern, reps), median_ms(plain, reps)
     return (t1 + t2) / 2, (p1 + p2) / 2
 
 
@@ -2104,6 +2136,7 @@ def cli_phase(card: str) -> dict:
     from csof_tpu_torch.config.plans import task002_heart_2d
     from csof_tpu_torch.data.dataset import do_split, load_dataset
     from csof_tpu_torch.utils.nifti import load_nifti
+    from csof_tpu_torch.utils.logging import read_training_logs
 
     counts = {}
 
@@ -2134,9 +2167,9 @@ def cli_phase(card: str) -> dict:
             {"K1": CORR_PER_STEP * (steps + evals), "K2": CORR_PER_STEP * steps})
         fold = tmp / "flow" / "fold_0"
         for name in ("config.yaml", "meta.json", "model_final_checkpoint.pt",
-                     "model_final_checkpoint.pt.json", "training_log.txt"):
+                     "model_final_checkpoint.pt.json"):
             expect((fold / name).is_file(), f"csof_torch_train segflow: {name} not written")
-        epochs = [line for line in (fold / "training_log.txt").read_text().splitlines()
+        epochs = [line for lines in read_training_logs(fold) for line in lines
                   if line.startswith("epoch ")]
         losses = [float(line.split(" train ")[1].split()[0]) for line in epochs]
         expect(len(losses) == CLI_FLOW_EPOCHS and all(np.isfinite(losses)),
@@ -2428,13 +2461,12 @@ def check_planned_unet_kernels(card: str, trained: dict, served: dict,
     return err
 
 
-def data_plane_phase(card: str, record3d: dict) -> tuple[dict, dict]:
+def data_plane_phase(card: str, record3d: dict, tail: dict) -> tuple[dict, dict]:
     """Phase 23: the data plane at ACDC size, from a raw synthetic task to a
     trained, served and evaluated planned 2D U-Net, and the kernels against
     their plain versions at every shape it gave them; then the planned 3D
     U-Net (``data_plane_3d``, its K6 shapes into ``record3d``). Returns each
     command's launches and each kernel's max abs error."""
-    import zipfile
 
     from csof_tpu_torch.cli import main as cli
     from csof_tpu_torch.config.experiment import ExperimentConfig
@@ -2529,6 +2561,11 @@ def data_plane_phase(card: str, record3d: dict) -> tuple[dict, dict]:
         phase("data plane", "Dice after the few steps: "
               + ", ".join(f"{k} {v['Dice']:.4f}" for k, v in sorted(scores["mean"].items())))
         data_plane_3d(card, run, a, tmp, served, record3d)
+        t_tail = time.perf_counter()
+        tail.update(nnunet_tail_phase(card, tmp, task, served, {
+            "unet2d": counts["csof_torch_predict planned"],
+            "unet3d": counts["csof_torch_predict unet3d planned"]}))
+        phase("nnunet tail", f"phase 32 took {time.perf_counter() - t_tail:.1f} s")
     return counts, check_planned_unet_kernels(card, train_convs, serve_convs, k5_shapes)
 
 
@@ -2647,6 +2684,7 @@ def unet3d_train(card: str, tmp: Path, root: Path) -> tuple[dict, Path]:
     from csof_tpu_torch.models.unet import unet_from_plans
     from csof_tpu_torch.training.schedules import build_optimizer
     from csof_tpu_torch.training.trainer import Trainer
+    from csof_tpu_torch.utils.logging import read_training_logs
 
     plans = Plans.from_json(root / "plans_3D.json")
     sp = plans.fullres_stage()
@@ -2664,7 +2702,7 @@ def unet3d_train(card: str, tmp: Path, root: Path) -> tuple[dict, Path]:
                 {"K6": U3_K6 * (U3_STEPS + U3_VAL), "K6_dx": U3_K6_DX * U3_STEPS}, card,
                 CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="1")
     fold = tmp / "unet3d" / "fold_0"
-    log = (fold / "training_log.txt").read_text()
+    log = "\n".join(line for lines in read_training_logs(fold) for line in lines)
     expect((fold / "model_final_checkpoint.pt").is_file() and " fg-dice " in log,
            f"unet3d fold not written or no fg-dice in its log: {log[-300:]}")
     phase("unet3d train", f"csof_torch_train: peak device memory "
@@ -3142,10 +3180,11 @@ def flow_device_events() -> dict:
     """``python -m csof_tpu_torch.profile_flow --launches`` in a fresh
     process (one that has taken many traces can lose kernels from its later
     ones): RAFT's and VoxelMorph's host-clock ms, device events and busy ms
-    a call at phases 29-30's geometries, and FinalFlow's K5 and K6 device
-    events a forward (phase 31)."""
+    a call at phases 29-30's geometries, FinalFlow's K5 and K6 device
+    events a forward (phase 31), and phase 33's models' K5 and K6 device
+    events, host-clock ms and busy ms a forward."""
     child = subprocess.run([sys.executable, "-m", "csof_tpu_torch.profile_flow", "--launches"],
-                           capture_output=True, text=True, timeout=300)
+                           capture_output=True, text=True, timeout=480)
     expect(child.returncode == 0, f"profile_flow --launches failed: {child.stderr[-2000:]}")
     return json.loads(child.stdout.strip().splitlines()[-1])
 
@@ -3247,6 +3286,7 @@ def flow_train_command(card: str, tmp: Path, task: Path, kind: str, counts: dict
     port runs."""
     from csof_tpu_torch.cli import main as cli
     from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
+    from csof_tpu_torch.utils.logging import read_training_logs
 
     cfg = ExperimentConfig(model=kind, max_num_epochs=1, num_batches_per_epoch=FLOW_TRAIN_STEPS,
                            num_val_batches_per_epoch=FLOW_TRAIN_VAL,
@@ -3257,9 +3297,11 @@ def flow_train_command(card: str, tmp: Path, task: Path, kind: str, counts: dict
                 ["-c", tmp / f"{kind}.yaml", "-p", tmp / "unused", "-t", task, "-o", tmp / kind],
                 {}, card)
     fold = tmp / kind / "fold_0"
-    for name in ("config.yaml", "meta.json", "model_final_checkpoint.pt", "training_log.txt"):
+    for name in ("config.yaml", "meta.json", "model_final_checkpoint.pt"):
         expect((fold / name).is_file(), f"csof_torch_train {kind}: {name} not written")
-    line = (fold / "training_log.txt").read_text().splitlines()[0]
+    logs = read_training_logs(fold)
+    expect(len(logs) == 1 and logs[0], f"csof_torch_train {kind}: no training log")
+    line = logs[0][0]
     losses = [float(line.split(" train ")[1].split()[0]), float(line.split(" val ")[1].split()[0])]
     expect(all(np.isfinite(losses)), f"csof_torch_train {kind}: losses {losses}")
     phase(kind, f"csof_torch_train {kind}: {line}")
@@ -3457,10 +3499,7 @@ def finalflow_phase(card: str, dev: dict) -> tuple[dict, dict]:
     CPU, at 1 x FF_PARITY_T x FF_HW^2. Returns (launches, kernel entries)."""
     import torch
 
-    from csof_tpu_torch.bounds import bound_ms, conv3x3_work, norm_act_work
     from csof_tpu_torch.models.finalflow import FinalFlow, FinalFlowConfig
-    from csof_tpu_torch.ops.kernels import conv as k6
-    from csof_tpu_torch.ops.kernels import norm_act as k5
 
     rng = np.random.RandomState(51)
     yy, xx = np.mgrid[:FF_HW, :FF_HW]
@@ -3524,66 +3563,10 @@ def finalflow_phase(card: str, dev: dict) -> tuple[dict, dict]:
           f"{ {name: {k: dev[name][k] for k in ('K5', 'K6')} for name, _ in runs} } = the "
           f"wrapper counts = FinalFlow.kernel_launches")
 
-    gen = torch.Generator(device="cuda").manual_seed(53)
-    err = {"K5": 0.0, "K6": 0.0}
-    sums = {"K5": [0.0, 0.0, 0.0], "K6": [0.0, 0.0, 0.0]}
-    works = {"K5": [], "K6": []}
-    for (shape, dtype, co, bias, _), calls in sorted(k6_calls.items(), key=str):
-        n, ci, h, w = shape
-        for dt in (torch.bfloat16, torch.float32):
-            dname = str(dt).removeprefix("torch.")
-            x = torch.randn(*shape, generator=gen, device="cuda").to(dt)
-            wt = torch.randn(co, ci, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * ci)) ** 0.5
-            bb = torch.randn(co, generator=gen, device="cuda") * 0.1 if bias else None
-            got = k6.conv3x3_cuda(x, wt, bb)
-            torch.cuda.synchronize()
-            err["K6"] = max(err["K6"], compare(
-                "finalflow", f"K6 {dname} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, {w})", got,
-                k6.conv3x3_plain(x, wt, bb), *UNET_TOL[("K6", dname)]))
-            if dt != dtype:
-                continue
-            per = calls / len(runs)  # one forward's calls at this shape (each run's are equal)
-            t, p = timed_pair(lambda: k6.conv3x3_cuda(x, wt, bb),
-                              lambda: k6.conv3x3_plain(x, wt, bb))
-            lib = median_ms(lambda: torch.nn.functional.conv2d(
-                x, wt.to(dt), None if bb is None else bb.to(dt), padding=1))
-            sums["K6"] = [a + per * v for a, v in zip(sums["K6"], (t, p, lib))]
-            works["K6"].append((conv3x3_work(n, h, w, ci, co, 2, bias), per))
-    dtype = torch.bfloat16  # FinalFlowConfig()'s: K5 ran on bf16 tensors
-    for shape, calls in sorted(k5_calls.items()):
-        n, c, h, w = shape
-        for dt in (torch.bfloat16, torch.float32):
-            dname = str(dt).removeprefix("torch.")
-            x = (torch.randn(*shape, generator=gen, device="cuda") * 2 + 0.5).to(dt)
-            scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
-            bias = 0.2 * torch.randn(c, generator=gen, device="cuda")
-            got = k5.norm_act_cuda(x, scale, bias)
-            torch.cuda.synchronize()
-            err["K5"] = max(err["K5"], compare(
-                "finalflow", f"K5 {dname} (N, C, H, W)={shape}", got,
-                k5.norm_act_plain(x, scale, bias), *UNET_TOL[("K5", dname)]))
-            if dt != dtype:
-                continue
-            t, p = timed_pair(lambda: k5.norm_act_cuda(x, scale, bias),
-                              lambda: k5.norm_act_plain(x, scale, bias))
-            lib = median_ms(lambda: torch.nn.functional.leaky_relu(
-                torch.nn.functional.instance_norm(x, weight=scale.to(dt), bias=bias.to(dt),
-                                                  eps=1e-5), 0.01))
-            sums["K5"] = [a + calls * v for a, v in zip(sums["K5"], (t, p, lib))]
-            works["K5"].append((norm_act_work(n, c, h, w, 2), calls))
-    entries = {}
-    for key, what in (("K6", "one gru forward under pallas"),
-                      ("K5", "one instance-norm forward")):
-        summed = [sum(c * wk[i] for wk, c in works[key]) for i in range(len(works[key][0][0]))]
-        bnd, by = bound_ms(*summed)
-        t, p, lib = sums[key]
-        phase("finalflow", f"{key} bf16, {what} ({sum(c for _, c in works[key]):.0f} launches at "
-              f"{len(works[key])} shapes): kernel {t:.4f} ms, plain {p:.4f} ms, "
-              f"{'library' if key == 'K6' else 'library note (F.instance_norm + F.leaky_relu)'} "
-              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}) ({card})")
-        entries[key] = {"ms": t, "plain_ms": p, ("library_ms" if key == "K6" else
-                                                  "library_note_ms"): lib,
-                        "bound_ms": bnd, "bound_by": by, "max_abs_err": err[key]}
+    # one forward's K6 calls: each run made the same calls; K5 ran in the instance run only
+    entries = recorded_kernel_checks(
+        "finalflow", k6_calls, k5_calls, {k: c / len(runs) for k, c in k6_calls.items()},
+        k5_calls, torch.bfloat16, card, seed=53)
 
     small = torch.from_numpy(videos[:1, :FF_PARITY_T])
     for bt in ("gru", "3d", "transformer"):
@@ -3598,6 +3581,294 @@ def finalflow_phase(card: str, dev: dict) -> tuple[dict, dict]:
             compare("finalflow", f"float32 {bt} under pallas (1, {FF_PARITY_T}, {FF_HW}, {FF_HW}, "
                     f"1): {k} GPU vs CPU (flows up to {float(ref['flow'].abs().max()):.2f} px)",
                     got[k].cpu(), ref[k], *MODEL_TOL)
+    return counts, entries
+
+
+# -- phase 32: the nnU-Net tail -----------------------------------------------
+
+
+def nnunet_tail_phase(card: str, tmp: Path, task: Path, served: list, want: dict) -> dict:
+    """Phase 32, inside phase 23's folder: the planned 2d and 3d U-Nets
+    (trained there on one task) predict its served cases again with the
+    softmax saved (both softmaxes at the cases' cropped original geometry,
+    so they compare as JAX compares them); find_best_configuration over the
+    two and their ensemble, determine_postprocessing on the 2d predictions;
+    export_model_to_zip -> install_model_from_zip of the 2d fold, whose
+    predictions must be the same bits; print_available_models over the
+    folders, change_model on the installed one, plot_task_pngs of the task;
+    the 2d fold's debug.json, network_architecture.txt, progress.png and
+    training log. ``want``: the launches of phase 23's predictions of the
+    same cases. Each command's host seconds; returns the launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.experiment import load_experiment_config
+    from csof_tpu_torch.utils.logging import read_training_logs
+    from csof_tpu_torch.utils.nifti import load_nifti
+    from csof_tpu_torch.utils.png import read_png
+
+    counts: dict = {}
+    switches = dict(CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="1")
+
+    def run(name, entry, argv, launches=None):
+        return run_command(counts, "nnunet tail", name, entry, argv, launches or {}, card,
+                           **switches)
+
+    folds = {"unet2d": tmp / "unet" / "fold_0", "unet3d": tmp / "unet3d" / "fold_0"}
+    for kind, fold in folds.items():
+        run(f"csof_torch_predict --save-npz {kind}", cli.predict_entry,
+            ["-m", fold, "-i", tmp / "imagesTs", "-o", tmp / f"sel_{kind}", "--save-npz"],
+            want[kind])
+    labels = ["-l", "1", "2", "3"]
+    run("csof_torch_find_best_configuration", cli.find_best_configuration_entry,
+        ["-f", *(f"{k}={tmp / f'sel_{k}'}" for k in folds), "-r", task / "labelsTr", *labels,
+         "-o", tmp / "best.json"])
+    best = json.loads((tmp / "best.json").read_text())
+    names = {"unet2d", "unet3d", "ensemble_unet2d+unet3d"}
+    expect(set(best["scores"]) == names and best["best"] in names
+           and all(0 <= v <= 1 for v in best["scores"].values()), f"selection {best}")
+    run("csof_torch_determine_postprocessing", cli.determine_postprocessing_entry,
+        ["-p", tmp / "sel_unet2d", "-r", task / "labelsTr", *labels])
+    post = json.loads((tmp / "sel_unet2d" / "postprocessing.json").read_text())
+    expect(set(post) == {"for_which_classes", "dice_after"}, f"postprocessing {post}")
+    phase("nnunet tail", f"scores {best['scores']}, best {best['best']}, its postprocessing "
+          f"{best['postprocessing']['for_which_classes']}; the 2d predictions' {post}")
+
+    run("csof_torch_export_model_to_zip", cli.export_model_entry,
+        ["-m", folds["unet2d"], "-o", tmp / "unet2d.zip"])
+    with zipfile.ZipFile(tmp / "unet2d.zip") as z:
+        members = z.namelist()
+    expect({"model_final_checkpoint.pt", "config.yaml", "plans.json", "debug.json"}
+           <= set(members), f"zip members {members}")
+    installed = tmp / "zoo" / "unet2d" / "fold_0"
+    run("csof_torch_install_model_from_zip", cli.install_model_entry,
+        [tmp / "unet2d.zip", "-o", installed])
+    run("csof_torch_predict installed", cli.predict_entry,
+        ["-m", installed, "-i", tmp / "imagesTs", "-o", tmp / "sel_installed", "--save-npz"],
+        want["unet2d"])
+    for c in served:
+        same = (np.array_equal(load_nifti(tmp / "sel_installed" / f"{c}.nii.gz").data_czyx,
+                               load_nifti(tmp / "sel_unet2d" / f"{c}.nii.gz").data_czyx)
+                and np.array_equal(np.load(tmp / "sel_installed" / f"{c}.npz")["softmax"],
+                                   np.load(tmp / "sel_unet2d" / f"{c}.npz")["softmax"]))
+        expect(same, f"{c}: the installed fold predicts other bits")
+    shutil.copytree(folds["unet3d"], tmp / "zoo" / "unet3d" / "fold_0")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        run("csof_torch_print_available_models", cli.print_models_entry, ["-r", tmp / "zoo"])
+    print(buf.getvalue(), end="", flush=True)
+    listing = [line for line in buf.getvalue().splitlines() if "  model=" in line]
+    expect([line.split("model=")[1] for line in listing] == ["unet2d", "unet3d"],
+           f"listing {listing}")
+    run("csof_torch_change_model", cli.change_model_entry, ["-m", installed, "-k", "unet3d"])
+    expect(load_experiment_config(installed / "config.yaml").model == "unet3d",
+           "change_model did not change the kind")
+    run("csof_torch_plot_task_pngs", cli.plot_task_pngs_entry,
+        ["-t", task, "-o", tmp / "overlays"])
+    pngs = sorted((tmp / "overlays").glob("*.png"))
+    expect(len(pngs) == len(list((task / "labelsTr").glob("*.nii.gz")))
+           and all(read_png(f).shape == (*DP_SHAPE[1:], 4) for f in pngs),
+           f"{len(pngs)} overlays")
+    phase("nnunet tail", f"the installed fold predicts the same bits for {len(served)} cases; "
+          f"{listing}; {len(pngs)} overlays {DP_SHAPE[1:]} RGBA")
+
+    fold = folds["unet2d"]
+    debug = json.loads((fold / "debug.json").read_text())
+    expect(debug["device_name"] == torch.cuda.get_device_name(0)
+           and debug["model_class"] == "GenericUNet" and debug["num_parameters"] > 0,
+           f"debug.json {sorted(debug)}")
+    arch = (fold / "network_architecture.txt").read_text()
+    expect(arch.endswith(f"total params: {debug['num_parameters']:,}"), "architecture total")
+    expect(read_png(fold / "progress.png").shape == (600, 1000, 3), "progress.png size")
+    logs = read_training_logs(fold)
+    expect(len(logs) == 1 and logs[0][0].startswith("epoch 1: train "), f"training log {logs}")
+    phase("nnunet tail", f"fold files: debug.json ({debug['num_parameters']:,} parameters on "
+          f"{debug['device_name']}), network_architecture.txt, progress.png 1000 x 600, "
+          f"{len(list(fold.glob('training_log_*.txt')))} timestamped log: {logs[0][0]}")
+    return counts
+
+
+# -- phase 33: MTL, Swin, temporal and deformable -----------------------------
+
+
+def recorded_kernel_checks(label: str, k6_shapes, k5_shapes, k6_forward: dict,
+                           k5_forward: dict, k5_dtype, card: str, seed: int = 61) -> dict:
+    """K6 and K5 against their plain versions (bf16 and float32, phase 9's
+    tolerances) at every recorded shape (``conv_shapes`` / ``norm_act_shapes``
+    keys), then one forward's summed kernel, plain and library ms and bound
+    at the dtype it ran them: ``k6_forward`` / ``k5_forward`` map a recorded
+    shape to its calls in that forward (K5's ran at ``k5_dtype``). Returns
+    {"K5", "K6": {ms, plain_ms, library_ms (K5: library_note_ms), bound_ms,
+    bound_by, max_abs_err}}."""
+    import torch
+
+    from csof_tpu_torch.bounds import bound_ms, conv3x3_work, norm_act_work
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    err = {"K5": 0.0, "K6": 0.0}
+    sums = {"K5": [0.0, 0.0, 0.0], "K6": [0.0, 0.0, 0.0]}
+    works = {"K5": [], "K6": []}
+    for key in sorted(set(k6_shapes), key=str):
+        (n, ci, h, w), dtype, co, bias, _ = key
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).removeprefix("torch.")
+            x = torch.randn(n, ci, h, w, generator=gen, device="cuda").to(dt)
+            wt = torch.randn(co, ci, 3, 3, generator=gen, device="cuda") * (2.0 / (9 * ci)) ** 0.5
+            bb = torch.randn(co, generator=gen, device="cuda") * 0.1 if bias else None
+            got = k6.conv3x3_cuda(x, wt, bb)
+            torch.cuda.synchronize()
+            err["K6"] = max(err["K6"], compare(
+                label, f"K6 {dname} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, {w})", got,
+                k6.conv3x3_plain(x, wt, bb), *UNET_TOL[("K6", dname)]))
+            if dt != dtype or key not in k6_forward:
+                continue
+            t, p = timed_pair(lambda: k6.conv3x3_cuda(x, wt, bb),
+                              lambda: k6.conv3x3_plain(x, wt, bb))
+            lib = median_ms(lambda: torch.nn.functional.conv2d(
+                x, wt.to(dt), None if bb is None else bb.to(dt), padding=1))
+            per = k6_forward[key]
+            sums["K6"] = [a + per * v for a, v in zip(sums["K6"], (t, p, lib))]
+            works["K6"].append((conv3x3_work(n, h, w, ci, co, x.element_size(), bias), per))
+    for shape in sorted(set(k5_shapes)):
+        n, c, h, w = shape
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).removeprefix("torch.")
+            x = (torch.randn(*shape, generator=gen, device="cuda") * 2 + 0.5).to(dt)
+            scale = 1.0 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+            bias = 0.2 * torch.randn(c, generator=gen, device="cuda")
+            got = k5.norm_act_cuda(x, scale, bias)
+            torch.cuda.synchronize()
+            err["K5"] = max(err["K5"], compare(
+                label, f"K5 {dname} (N, C, H, W)={shape}", got,
+                k5.norm_act_plain(x, scale, bias), *UNET_TOL[("K5", dname)]))
+            if dt != k5_dtype or shape not in k5_forward:
+                continue
+            t, p = timed_pair(lambda: k5.norm_act_cuda(x, scale, bias),
+                              lambda: k5.norm_act_plain(x, scale, bias))
+            lib = median_ms(lambda: torch.nn.functional.leaky_relu(
+                torch.nn.functional.instance_norm(x, weight=scale.to(dt), bias=bias.to(dt),
+                                                  eps=1e-5), 0.01))
+            per = k5_forward[shape]
+            sums["K5"] = [a + per * v for a, v in zip(sums["K5"], (t, p, lib))]
+            works["K5"].append((norm_act_work(n, c, h, w, x.element_size()), per))
+    entries = {}
+    for key in ("K6", "K5"):
+        summed = [sum(c * wk[i] for wk, c in works[key]) for i in range(len(works[key][0][0]))]
+        bnd, by = bound_ms(*summed)
+        t, p, lib = sums[key]
+        phase(label, f"{key}, one forward ({sum(c for _, c in works[key]):.0f} launches at "
+              f"{len(works[key])} shapes): kernel {t:.4f} ms, plain {p:.4f} ms, "
+              f"{'library' if key == 'K6' else 'library note (F.instance_norm + F.leaky_relu)'} "
+              f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}) ({card})")
+        entries[key] = {"ms": t, "plain_ms": p, ("library_ms" if key == "K6" else
+                                                  "library_note_ms"): lib,
+                        "bound_ms": bnd, "bound_by": by, "max_abs_err": err[key]}
+    return entries
+
+
+def family_phase(card: str, dev: dict) -> tuple[dict, dict]:
+    """Phase 33: MTL (the conv and the Swin encoder, both heads), the
+    temporal model and the deformable layer at full width
+    (profile_flow.FAMILY_RUNS: MTLConfig() on 16 x 256 x 224, the temporal
+    defaults on 8 cines x 12 frames x 128^2, d = 128 over 32 x 32 maps at
+    batch 96; random weights), float32 and bf16, the switches off and on:
+    under them the wrapper counts equal kernel_launches and the device
+    events of a fresh process's trace (``dev``), the outputs match the
+    switches-off ones (float32: MODEL_TOL; bf16: FAMILY_BF16_FACTOR times
+    the switches-off bf16 forward's distance from the float32 one; the
+    decoders' heads scaled by 1e4, so that the logits are of a few units);
+    CUDA-event ms a forward (off, on, on, off),
+    peak memory, the fresh process's busy share; K6 and K5 against their
+    plain versions at every shape these forwards gave them, with one bf16
+    forward's times (MTL conv; its instance-norm run for K5); each model's
+    float32 forward under the switches card vs CPU at batch 1. Returns
+    (launches, kernel entries)."""
+    import torch
+
+    from csof_tpu_torch.profile_flow import FAMILY_RUNS, family_inputs, family_model, family_want
+
+    def build(name, dtype, switch, seed=0):
+        # the decoders' heads start at normal(1e-5): logits of a few units instead
+        model = family_model(name, dtype, switch, seed)
+        with torch.no_grad():
+            for dec in ("seg_decoder", "rec_decoder", "decoder"):
+                if hasattr(model, dec):
+                    getattr(model, dec).Conv_0.weight.mul_(1e4)
+        return model
+
+    counts, k6_calls, k5_calls = {}, {}, {}
+    for name in FAMILY_RUNS:
+        args = tuple(a.cuda() for a in family_inputs(name))
+        ref32 = None
+        for dtype in ("float32", "bfloat16"):
+            models = {sw: build(name, dtype, sw).cuda().eval() for sw in (False, True)}
+            outs = {}
+            for sw, model in models.items():
+                want = {k: v for k, v in family_want(model).items() if v and sw}
+                with torch.inference_mode():
+                    _reset_counts()
+                    with conv_shapes(k6_calls.setdefault((name, dtype), {})), \
+                            norm_act_shapes(k5_calls.setdefault((name, dtype), {})):
+                        out = model(*args)
+                    torch.cuda.synchronize()
+                got = {k: v for k, v in _read_counts().items() if v}
+                expect(got == want, f"{name} {dtype} switch {sw}: launches {got}, expected {want}")
+                if got:
+                    counts[f"{name} {dtype}"] = got
+                outs[sw] = out if isinstance(out, dict) else {"out": out}
+                for k, v in outs[sw].items():
+                    expect(bool(torch.isfinite(v).all()), f"{name} {dtype}: {k} not finite")
+            for k, ref in outs[False].items():
+                tol = MODEL_TOL
+                if dtype == "bfloat16":
+                    own = float((ref.float() - ref32[k]).abs().max())
+                    tol = (FAMILY_BF16_FACTOR * own, 0.0)
+                    phase("family", f"{name} bf16: {k} off the float32 forward by up to "
+                          f"{own:.3e} (max |out| {float(ref32[k].abs().max()):.3f})")
+                compare("family", f"{name} {dtype}: {k} {tuple(ref.shape)} switches on vs off",
+                        outs[True][k], ref, *tol)
+            if dtype == "float32":
+                ref32 = outs[False]
+            with torch.inference_mode():
+                torch.cuda.reset_peak_memory_stats()
+                t_on, t_off = timed_pair(lambda: models[True](*args),
+                                         lambda: models[False](*args), FAMILY_REPS)
+                peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            d = dev[name][dtype]
+            expect({k: d[k] for k in ("K5", "K6")} == d["want"]
+                   == {k: counts.get(f"{name} {dtype}", {}).get(k, 0) for k in ("K5", "K6")},
+                   f"{name} {dtype}: device events {d}, wrapper {counts.get(f'{name} {dtype}')}")
+            phase("family", f"{name} {dtype} {tuple(args[0].shape)}: {t_off:.3f} ms a forward "
+                  f"with the switches off, {t_on:.3f} on (CUDA events, medians of {FAMILY_REPS} "
+                  f"in the order off, on, on, off); launches under them "
+                  f"{counts.get(f'{name} {dtype}', {})} = kernel_launches = device events of a "
+                  f"fresh process; peak {peak:.3f} GiB; the fresh process: "
+                  f"{d['wall_ms']:.3f} ms host clock, busy {d['busy_ms']:.3f} ms, busy share "
+                  f"{d['busy_ms'] / d['wall_ms']:.3f}, {d['events']} device events ({card})")
+            del models, outs
+        torch.cuda.empty_cache()
+
+    for name in FAMILY_RUNS:
+        cpu = build(name, "float32", True, seed=62).eval()
+        gpu = copy.deepcopy(cpu).cuda()
+        small = family_inputs(name, batch=1, seed=63)
+        with torch.inference_mode():
+            got, ref = gpu(*(a.cuda() for a in small)), cpu(*small)
+        got, ref = (o if isinstance(o, dict) else {"out": o} for o in (got, ref))
+        for k in ref:
+            compare("family", f"{name} float32 batch 1 under the switches: {k} GPU vs CPU",
+                    got[k].cpu(), ref[k], *MODEL_TOL)
+
+    entries = recorded_kernel_checks(
+        "family", {k: c for calls in k6_calls.values() for k, c in calls.items()},
+        {k: c for calls in k5_calls.values() for k, c in calls.items()},
+        k6_calls[("mtl conv", "bfloat16")], k5_calls[("mtl conv instance + K5", "bfloat16")],
+        torch.bfloat16, card)
     return counts, entries
 
 
@@ -3619,6 +3890,7 @@ def main() -> int:
         print(f"chip_smoke: the csof_tpu_torch package is missing: {e}", file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card, flush=True)
     torch.backends.cudnn.allow_tf32 = False
@@ -3695,10 +3967,11 @@ def main() -> int:
     t_dp = time.perf_counter()
     torch.cuda.empty_cache()
     record3d = {}
-    dp_counts, dp_errs = data_plane_phase(card, record3d)
+    tail_counts: dict = {}
+    dp_counts, dp_errs = data_plane_phase(card, record3d, tail_counts)
     for k, e in dp_errs.items():
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
-    phase("data plane", f"phase 23 took {time.perf_counter() - t_dp:.1f} s")
+    phase("data plane", f"phase 23 took {time.perf_counter() - t_dp:.1f} s (phase 32 included)")
     t_u3 = time.perf_counter()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmpdir:
@@ -3729,6 +4002,14 @@ def main() -> int:
                                         ff_entries[k].pop("max_abs_err"))
         kernels[k].update({f"finalflow_bf16_{name}": v for name, v in ff_entries[k].items()})
     phase("flow models", f"phases 29-31 took {time.perf_counter() - t_flow:.1f} s")
+    t_fam = time.perf_counter()
+    torch.cuda.empty_cache()
+    fam_counts, fam_entries = family_phase(card, dev["family"])
+    for k in ("K5", "K6"):
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"],
+                                        fam_entries[k].pop("max_abs_err"))
+        kernels[k].update({f"family_bf16_{name}": v for name, v in fam_entries[k].items()})
+    phase("family", f"phase 33 took {time.perf_counter() - t_fam:.1f} s")
 
     paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
              "unet_training": unet_train_counts, "ncc_op": ncc_counts,
@@ -3740,7 +4021,9 @@ def main() -> int:
              **{name.replace("csof_torch_", "data plane ").replace(" --", " "): c
                 for name, c in dp_counts.items()},
              "unet3d_training": u3_train_counts, "unet3d_serving": u3_serve_counts,
-             "cascade": cascade_counts, **raft_counts, **vxm_counts, **ff_counts}
+             "cascade": cascade_counts, **raft_counts, **vxm_counts, **ff_counts,
+             **{name.replace("csof_torch_", "nnunet tail ").replace(" --", " "): c
+                for name, c in tail_counts.items()}, **fam_counts}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {
@@ -3776,6 +4059,7 @@ def main() -> int:
          **{key: v for key, v in kernels[k].items() if key not in _MAIN_KEYS}}
         for k, (name, src, rep, lib_call) in sources.items()
     ]}
+    phase("total", f"chip_smoke.py took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps(line), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

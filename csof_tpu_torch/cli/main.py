@@ -24,6 +24,20 @@ Console scripts (``pyproject.toml``), or ``python -m csof_tpu_torch.cli.main
   csof_torch_strain        jacobian, strain and contour tracking of a Flow tree
   csof_torch_jacobian      the same analysis (the JAX package's alias)
   (strain_curve_metric)    AI-vs-GT strain curve metrics, through the dispatch only
+  csof_torch_find_best_configuration  the best configuration or pairwise ensemble by
+                           validation Dice, from softmax npz folders (name=path)
+  csof_torch_determine_postprocessing keep-largest-component decision from validation
+                           predictions: postprocessing.json
+  csof_torch_export_model_to_zip      a trained folder's checkpoints and sidecars as a zip
+  csof_torch_install_model_from_zip   unpack such a zip into a model folder
+  csof_torch_print_available_models   the trained folders under a results root
+  csof_torch_change_model  rewrite the model kind in a folder's config.yaml
+  csof_torch_plot_task_pngs           an image + label overlay PNG per case of a raw task
+
+The last seven do no device work and take no ``--device``. A folder the
+port trained holds ``model_*.pt`` where the JAX package's holds
+``model_*.msgpack``: export keeps both, the listing finds both, and a JAX
+folder exports and lists exactly as in the JAX package.
 """
 
 from __future__ import annotations
@@ -467,12 +481,220 @@ def strain_curve_metric_entry(argv=None):
     print(f"{len(pairs)} cases -> {out_dir}/strain_metrics.csv")
 
 
+def find_best_configuration_entry(argv=None):
+    """The best configuration or pairwise ensemble from validation softmax
+    dumps (``<case>.npz`` with ``softmax``, as csof_torch_predict --save-npz
+    writes them) against the ground-truth labels: a JSON of the scores, the
+    winner and its postprocessing decision."""
+    from csof_tpu_torch.evaluation.model_selection import find_best_configuration
+    from csof_tpu_torch.utils.nifti import load_nifti
+
+    p = argparse.ArgumentParser("csof_torch_find_best_configuration")
+    p.add_argument("-f", "--folders", nargs="+", required=True,
+                   help="named softmax folders as name=path (npz dumps per case)")
+    p.add_argument("-r", "--ref", required=True, help="GT label folder")
+    p.add_argument("-l", "--labels", type=int, nargs="+", required=True)
+    p.add_argument("-o", "--output", default="best_configuration.json")
+    a = p.parse_args(argv)
+    configs, cases = {}, None
+    for spec in a.folders:
+        name, _, path = spec.partition("=")
+        if not path:
+            p.error(f"folder spec must be name=path, got {spec!r}")
+        folder = Path(path)
+        ids = sorted(f.stem for f in folder.glob("*.npz"))
+        if cases is None:
+            cases = ids
+        elif ids != cases:
+            p.error(f"case mismatch between folders: {name}")
+        configs[name] = [np.load(folder / f"{c}.npz")["softmax"] for c in ids]
+    gts = []
+    for c in cases:
+        gt_file = Path(a.ref) / f"{c}.nii.gz"
+        if not gt_file.exists():
+            p.error(f"missing GT {gt_file}")
+        gts.append(load_nifti(gt_file).data_czyx)
+    res = find_best_configuration(configs, gts, a.labels, output_file=a.output)
+    print(json.dumps({"best": res["best"], "scores": res["scores"]}, indent=2))
+
+
+def determine_postprocessing_entry(argv=None):
+    """Decide keep-largest-component postprocessing from validation
+    predictions (``*.nii.gz``) against their labels; postprocessing.json."""
+    from csof_tpu_torch.evaluation.postprocessing import determine_postprocessing
+    from csof_tpu_torch.utils.nifti import load_nifti
+
+    p = argparse.ArgumentParser("csof_torch_determine_postprocessing")
+    p.add_argument("-p", "--pred", required=True, help="validation predictions (*.nii.gz)")
+    p.add_argument("-r", "--ref", required=True, help="GT label folder")
+    p.add_argument("-l", "--labels", type=int, nargs="+", required=True)
+    p.add_argument("-o", "--output", default=None,
+                   help="postprocessing.json path (default: <pred>/postprocessing.json)")
+    a = p.parse_args(argv)
+    pred_dir = Path(a.pred)
+    pairs = [(load_nifti(f).data_czyx, load_nifti(Path(a.ref) / f.name).data_czyx)
+             for f in sorted(pred_dir.glob("*.nii.gz")) if (Path(a.ref) / f.name).exists()]
+    if not pairs:
+        p.error(f"no matching pairs between {a.pred} and {a.ref}")
+    out = a.output or (pred_dir / "postprocessing.json")
+    print(json.dumps(determine_postprocessing(pairs, a.labels, output_file=out), indent=2))
+
+
+#: the files a model zip keeps: the JAX package's checkpoints and sidecars,
+#: and the port's ``.pt`` checkpoints
+EXPORTED_SUFFIXES = (".msgpack", ".json", ".yaml", ".pkl", ".pt")
+
+
+def export_model_entry(argv=None):
+    """A trained folder's checkpoints, sidecars and postprocessing decision
+    (every file with a suffix of EXPORTED_SUFFIXES, subfolders included) as
+    a zip: the JAX command's members, the sidecars deflated and the
+    checkpoints stored (float weights barely compress, and deflating a 2d
+    U-Net's two 236 MB checkpoints took 47 s of host time)."""
+    import zipfile
+
+    p = argparse.ArgumentParser("csof_torch_export_model_to_zip")
+    p.add_argument("-m", "--model", required=True, help="trained folder (e.g. results/fold_0)")
+    p.add_argument("-o", "--output", required=True, help="output .zip")
+    a = p.parse_args(argv)
+    model = Path(a.model)
+    if not model.is_dir():
+        p.error(f"{model} is not a directory")
+    n = 0
+    with zipfile.ZipFile(a.output, "w", zipfile.ZIP_DEFLATED) as z:
+        for f in sorted(model.rglob("*")):
+            if f.is_file() and f.suffix in EXPORTED_SUFFIXES:
+                stored = f.suffix in (".pt", ".msgpack")
+                z.write(f, f.relative_to(model),
+                        compress_type=zipfile.ZIP_STORED if stored else None)
+                n += 1
+    if not n:
+        p.error(f"nothing exportable in {model}")
+    print(f"exported {n} files -> {a.output}")
+
+
+def install_model_entry(argv=None):
+    """Unpack a model zip into a folder; a member that would land outside it
+    is refused before anything is written."""
+    import zipfile
+
+    p = argparse.ArgumentParser("csof_torch_install_model_from_zip")
+    p.add_argument("zip", help="model zip produced by csof_torch_export_model_to_zip")
+    p.add_argument("-o", "--output", required=True, help="target model folder")
+    a = p.parse_args(argv)
+    out = Path(a.output)
+    out.mkdir(parents=True, exist_ok=True)
+    root = out.resolve()
+    with zipfile.ZipFile(a.zip) as z:
+        for name in z.namelist():
+            dest = (out / name).resolve()
+            # a path test, not a string prefix: /x/model2 is not inside /x/model
+            if not (dest == root or dest.is_relative_to(root)):
+                p.error(f"refusing unsafe zip member path {name!r}")
+        z.extractall(out)
+        n = len(z.namelist())
+    print(f"installed {n} files -> {out}")
+
+
+def print_models_entry(argv=None):
+    """The trained folders (a ``model_*.msgpack`` or ``model_*.pt`` inside)
+    under a results root, each with the model kind of its config.yaml."""
+    from csof_tpu_torch.config.paths import default_paths
+
+    p = argparse.ArgumentParser("csof_torch_print_available_models")
+    p.add_argument("-r", "--root", default=None, help="results root (default: CSOF results dir)")
+    a = p.parse_args(argv)
+    root = Path(a.root) if a.root else default_paths().results
+    found = sorted({f.parent for pat in ("model_*.msgpack", "model_*.pt")
+                    for f in Path(root).rglob(pat)})
+    if not found:
+        print(f"no trained models under {root}")
+    for folder in found:
+        cfg = folder / "config.yaml"
+        kind = ""
+        if cfg.exists():
+            for line in cfg.read_text().splitlines():
+                if line.startswith("model:"):
+                    kind = line.split(":", 1)[1].strip()
+        print(f"{folder}  model={kind}")
+
+
+def _sorted_keys(value):
+    """``value`` with every mapping's keys sorted, as PyYAML's safe_dump
+    sorts them by default."""
+    if isinstance(value, dict):
+        return {k: _sorted_keys(value[k]) for k in sorted(value)}
+    if isinstance(value, (list, tuple)):
+        return [_sorted_keys(v) for v in value]
+    return value
+
+
+def change_model_entry(argv=None):
+    """Rewrite the ``model:`` kind in a trained folder's config.yaml, the
+    file written as the JAX package writes it (keys sorted)."""
+    from csof_tpu_torch.utils.yaml_subset import safe_dump, safe_load
+
+    p = argparse.ArgumentParser("csof_torch_change_model")
+    p.add_argument("-m", "--model", required=True, help="trained folder with config.yaml")
+    p.add_argument("-k", "--kind", required=True,
+                   help="new model kind (unet2d/unet3d/segflow/raft/voxelmorph/...)")
+    a = p.parse_args(argv)
+    cfg_path = Path(a.model) / "config.yaml"
+    if not cfg_path.exists():
+        p.error(f"{cfg_path} not found")
+    cfg = safe_load(cfg_path.read_text())
+    old = cfg.get("model")
+    cfg["model"] = a.kind
+    cfg_path.write_text(safe_dump(_sorted_keys(cfg)))
+    print(f"{cfg_path}: model {old} -> {a.kind}")
+
+
+def plot_task_pngs_entry(argv=None):
+    """An overlay PNG (image and label, RGBA) for every labelled case of a
+    raw task folder, at the slice with the most foreground, the image
+    windowed to its 1st-99th percentiles."""
+    from csof_tpu_torch.utils.nifti import load_nifti
+    from csof_tpu_torch.utils.png import write_png
+    from csof_tpu_torch.utils.visualization import seg_overlay
+
+    p = argparse.ArgumentParser("csof_torch_plot_task_pngs")
+    p.add_argument("-t", "--task", required=True, help="raw task folder (imagesTr/ labelsTr/)")
+    p.add_argument("-o", "--output", default=None, help="default: <task>/overlays")
+    a = p.parse_args(argv)
+    task = Path(a.task)
+    out = Path(a.output) if a.output else task / "overlays"
+    out.mkdir(parents=True, exist_ok=True)
+    n = 0
+    for lab in sorted((task / "labelsTr").glob("*.nii.gz")):
+        case = lab.name.replace(".nii.gz", "")
+        img_f = task / "imagesTr" / f"{case}_0000.nii.gz"
+        if not img_f.exists():
+            continue
+        img = load_nifti(img_f).data_czyx
+        seg = load_nifti(lab).data_czyx
+        z = int(np.argmax((seg > 0).sum(axis=(1, 2))))  # the most-foreground slice
+        sl = img[z].astype(np.float32)
+        lo, hi = np.percentile(sl, (1, 99))
+        sl = np.clip((sl - lo) / max(hi - lo, 1e-6), 0, 1)
+        rgb = seg_overlay(sl, seg[z])
+        alpha = np.full(rgb.shape[:2] + (1,), 255, np.uint8)  # as plt.imsave writes RGB
+        write_png(out / f"{case}.png", np.concatenate([rgb, alpha], -1))
+        n += 1
+    print(f"wrote {n} overlays -> {out}")
+
+
 COMMANDS = {"convert_acdc": convert_acdc_entry, "convert_mnms": convert_mnms_entry,
             "convert_decathlon": convert_decathlon_entry,
             "plan_and_preprocess": plan_and_preprocess_entry, "train": train_entry,
             "predict": predict_entry, "predict_flow": predict_flow_entry,
             "evaluate": evaluate_entry, "ensemble": ensemble_entry, "strain": strain_entry,
-            "jacobian": jacobian_entry, "strain_curve_metric": strain_curve_metric_entry}
+            "jacobian": jacobian_entry, "strain_curve_metric": strain_curve_metric_entry,
+            "find_best_configuration": find_best_configuration_entry,
+            "determine_postprocessing": determine_postprocessing_entry,
+            "export_model_to_zip": export_model_entry,
+            "install_model_from_zip": install_model_entry,
+            "print_available_models": print_models_entry, "change_model": change_model_entry,
+            "plot_task_pngs": plot_task_pngs_entry}
 
 
 def main(argv=None) -> None:

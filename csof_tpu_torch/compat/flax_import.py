@@ -36,7 +36,14 @@ parameters stores one copy for every iteration), VoxelMorph's
 ``past_encoder``, ``fuse_{l}``, ``Scan_GRUStep_0/ConvGRUCell_0``,
 ``flow_decoder`` and ``st_transformer`` or ``conv3d_1`` / ``conv3d_2``; so
 their trees, and the optimizer moments of RAFT's and VoxelMorph's
-``TrainState``, load by the same walk.
+``TrainState``, load by the same walk. So do MTL's (``Encoder_0`` or
+``SwinEncoder_0``, ``TransformerBottleneck_0``, ``seg_decoder``,
+``rec_decoder``, ``df_head``), the temporal model's (``encoder``,
+``bottleneck``, ``bus_read``, ``decoder``; flax's ``nn.vmap`` over frames
+keeps one unbatched copy of the decoder's parameters) and the deformable
+layer's (``DeformableAttention2D_0`` with ``offsets`` and ``weights``). A
+parameter flax declares with ``self.param`` (Swin's ``rel_pos_bias``, the
+temporal ``memory_bus``) is a torch parameter of the same name and layout.
 
 The map is built by walking the flax tree, so flax's auto-numbered scopes
 (``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``; the U-Net's
@@ -148,6 +155,8 @@ def _convert(module: nn.Module, name: str, arr: np.ndarray) -> tuple[str, np.nda
         return "weight", arr
     elif name == "bias":
         return "bias", arr.reshape(-1)
+    elif isinstance(getattr(module, name, None), nn.Parameter):
+        return name, arr  # a raw flax param (rel_pos_bias, memory_bus): the same layout
     raise KeyError(f"no rule for leaf {name!r} of a {type(module).__name__}")
 
 

@@ -15,7 +15,16 @@ conv's (in, out, *k) too); only the names change, 2D and 3D alike:
   ``StackedConvs_{num_pool + 1 + u}.ConvNormAct_{j}``;
 - ``seg_outputs.{u}`` (deepest first) -> ``seg_head_{num_pool - 1 - u}``.
 
-The reference's swin importers stay with the extras.
+And the reference's Swin attention and blocks into the port's
+:class:`~csof_tpu_torch.models.swin.WindowAttention` /
+:class:`~csof_tpu_torch.models.swin.SwinBlock`
+(``import_window_attention_weights``, ``import_swin_block_weights``):
+``qkv`` / ``proj`` -> ``Dense_0`` / ``Dense_1`` (a torch ``Linear`` is
+(out, in) on both sides), ``norm1`` / ``norm2`` -> ``LayerNorm_0`` /
+``LayerNorm_1``, ``mlp.fc1`` / ``mlp.fc2`` -> ``Dense_0`` / ``Dense_1``,
+and the relative position bias table into ``rel_pos_bias`` (size, heads):
+``relative_position_bias_table`` has that layout, ``rpe_table`` (the MTL
+model's ``WindowAttentionConvRpe``) is the same table stored (heads, size).
 """
 
 from __future__ import annotations
@@ -89,3 +98,48 @@ def load_reference_checkpoint(model_file: str | Path,
     sd = ckpt.get("state_dict", ckpt)
     sd = {k.removeprefix("module."): v for k, v in sd.items()}
     return import_generic_unet_weights(sd, model)
+
+
+def _swin_put(out: dict, sd: Mapping, dst: str, src: str, transpose: bool = False) -> None:
+    value = sd[src].T if transpose else sd[src]
+    if tuple(value.shape) != tuple(out[dst].shape):
+        raise ValueError(f"{src} {tuple(value.shape)} does not fit {dst} {tuple(out[dst].shape)}")
+    out[dst] = value.to(out[dst].dtype).clone()
+
+
+def _window_attention_into(out: dict, sd: Mapping, prefix: str) -> None:
+    for dst, src in (("Dense_0", "qkv"), ("Dense_1", "proj")):
+        for p in ("weight", "bias"):
+            _swin_put(out, sd, f"{prefix}{dst}.{p}", f"{src}.{p}")
+    if "relative_position_bias_table" in sd:
+        _swin_put(out, sd, f"{prefix}rel_pos_bias", "relative_position_bias_table")
+    else:
+        _swin_put(out, sd, f"{prefix}rel_pos_bias", "rpe_table", transpose=True)
+
+
+def import_window_attention_weights(state_dict: Mapping[str, torch.Tensor],
+                                    model: nn.Module) -> dict[str, torch.Tensor]:
+    """The port ``WindowAttention``'s state dict with a reference
+    ``WindowAttention`` (``qkv``, ``proj``, ``relative_position_bias_table``)
+    or ``WindowAttentionConvRpe`` (``rpe_table``) put in its place; the
+    model is not changed."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    out = {k: v.clone() for k, v in model.state_dict().items()}
+    _window_attention_into(out, sd, "")
+    return out
+
+
+def import_swin_block_weights(state_dict: Mapping[str, torch.Tensor],
+                              model: nn.Module) -> dict[str, torch.Tensor]:
+    """The port ``SwinBlock``'s state dict with a reference
+    ``SwinTransformerBlock`` (``norm1``, ``attn.*``, ``norm2``,
+    ``mlp.fc1``, ``mlp.fc2``) put in its place; the model is not changed."""
+    sd = {k: torch.as_tensor(v) for k, v in state_dict.items()}
+    out = {k: v.clone() for k, v in model.state_dict().items()}
+    for dst, src in (("LayerNorm_0", "norm1"), ("LayerNorm_1", "norm2"),
+                     ("Dense_0", "mlp.fc1"), ("Dense_1", "mlp.fc2")):
+        for p in ("weight", "bias"):
+            _swin_put(out, sd, f"{dst}.{p}", f"{src}.{p}")
+    attn = {k.removeprefix("attn."): v for k, v in sd.items() if k.startswith("attn.")}
+    _window_attention_into(out, attn, "WindowAttention_0.")
+    return out

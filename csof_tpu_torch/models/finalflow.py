@@ -43,7 +43,7 @@ from torch import nn
 
 from csof_tpu_torch.models.blocks import Conv, ConvNormAct
 from csof_tpu_torch.models.convgru import ConvGRUCell
-from csof_tpu_torch.models.segflow import Decoder, Encoder
+from csof_tpu_torch.models.segflow import Decoder, Encoder, level_widths, routed_launches
 from csof_tpu_torch.models.spacetime import SpatioTemporalTransformer
 from csof_tpu_torch.ops.integrate import vecint_batch
 from csof_tpu_torch.ops.warp import warp_batch
@@ -174,25 +174,8 @@ class FinalFlow(nn.Module):
         """K5 and K6 launches of one forward of ``t`` frames ``width`` pixels
         wide (any batch: the encoders and the fuses run once over all
         frames, the decoder once a frame), counted from the modules."""
-        levels = len(self.cfg.out_encoder_dims)
-        widths = [width]
-        for _ in range(levels - 1):
-            widths.append((widths[-1] - 1) // 2 + 1)
-        k5 = k6 = 0
-
-        def count(block, w_in, times=1):
-            nonlocal k5, k6
-            k5 += times * block.fused_norm_act
-            k6 += times * block.uses_k6(w_in)
-
-        for enc in (self.current_encoder, self.past_encoder):
-            for i in range(levels):
-                count(getattr(enc, f"ConvNormAct_{2 * i}"), widths[max(i - 1, 0)])
-                count(getattr(enc, f"ConvNormAct_{2 * i + 1}"), widths[i])
-        for lvl in range(levels):
-            count(getattr(self, f"fuse_{lvl}"), widths[lvl])
-        dec = self.flow_decoder
-        for i in range(dec.up):
-            for j in (2 * i, 2 * i + 1):
-                count(getattr(dec, f"ConvNormAct_{j}"), widths[levels - 2 - i], t)
-        return {"K5": k5, "K6": k6}
+        widths = level_widths(width, len(self.cfg.out_encoder_dims))
+        return routed_launches([
+            *self.current_encoder.routed_blocks(width), *self.past_encoder.routed_blocks(width),
+            *((getattr(self, f"fuse_{lvl}"), w, 1) for lvl, w in enumerate(widths)),
+            *self.flow_decoder.routed_blocks(width, t)])

@@ -81,6 +81,21 @@ def temporal_path(cfg: SegFlowModelConfig, t: int) -> str:
     return "loop" if cfg.scan_unroll > t else "scan"
 
 
+def level_widths(width: int, levels: int) -> list[int]:
+    """The input width of each level of an ``Encoder`` (stride-2 convs with
+    padding 1)."""
+    widths = [width]
+    for _ in range(levels - 1):
+        widths.append((widths[-1] - 1) // 2 + 1)
+    return widths
+
+
+def routed_launches(blocks) -> dict[str, int]:
+    """K5 and K6 launches of ``(ConvNormAct, input width, times)`` triples."""
+    return {"K5": sum(t * b.fused_norm_act for b, _, t in blocks),
+            "K6": sum(t * b.uses_k6(w) for b, w, t in blocks)}
+
+
 class Encoder(nn.Module):
     """Two ConvNormAct per level, the first of each level after level 0 with
     stride 2; returns the per-level skips (NCHW)."""
@@ -97,6 +112,14 @@ class Encoder(nn.Module):
                             ConvNormAct(f, f, 1, norm, dtype, generator, **kw))
             cin = f
         self.levels = len(out_dims)
+
+    def routed_blocks(self, width: int, times: int = 1):
+        """(block, input width, times) of each ConvNormAct for an input
+        ``width`` pixels wide, run ``times`` times."""
+        widths = level_widths(width, self.levels)
+        for i in range(self.levels):
+            yield getattr(self, f"ConvNormAct_{2 * i}"), widths[max(i - 1, 0)], times
+            yield getattr(self, f"ConvNormAct_{2 * i + 1}"), widths[i], times
 
     def forward(self, x):
         skips = []
@@ -141,6 +164,14 @@ class Decoder(nn.Module):
             cin = f
         self.Conv_0 = Conv(cin, head_channels, 1, init=("normal", 1e-5 * head_init_scale),
                            generator=generator)
+
+    def routed_blocks(self, width: int, times: int = 1):
+        """(block, input width, times) of each ConvNormAct for an output
+        ``width`` pixels wide, run ``times`` times."""
+        widths = level_widths(width, self.up + 1)
+        for i in range(self.up):
+            for j in (2 * i, 2 * i + 1):
+                yield getattr(self, f"ConvNormAct_{j}"), widths[self.up - 1 - i], times
 
     def forward(self, bottleneck, skips):
         """-> (float32 head (N, head_channels, H, W), last features); with

@@ -47,17 +47,19 @@ class MultiHeadDotProductAttention(nn.Module):
         for name in ("query", "key", "value", "out"):
             self.add_module(name, Dense(dim, dim, dtype, generator))
 
-    def forward(self, x):
-        """Self-attention over the tokens of x (..., L, C) -> (..., L, C)."""
+    def forward(self, x, kv=None):
+        """Attention from the tokens of x (..., L, C) to those of ``kv``
+        (..., S, C), by default x itself -> (..., L, C)."""
         dt = self.compute_dtype
+        kv = x if kv is None else kv
         *lead, length, c = x.shape
         nh = self.num_heads
 
         def heads(t):  # (..., L, C) -> (..., heads, L, hd)
-            return t.view(*lead, length, nh, c // nh).transpose(-2, -3)
+            return t.reshape(*t.shape[:-1], nh, c // nh).transpose(-2, -3)
 
         q = heads(self.query(x)) / scalar_in(float(np.sqrt(c // nh)), dt)
-        k, v = heads(self.key(x)), heads(self.value(x))
+        k, v = heads(self.key(kv)), heads(self.value(kv))
         weights = torch.softmax(torch.matmul(q, k.transpose(-1, -2)).float(), -1).to(dt)
         attn = torch.matmul(weights, v).transpose(-2, -3).reshape(*lead, length, c)
         return self.out(attn)

@@ -28,13 +28,19 @@ batch holds "flow_gt", else the NCC of "image2" warped (border) by the last
 flow against "image1" plus its smoothness; a VoxelMorph step takes
 "moving" and "fixed" (B, H, W, C): ``image_flow_global`` x NCC(registered,
 fixed) + ``regularization_xy`` x the flow's smoothness. Neither is
-augmented, as in JAX; both run the library's convs. Not ported: sharding
-over a mesh, compile-draw autotuning, TensorBoard and progress plots.
+augmented, as in JAX; both run the library's convs. ``run_training``
+writes the JAX trainer's observability files beside the checkpoints:
+``debug.json`` and ``network_architecture.txt`` at its start
+(:meth:`Trainer.save_debug_information`), the timestamped
+``training_log_<Y>_<M>_<D>_<hh>_<mm>_<ss>.txt`` and ``progress.png`` after
+each epoch (:mod:`csof_tpu_torch.utils.logging`). Not ported: sharding over
+a mesh, compile-draw autotuning and TensorBoard.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time
 from dataclasses import dataclass, field
@@ -55,6 +61,7 @@ from csof_tpu_torch.ops import losses as L
 from csof_tpu_torch.ops.warp import warp_batch, warp_image_cm
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.schedules import build_optimizer
+from csof_tpu_torch.utils.logging import TrainingLog, count_parameters, model_summary, plot_progress
 
 TRAINED_CORR_FUSE = ("concat", "split", "project", "mean1", "concat_cm")
 TRAINED_KINDS = ("segflow", "unet2d", "unet3d", "raft", "voxelmorph")
@@ -275,18 +282,6 @@ class TrainerHistory:
     step_times: list = field(default_factory=list)
 
 
-class _TrainingLog:
-    """Print a line and append it to output_folder/training_log.txt."""
-
-    def __init__(self, folder: Path):
-        self.file = folder / "training_log.txt"
-
-    def __call__(self, msg: str) -> None:
-        with open(self.file, "a") as f:
-            f.write(msg + "\n")
-        print(msg, flush=True)
-
-
 class Trainer:
     """Config-driven trainer of any model kind on one device
     (``"cuda"`` unless told otherwise). ``train_iter`` / ``val_iter`` yield
@@ -296,6 +291,7 @@ class Trainer:
     the U-Net of a plans file."""
 
     # EMA / patience constants of the JAX trainer
+    train_loss_ma_alpha = 0.93
     val_eval_criterion_alpha = 0.9
     patience = 50
     train_loss_ma_eps = 5e-4
@@ -403,12 +399,51 @@ class Trainer:
             fg_dice = (2 * tp / np.maximum(2 * tp + fp + fn, 1e-8)).mean()
             self.history.eval_metrics.append(float(fg_dice))
 
+    def save_debug_information(self) -> None:
+        """``debug.json`` (the config, the folder, the epoch, the model's
+        class, the trainer's constants, the parameter count, the device and
+        its name) and ``network_architecture.txt`` (:func:`model_summary`)
+        in the output folder, as the JAX trainer writes them at the start of
+        training; the device and its name stand where JAX writes its mesh,
+        devices and backend."""
+        dev = self.device
+        dct = {
+            "config": dataclasses.asdict(self.config),
+            "output_folder": str(self.output_folder),
+            "epoch": self.epoch,
+            "model_class": type(self.model).__name__,
+            "device": str(dev),
+            "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                            else dev.type),
+            "trainer_constants": {
+                "train_loss_ma_alpha": self.train_loss_ma_alpha,
+                "val_eval_criterion_alpha": self.val_eval_criterion_alpha,
+                "patience": self.patience,
+                "train_loss_ma_eps": self.train_loss_ma_eps,
+                "checkpoint_every": self.checkpoint_every,
+                "nan_guard": self.nan_guard,
+            },
+        }
+        if self.model is not None:
+            dct["num_parameters"] = count_parameters(self.model)
+            (self.output_folder / "network_architecture.txt").write_text(
+                model_summary(self.model))
+        (self.output_folder / "debug.json").write_text(json.dumps(dct, indent=2, default=str))
+
     def run_training(self, train_iter: Iterator[dict], val_iter: Iterator[dict] | None = None,
                      max_epochs: int | None = None,
                      log_fn: Callable[[str], None] | None = None) -> TrainerHistory:
+        """The epoch loop; ``log_fn`` (default: a :class:`TrainingLog` in the
+        output folder) takes each epoch's line. The debug files and the
+        progress figure never stop training: a failure to write them is
+        logged with its exception, as the JAX trainer skips them."""
         if self.model is None:
             self.initialize()
-        log_fn = log_fn or _TrainingLog(self.output_folder)
+        log_fn = log_fn or TrainingLog(self.output_folder)
+        try:
+            self.save_debug_information()
+        except Exception as e:  # noqa: BLE001 - the dumps must never kill training
+            log_fn(f"debug information not written: {e!r}")
         cfg = self.config
         max_epochs = max_epochs or cfg.max_num_epochs
         criterion_ma = None  # EMA of the epoch criterion, advanced every epoch
@@ -439,6 +474,11 @@ class Trainer:
                    + (f" val {hist.val_losses[-1]:.4f}" if hist.val_losses else "")
                    + (f" fg-dice {hist.eval_metrics[-1]:.4f}" if hist.eval_metrics else "")
                    + f" ({hist.epoch_times[-1]:.1f}s)")
+            try:
+                plot_progress(self.output_folder, hist.train_losses, hist.val_losses,
+                              hist.eval_metrics)
+            except Exception as e:  # noqa: BLE001 - plotting must never kill training
+                log_fn(f"progress.png not written: {e!r}")
             if self.epoch - best_epoch > self.patience:
                 log_fn(f"early stop: no improvement for {self.patience} epochs")
                 break

@@ -152,12 +152,13 @@ def test_an_entry_refuses_to_run_without_a_card_unless_told(monkeypatch, tmp_pat
 
 
 def test_the_port_imports_no_jax_flax_optax_msgpack_yaml_or_the_jax_package():
-    """A fresh interpreter with those modules blocked imports every module of
-    the port and chip_smoke.py."""
+    """A fresh interpreter with those modules (and matplotlib, tensorboardX
+    and sklearn) blocked imports every module of the port and chip_smoke.py."""
     repo = Path(__file__).resolve().parents[1]
     code = f"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "csof_tpu"):
+for name in ("jax", "jaxlib", "flax", "optax", "msgpack", "yaml", "csof_tpu", "matplotlib",
+             "tensorboardX", "sklearn"):
     sys.modules[name] = None
 sys.path.insert(0, {str(repo)!r})
 import csof_tpu_torch

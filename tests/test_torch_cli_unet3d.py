@@ -29,6 +29,7 @@ from csof_tpu.training import trainer as jtrainer
 from csof_tpu_torch.cli import main as cli
 from csof_tpu_torch.data.conversion.acdc import _phantom_frame
 from csof_tpu_torch.utils.nifti import save_nifti
+from csof_tpu_torch.utils.logging import read_training_logs
 
 SOFTMAX_TOL = 1e-5  # float32 logits summed in another order, through a softmax
 
@@ -101,7 +102,7 @@ def test_train_takes_a_unet3d_step_on_the_cpu(task_and_fold, capsys):
                      str(root / "port_train"), "--device", "cpu"])
     out = root / "port_train" / "fold_0"
     assert (out / "model_final_checkpoint.pt").is_file()
-    log = (out / "training_log.txt").read_text()
+    log = "\n".join(read_training_logs(out)[-1])
     assert "epoch 1" in log and "fg-dice" in log, log
     assert json.loads((out / "meta.json").read_text()) == {"num_classes": 4}
     # the fold's validation from its checkpoint, then csof_torch_evaluate on its files

@@ -1055,3 +1055,75 @@ def test_small_raft_and_voxelmorph_on_the_card_match_the_cpu(cuda):
             got, ref = gpu(moving.to(cuda), fixed.to(cuda)), cpu(moving, fixed)
         for k in ("flow", "flow_inverse", "registered"):
             _close(got[k], ref[k], (1e-4, 1e-4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("encoder", ["conv", "swin"])
+def test_small_mtl_on_the_card_launches_k6_k5_and_matches_the_cpu(cuda, encoder):
+    """MTL under both switches (instance norm), both heads: K6 and K5 on the
+    card as often as MTLModel.kernel_launches says, the outputs against the
+    CPU's plain versions (float32)."""
+    from csof_tpu_torch.models.mtl import MTLConfig, MTLModel
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    cfg = MTLConfig(out_encoder_dims=(8, 16, 32), encoder=encoder, swin_heads=(2, 2, 2),
+                    window=4, bottleneck_heads=2, dim_feedforward=32, reconstruction=True,
+                    directional_field=True, norm="instance")
+    cpu = MTLModel(cfg, 4, input_hw=(64, 64), generator=torch.Generator().manual_seed(0),
+                   conv_impl="pallas", fused_norm_act=True).eval()
+    for dec in (cpu.seg_decoder, cpu.rec_decoder):
+        dec.Conv_0.weight.data.mul_(1e4)  # logits of a few units
+    gpu = MTLModel(cfg, 4, input_hw=(64, 64), conv_impl="pallas", fused_norm_act=True)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(cuda).eval()
+    images = torch.from_numpy(np.random.RandomState(1).rand(2, 64, 64, 1).astype(np.float32))
+    k5.launches = k6.launches = 0
+    with torch.inference_mode():
+        got = gpu(images.to(cuda))
+        torch.cuda.synchronize()
+        want = gpu.kernel_launches(64)
+        assert (k5.launches, k6.launches) == (want["K5"], want["K6"])
+        assert want == ({"K5": 14, "K6": 11} if encoder == "conv" else {"K5": 8, "K6": 8})
+        ref = cpu(images)
+    for k in ("seg_logits", "reconstruction", "directional_field"):
+        _close(got[k], ref[k], (1e-3, 1e-3))
+
+
+@pytest.mark.cuda
+def test_small_temporal_and_deformable_on_the_card_match_the_cpu(cuda):
+    """The temporal model under both switches (instance norm, 5 frames past
+    a bus of 4): its K6 and K5 launches and outputs; the deformable layer
+    (no kernel of the port), offsets of several pixels."""
+    from csof_tpu_torch.models.deformable import DeformableTransformerLayer
+    from csof_tpu_torch.models.temporal import TemporalVideoSegModel
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    kw = dict(out_encoder_dims=(8, 16, 32), d_model=32, num_heads=2, video_length=4,
+              norm="instance", conv_impl="pallas", fused_norm_act=True)
+    cpu = TemporalVideoSegModel(**kw, generator=torch.Generator().manual_seed(0)).eval()
+    cpu.decoder.Conv_0.weight.data.mul_(1e4)
+    gpu = TemporalVideoSegModel(**kw)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(cuda).eval()
+    video = torch.from_numpy(np.random.RandomState(2).rand(2, 5, 64, 64, 1).astype(np.float32))
+    k5.launches = k6.launches = 0
+    with torch.inference_mode():
+        got = gpu(video.to(cuda))
+        torch.cuda.synchronize()
+        assert {"K5": k5.launches, "K6": k6.launches} == gpu.kernel_launches(64) == {
+            "K5": 10, "K6": 7}
+        _close(got, cpu(video), (1e-3, 1e-3))
+
+    cpu = DeformableTransformerLayer(24, 32, 32, num_heads=4, num_points=4, dim_feedforward=64,
+                                     generator=torch.Generator().manual_seed(3)).eval()
+    cpu.DeformableAttention2D_0.offsets.bias.data.mul_(5.0)
+    gpu = DeformableTransformerLayer(24, 32, 32, num_heads=4, num_points=4, dim_feedforward=64)
+    gpu.load_state_dict(cpu.state_dict())
+    gpu = gpu.to(cuda).eval()
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy(rng.randn(3, 16, 16, 24).astype(np.float32))
+    v = torch.from_numpy(rng.randn(3, 12, 20, 32).astype(np.float32))
+    with torch.inference_mode():
+        _close(gpu(q.to(cuda), v.to(cuda)), cpu(q, v), (1e-4, 1e-4))

@@ -326,7 +326,8 @@ names = [m.name for m in pkgutil.walk_packages(csof_tpu_torch.__path__, "csof_tp
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules if m.split(".")[0] in
-             ("jax", "jaxlib", "flax", "csof_tpu", "pandas", "matplotlib", "yaml"))
+             ("jax", "jaxlib", "flax", "csof_tpu", "pandas", "matplotlib", "yaml", "tensorboardX",
+              "sklearn", "msgpack"))
 print(len(names), bad)
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,

@@ -24,6 +24,7 @@ from csof_tpu_torch.cli import main as cli
 from csof_tpu_torch.compat.flax_import import flax_to_torch_arrays
 from csof_tpu_torch.training.restore import restore_trainer
 from csof_tpu_torch.utils import yaml_subset
+from csof_tpu_torch.utils.logging import read_training_logs
 
 
 @pytest.fixture(scope="module")
@@ -92,8 +93,10 @@ def test_a_jax_fold_restores_and_trains_on_in_the_port(kind, task, tmp_path, mon
     restored = {k: v.clone() for k, v in port.model.state_dict().items()}
 
     cli.train_entry(argv + ["--continue-training", "--max-epochs", "2", "--device", "cpu"])
-    log = (fold / "training_log.txt").read_text()
-    assert log.startswith("epoch 2: train ")
+    # the JAX run's log, then the port's (one file if both began in the same second)
+    log = [line for lines in read_training_logs(fold) for line in lines]
+    assert log[0].startswith("epoch 1: train ") and log[-1].startswith("epoch 2: train ")
+    assert sum(line.startswith("epoch ") for line in log) == 2
     state = torch.load(fold / "model_final_checkpoint.pt", weights_only=False)
     assert state["step"] == 4
     assert any(not torch.equal(v, restored[k]) for k, v in state["model"].items())

@@ -31,6 +31,7 @@ from csof_tpu_torch.data.loaders import VideoChunkLoader
 from csof_tpu_torch.data.video_dataset import build_video_datasets, split_videos
 from csof_tpu_torch.training import trainer
 from csof_tpu_torch.utils import yaml_subset
+from csof_tpu_torch.utils.logging import read_training_logs
 
 RAFT_SMALL = dict(feature_dim=32, hidden_dim=16, context_dim=16, iters=2, corr_levels=2,
                   corr_radius=2, dtype="float32")
@@ -193,8 +194,8 @@ def test_csof_torch_train_trains_the_flow_models(kind, task, tmp_path, monkeypat
     for name in ("config.yaml", "meta.json", "model_final_checkpoint.pt", "model_best.pt"):
         assert (fold / name).is_file(), name
     assert texp.load_experiment_config(fold / "config.yaml").model == kind
-    log = (fold / "training_log.txt").read_text()
-    assert log.startswith("epoch 1: train ") and " val " in log
+    (log,) = read_training_logs(fold)
+    assert log[0].startswith("epoch 1: train ") and " val " in log[0]
     # the JAX entry's batches: frames of the loader's first chunk
     videos = build_video_datasets(task)
     tr_videos, _ = split_videos(videos, 0)

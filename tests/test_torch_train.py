@@ -32,6 +32,7 @@ from csof_tpu_torch.ops.kernels import corr as k1
 from csof_tpu_torch.ops.warp import warp_image_cm
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training import schedules, trainer
+from csof_tpu_torch.utils.logging import read_training_logs
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # f32: summation order only. bf16: both round the same f32 sum, taken in
@@ -491,7 +492,10 @@ def test_trainer_runs_an_epoch_and_writes_the_checkpoint_triad(tmp_path):
     meta = fresh.load_checkpoint()  # final first
     assert meta["epoch"] == 1 and fresh.epoch == 1 and fresh.optimizer.count == 2
     assert all(torch.equal(v, trained[k]) for k, v in fresh.model.state_dict().items())
-    assert (tmp_path / "training_log.txt").read_text().startswith("epoch 1:")
+    (log,) = read_training_logs(tmp_path)
+    assert log[0].startswith("epoch 1:")
+    assert {"debug.json", "network_architecture.txt", "progress.png"} <= {
+        f.name for f in tmp_path.iterdir()}
 
 
 def test_trainer_defaults_to_the_card_and_refuses_what_is_not_ported(tmp_path):

@@ -48,6 +48,7 @@ from csof_tpu_torch.ops import losses as L
 from csof_tpu_torch.ops.kernels import conv as k6
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training import schedules, trainer
+from csof_tpu_torch.utils.logging import read_training_logs
 
 NET = dict(num_classes=3, base_num_features=8, pool_kernel_sizes=((2, 2),) * 3,
            conv_kernel_sizes=((3, 3),) * 4)
@@ -505,7 +506,7 @@ def test_unet_trainer_runs_two_epochs_writes_the_triad_and_reloads(tmp_path, mon
     assert len(changed) == len(before)  # the zero-weight head decays too
     for name in (ckpt.BEST, ckpt.LATEST, ckpt.FINAL):
         assert (out / name).is_file() and (out / (name + ".json")).is_file()
-    log = (out / "training_log.txt").read_text().splitlines()
+    (log,) = read_training_logs(out)
     assert log[0].startswith("epoch 1:") and " fg-dice " in log[1]
     trained = {k: v.clone() for k, v in tr.model.state_dict().items()}
     fresh = trainer.Trainer(config, out, plans=_small_plans(), device="cpu")
