@@ -6,7 +6,8 @@ then the port's command line, its strain analysis and its data plane, then
 the nnU-Net 3d_fullres U-Net's training and serving and the cascade, then
 the flow models: RAFT, VoxelMorph and FinalFlow; model selection,
 postprocessing and the model zoo on phase 23's folds; MTL, Swin, the
-temporal and the deformable models.
+temporal and the deformable models; the generative family, UDA and the
+policy search.
 
     python3 chip_smoke.py
 
@@ -227,6 +228,25 @@ Phases, each printed on its own line:
    launches = kernel_launches = a fresh process's device events, outputs
    on vs off, ms a forward, peak memory, busy share; K6 and K5 vs plain at
    every shape these forwards gave them; float32 card vs CPU at batch 1.
+34. generative: the generative family, UDA and the policy search at the
+   JAX package's default widths, float32, random weights
+   (csof_tpu_torch/profile_generative.py GEN_RUNS): the DDPM denoiser
+   (DiffusionConfig(): T = 1000, features 32/64/128) on 16 x 128^2,
+   unconditional and with a 4-class one-hot condition; latent diffusion over
+   KLAutoencoder()'s 32^2 x 4 latents and the autoencoder's decode; the
+   ControlNet at 128^2 with a 4-channel hint and on the 32^2 latents with
+   the 128^2 hint (antialiased resize); VQVAE(); SwinGenerator() ->
+   SwinDiscriminator() at batch 16; UDA with the Task002 2d U-Net on 8 + 8
+   images of 320 x 256; PolicyNet(). Each forward and training step under
+   CSOF_CONV2D_IMPL=pallas: K6 and K6 dx launches = kernel_launches = a
+   fresh process's device events (profile_generative --launches); latent
+   diffusion's sample (50 steps at batch 4) and decode, its seconds; the
+   forwards switch on vs off (MODEL_TOL); ms a forward and a step (off, on,
+   on, off), peak memory, busy share; the ControlNet's base parameters the
+   same bits after a step; each forward and step card vs CPU at batch 1
+   (the step's losses and every gradient at phase 8's bound, the CPU
+   replaying the card's signs); K6 and K6 dx vs plain at every shape these
+   runs gave them, with one DDPM forward's and one DDPM step's times.
 
 Then the script's total seconds, one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -381,6 +401,8 @@ STRAIN_TOL = (1e-5, 1e-4)
 FAMILY_BF16_FACTOR = 3.0
 #: phase 33's forwards timed per median (20 cost the phase about 13 s more)
 FAMILY_REPS = 10
+#: phase 34's training steps timed per median
+GEN_STEP_REPS = 5
 #: phase 23, the data plane at ACDC size: ACDC cines hold about 10 slices of
 #: 200-260 pixels at 1.5 x 1.5 x 5 mm; 4 patients (8 ED/ES cases), the
 #: planned U-Net trained 1 epoch x 3 steps + 1 validation batch, 2 cases served
@@ -1932,67 +1954,86 @@ def check_segflow_convs(card: str, serving: dict, train: dict) -> dict:
     beside the plain version's, the library call's and the bound."""
     import torch
 
+    return check_recorded_convs("segflow convs", serving, train, {}, torch.bfloat16, card,
+                                ("one serving forward", "one training step's dx"))
+
+
+def check_recorded_convs(label: str, timed_fwd: dict, timed_dx: dict, others: dict, dtype,
+                         card: str, what: tuple[str, str], seed: int = 5) -> dict:
+    """K6 and its dx against their plain versions (bf16 and float32, phase
+    9's tolerances) at every distinct shape of the ``conv_shapes`` records
+    ``timed_fwd``, ``timed_dx`` and ``others`` (a dx where a record's input
+    needed a gradient); the ``dtype`` time of the forward ``timed_fwd``
+    recorded and of the dx of ``timed_dx`` (each shape's median times its
+    launches there) beside the plain version's, the library call's and the
+    bound. Returns {"fwd", "dx": {ms, plain_ms, library_ms, bound_ms,
+    bound_by}, "max_abs_err"}."""
+    import torch
+
     from csof_tpu_torch.bounds import bound_ms, conv3x3_work
     from csof_tpu_torch.ops.kernels import conv as k6
 
-    gen = torch.Generator(device="cuda").manual_seed(5)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rand(*shape, std=1.0):
         return torch.randn(*shape, generator=gen, device="cuda") * std
 
     res = {"fwd": [0.0, 0.0, 0.0], "dx": [0.0, 0.0, 0.0], "err": 0.0}
     works = {"fwd": [], "dx": []}
-    fwd = {}
-    for rec in (serving, train):
-        for (shape, _, co, bias, _), n in rec.items():
-            fwd[(shape, co, bias)] = fwd.get((shape, co, bias), 0) + (n if rec is serving else 0)
-    dxs = {(shape, co): n for (shape, _, co, _, grad), n in train.items() if grad}
+    fwd, dxs = {}, {}
+    for rec in (timed_fwd, timed_dx, others):
+        for (shape, _, co, bias, grad), n in rec.items():
+            fwd[(shape, co, bias)] = fwd.get((shape, co, bias), 0) + (n if rec is timed_fwd else 0)
+            if grad:
+                dxs[(shape, co)] = dxs.get((shape, co), 0) + (n if rec is timed_dx else 0)
+    itemsize = torch.empty((), dtype=dtype).element_size()
     for (shape, co, bias), n_serving in sorted(fwd.items()):
         n, ci, h, w = shape
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).removeprefix("torch.")
-            x = rand(*shape).to(dtype)
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).removeprefix("torch.")
+            x = rand(*shape).to(dt)
             wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5)
             b = rand(co, std=0.1) if bias else None
             got = k6.conv3x3_cuda(x, wt, b)
             torch.cuda.synchronize()
-            err = compare("segflow convs", f"K6 {dname} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, "
+            err = compare(label, f"K6 {dname} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, "
                           f"{w})", got, k6.conv3x3_plain(x, wt, b), *UNET_TOL[("K6", dname)])
             res["err"] = max(res["err"], err)
-            if dtype != torch.bfloat16 or not n_serving:
+            if dt != dtype or not n_serving:
                 continue
             t, p = timed_pair(lambda: k6.conv3x3_cuda(x, wt, b),
                               lambda: k6.conv3x3_plain(x, wt, b))
-            lib = median_ms(lambda: torch.nn.functional.conv2d(x, wt.to(dtype),
+            lib = median_ms(lambda: torch.nn.functional.conv2d(x, wt.to(dt),
                                                                None if b is None
-                                                               else b.to(dtype), padding=1))
+                                                               else b.to(dt), padding=1))
             res["fwd"] = [a + n_serving * v for a, v in zip(res["fwd"], (t, p, lib))]
-            works["fwd"].append((conv3x3_work(n, h, w, ci, co, 2, bias), n_serving))
+            works["fwd"].append((conv3x3_work(n, h, w, ci, co, itemsize, bias), n_serving))
     for ((n, ci, h, w), co), count in sorted(dxs.items()):
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).removeprefix("torch.")
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).removeprefix("torch.")
             wt = rand(co, ci, 3, 3, std=(2.0 / (9 * ci)) ** 0.5)
-            dy = rand(n, co, h, w).to(dtype)
+            dy = rand(n, co, h, w).to(dt)
             got = k6.conv3x3_dx_cuda(dy, wt)
             torch.cuda.synchronize()
-            err = compare("segflow convs", f"K6 dx {dname} dy (N, Co, H, W)=({n}, {co}, {h}, {w})"
+            err = compare(label, f"K6 dx {dname} dy (N, Co, H, W)=({n}, {co}, {h}, {w})"
                           f" -> dx {ci} channels", got, k6.conv3x3_dx_plain(dy, wt),
                           *UNET_TOL[("K6", dname)])
             res["err"] = max(res["err"], err)
-            if dtype != torch.bfloat16:
+            if dt != dtype or not count:
                 continue
-            wl = wt.to(dtype)
+            wl = wt.to(dt)
             t, p = timed_pair(lambda: k6.conv3x3_dx_cuda(dy, wt),
                               lambda: k6.conv3x3_dx_plain(dy, wt))
             lib = median_ms(lambda: torch.nn.grad.conv2d_input((n, ci, h, w), wl, dy, padding=1))
             res["dx"] = [a + count * v for a, v in zip(res["dx"], (t, p, lib))]
-            works["dx"].append((conv3x3_work(n, h, w, co, ci, 2, False), count))
+            works["dx"].append((conv3x3_work(n, h, w, co, ci, itemsize, False), count))
     out = {}
-    for key, label in (("fwd", "one serving forward"), ("dx", "one training step's dx")):
+    for key, name in zip(("fwd", "dx"), what):
         summed = tuple(sum(c * wk[i] for wk, c in works[key]) for i in range(4))
         bnd, by = bound_ms(*summed)
         t, p, lib = res[key]
-        phase("segflow convs", f"K6 {'dx ' if key == 'dx' else ''}bf16, {label} "
+        phase(label, f"K6 {'dx ' if key == 'dx' else ''}{str(dtype).removeprefix('torch.')}, "
+              f"{name} "
               f"({sum(c for _, c in works[key])} launches at {len(works[key])} shapes): kernel "
               f"{t:.4f} ms, plain {p:.4f} ms, library {lib:.4f} ms, bound {bnd:.4f} ms ({by}) "
               f"({card})")
@@ -3872,6 +3913,242 @@ def family_phase(card: str, dev: dict) -> tuple[dict, dict]:
     return counts, entries
 
 
+def generative_device_events() -> dict:
+    """``python -m csof_tpu_torch.profile_generative --launches`` in a fresh
+    process: each phase-34 run's K6 and K6 dx device events, host-clock ms,
+    events and busy ms of one forward and one step under pallas."""
+    child = subprocess.run([sys.executable, "-m", "csof_tpu_torch.profile_generative",
+                            "--launches"], capture_output=True, text=True, timeout=600)
+    expect(child.returncode == 0, f"profile_generative --launches failed: "
+           f"{child.stderr[-2000:]}")
+    return json.loads(child.stdout.strip().splitlines()[-1])
+
+
+def _outputs(out) -> dict:
+    """A forward's tensors by name (a dict's tensors, else "out")."""
+    import torch
+
+    if isinstance(out, dict):
+        return {k: v for k, v in out.items() if isinstance(v, torch.Tensor)}
+    return {"out": out}
+
+
+def compare_output(name: str, got, ref, z=None, codebook=None) -> None:
+    """A float output within MODEL_TOL; an integer one (the VQ-VAE's codes)
+    exactly. Given the reference run's quantizer input ``z`` and its
+    ``codebook``, a position whose codes differ passes only as a near tie:
+    the two codes' squared distances to z, in float64, within 1e-5 of
+    sum(z^2) + sum(c^2), the float32 distance's rounding scale."""
+    import torch
+
+    got, ref = got.cpu(), ref.cpu()
+    if got.is_floating_point():
+        compare("generative", name, got, ref, *MODEL_TOL)
+        return
+    expect(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    differ = got != ref
+    n, ties, worst = int(differ.sum()), 0, 0.0
+    if n and z is not None:
+        zd = z.detach().cpu().double().reshape(-1, z.shape[-1])[differ.reshape(-1)]
+        cb = codebook.detach().cpu().double()
+        a, b = cb[got[differ]], cb[ref[differ]]
+        gap = ((zd - a).square().sum(1) - (zd - b).square().sum(1)).abs()
+        scale = zd.square().sum(1) + torch.maximum(a.square().sum(1), b.square().sum(1))
+        worst = float((gap / scale).max())
+        ties = int((gap <= 1e-5 * scale).sum())
+    ok = ties == n
+    phase("generative", f"{name}: {n} of {ref.numel()} codes differ, {ties} of them near ties "
+          f"(worst distance gap / scale {worst:.3e}, tie at 1e-5) -> {'ok' if ok else 'FAIL'}")
+    expect(ok, f"{name}: {n - ties} codes differ beyond a near tie")
+
+
+def _instance_biases(models: dict) -> set:
+    """Parameter names (model/param) of conv biases right in front of an
+    InstanceNorm: their exact gradient is zero (the norm removes a
+    per-channel shift), so either device's value is rounding alone."""
+    from csof_tpu_torch.models.blocks import ConvNormAct
+
+    out = set()
+    for key, model in models.items():
+        for name, mod in model.named_modules():
+            if isinstance(mod, ConvNormAct) and mod.norm_name.startswith("InstanceNorm"):
+                out.add(f"{key}/{name}.Conv_0.bias")
+    return out
+
+
+def step_grad_parity(name: str, card: str) -> dict:
+    """One training step of run ``name`` at batch 1 (profile_generative's
+    ``small`` cases) on the card and on the CPU from the same weights,
+    inputs and draws, the CPU replaying the card's LeakyReLU and ReLU signs
+    (``leaky_slopes``): the forward's outputs within MODEL_TOL, the step's
+    losses within LOSS_RTOL, every gradient the step leaves within GRAD_TOL
+    of its largest entry + 1e-6 (phase 8's bound; conv biases in front of an
+    InstanceNorm, whose exact gradient is zero, within GRAD_TOL of the
+    model's largest entry). Returns the card case's loss and its worst
+    ratio."""
+    import torch
+
+    from csof_tpu_torch.models import blocks
+    from csof_tpu_torch.profile_generative import build_case
+
+    gpu, cpu = (build_case(name, "pallas", dev, small=True, seed=81) for dev in ("cuda", "cpu"))
+    quantizer = cpu.models["vqvae"].VectorQuantizer_0 if name == "vqvae" else None
+    z = []
+    hook = quantizer and quantizer.register_forward_hook(lambda m, args, out: z.append(args[0]))
+    with torch.inference_mode():
+        got, ref = _outputs(gpu.forward()), _outputs(cpu.forward())
+    if hook:
+        hook.remove()
+    for k in ref:
+        compare_output(f"{name} float32 batch 1 under pallas: {k} {tuple(ref[k].shape)} GPU vs "
+                       "CPU", got[k].cpu(), ref[k], *((z[0], quantizer.codebook) if z else ()))
+    if gpu.step is None:
+        return {}
+    sites = [(blocks, "leaky_relu", 0.01), (torch, "relu", 0.0)]
+    masks, flips = [], []
+    with leaky_slopes(masks, False, flips, sites):
+        a = gpu.step()
+    with leaky_slopes(masks, True, flips, sites):
+        b = cpu.step()
+    expect(len(flips) == len(masks), f"{name}: {len(flips)} activations replayed of {len(masks)}")
+    a, b = ([float(v) for v in (x if isinstance(x, tuple) else (x,))] for x in (a, b))
+    for la, lb in zip(a, b):
+        expect(abs(la - lb) <= LOSS_RTOL * abs(lb), f"{name}: loss GPU {la} vs CPU {lb}")
+    zero = _instance_biases(gpu.models)
+    grads = {}
+    for key in gpu.models:
+        for (n, p), q in zip(gpu.models[key].named_parameters(),
+                             cpu.models[key].parameters()):
+            if q.grad is not None:
+                grads[f"{key}/{n}"] = (p.grad.cpu(), q.grad)
+    expect(bool(grads), f"{name}: the step left no gradient")
+    top = max(float(r.abs().max()) for _, r in grads.values())
+    worst, worst_name = -1.0, None
+    for n, (g, r) in grads.items():
+        expect(bool(torch.isfinite(g).all()), f"{name}: {n}: non-finite gradient")
+        ratio = (float(g.abs().max()) / (GRAD_TOL * top) if n in zero else
+                 float((g - r).abs().max()) / (GRAD_TOL * float(r.abs().max()) + 1e-6))
+        if ratio > worst:
+            worst, worst_name = ratio, n
+    phase("generative", f"{name} step float32 batch 1: loss GPU {a} vs CPU {b}; {len(grads)} "
+          f"gradients, worst |diff| / (tol {GRAD_TOL:g} max|g| + 1e-6) = {worst:.3f} at "
+          f"{worst_name}; {len(zero & set(grads))} conv biases before an InstanceNorm held to "
+          f"{GRAD_TOL:g} of the largest entry; the CPU ran the card's signs at {len(masks)} "
+          f"activations, {sum(flips)} of whose inputs take the other sign on the CPU -> "
+          f"{'ok' if worst <= 1 else 'FAIL'} ({card})")
+    expect(worst <= 1, f"{name}: gradient {worst_name} outside tolerance")
+    return {"worst": worst}
+
+
+def generative_phase(card: str, dev: dict) -> tuple[dict, dict]:
+    """Phase 34: the generative family, UDA and the policy search
+    (profile_generative.GEN_RUNS: DiffusionConfig() and the other JAX
+    defaults at full width, float32, random weights): each run's forward
+    and training step with the switch on, whose wrapper counts (zeroed just
+    before, read just after) equal kernel_launches and a fresh process's
+    device events (``dev``); latent diffusion's sample (SAMPLE_STEPS steps at
+    batch SAMPLE_B) and decode, its seconds and launches; the forward's
+    outputs with the switch on vs off (MODEL_TOL); CUDA-event ms of the
+    forward and the step (off, on, on, off), the step's peak memory and the
+    fresh process's busy share; the ControlNet's base parameters the same
+    bits after a step; then each forward and step card vs CPU at batch 1
+    (``step_grad_parity``); last, K6 and K6 dx against their plain versions
+    at every shape these runs gave them, with one DDPM forward's K6 and one
+    DDPM step's dx times. Returns (launches by path, kernel entries)."""
+    import torch
+
+    from csof_tpu_torch.models.generative import controlnet_param_labels
+    from csof_tpu_torch.profile_generative import (GEN_RUNS, SAMPLE_B, SAMPLE_STEPS,
+                                                   build_case, sample_ldm)
+
+    counts, records = {}, {}
+    for name in GEN_RUNS:
+        case = build_case(name, "pallas", "cuda")
+        off = build_case(name, "native", "cuda")
+        for kind, fn, want in (("forward", case.forward, case.want_forward),
+                               ("step", case.step, case.want_step)):
+            if fn is None:
+                continue
+            rec = records.setdefault((name, kind), {})
+            with torch.inference_mode(kind == "forward"), conv_shapes(rec):
+                _reset_counts()
+                out = fn()
+                torch.cuda.synchronize()
+                got = {k: v for k, v in _read_counts().items() if v}
+            expect(got == {k: v for k, v in want.items() if v},
+                   f"{name} {kind}: launches {got}, kernel_launches {want}")
+            d = dev[name][kind]
+            expect({k: d[k] for k in ("K6", "K6_dx")} == {k: got.get(k, 0) for k in ("K6", "K6_dx")},
+                   f"{name} {kind}: device events {d}, wrapper {got}")
+            counts[f"generative {name} {kind}"] = got
+            if kind == "forward":
+                with torch.inference_mode():
+                    ref = _outputs(off.forward())
+                outs = _outputs(out)
+                for k, v in ref.items():
+                    expect(bool(torch.isfinite(outs[k]).all()), f"{name}: {k} not finite")
+                    compare_output(f"{name} float32: {k} {tuple(v.shape)} switch on vs off",
+                                   outs[k], v)
+        if name == "ldm":
+            _reset_counts()
+            t0 = time.perf_counter()
+            img = sample_ldm(case, torch.Generator(device="cuda").manual_seed(3))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            got = {k: v for k, v in _read_counts().items() if v}
+            den, ae = case.models["denoiser"], case.models["ae"]
+            want = {"K6": SAMPLE_STEPS * den.kernel_launches(32)["K6"]
+                    + ae.kernel_launches(128)["K6"]}
+            expect(got == want and tuple(img.shape) == (SAMPLE_B, 128, 128, 1)
+                   and bool(torch.isfinite(img).all()), f"ldm sample: launches {got}, expected "
+                   f"{want}, images {tuple(img.shape)}")
+            counts["generative ldm sample"] = got
+            phase("generative", f"ldm sample: {SAMPLE_STEPS} steps at batch {SAMPLE_B} over "
+                  f"32^2 x 4 latents + decode to 128^2: {secs:.3f} s host clock, launches {got}"
+                  f" ({card})")
+        if name == "controlnet":
+            labels = controlnet_param_labels(case.models["controlnet"])
+            base = {n: p.detach().clone() for n, p in case.models["controlnet"].named_parameters()
+                    if labels[n] == "frozen"}
+            case.step()
+            moved = [n for n, p in case.models["controlnet"].named_parameters()
+                     if n in base and not torch.equal(p, base[n])]
+            expect(not moved, f"controlnet: base parameters moved by a step: {moved[:5]}")
+            phase("generative", f"controlnet: {len(base)} base parameters the same bits after a "
+                  "step, the control branch's moved")
+        with torch.inference_mode():
+            f_on, f_off = timed_pair(case.forward, off.forward, FAMILY_REPS)
+        line = (f"{name} float32: forward {f_off:.3f} ms with the switch off, {f_on:.3f} on")
+        if case.step is not None:
+            torch.cuda.reset_peak_memory_stats()
+            s_on, s_off = timed_pair(case.step, off.step, GEN_STEP_REPS)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            d = dev[name]["step"]
+            line += (f"; step {s_off:.3f} / {s_on:.3f} ms (CUDA events, medians in the order off,"
+                     f" on, on, off); peak over those steps {peak:.3f} GiB; a fresh process's "
+                     f"step: "
+                     f"{d['wall_ms']:.3f} ms host clock, busy {d['busy_ms']:.3f} ms, busy share "
+                     f"{d['busy_ms'] / d['wall_ms']:.3f}, {d['events']} device events")
+        phase("generative", f"{line}; launches forward {counts[f'generative {name} forward']}, "
+              f"step {counts.get(f'generative {name} step')} = kernel_launches = device events "
+              f"({card})")
+        del case, off
+        torch.cuda.empty_cache()
+
+    for name in GEN_RUNS:
+        step_grad_parity(name, card)
+
+    others = {}
+    for (name, kind), rec in records.items():
+        if (name, kind) not in (("ddpm", "forward"), ("ddpm", "step")):
+            for k, v in rec.items():
+                others[k] = others.get(k, 0) + v
+    convs = check_recorded_convs("generative", records[("ddpm", "forward")],
+                                 records[("ddpm", "step")], others, torch.float32, card,
+                                 ("one DDPM forward", "one DDPM step's dx"), seed=34)
+    return counts, convs
+
+
 _MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -4010,6 +4287,13 @@ def main() -> int:
                                         fam_entries[k].pop("max_abs_err"))
         kernels[k].update({f"family_bf16_{name}": v for name, v in fam_entries[k].items()})
     phase("family", f"phase 33 took {time.perf_counter() - t_fam:.1f} s")
+    t_gen = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen_counts, gen_convs = generative_phase(card, generative_device_events())
+    for k, key in (("K6", "fwd"), ("K6_dx", "dx")):
+        kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], gen_convs["max_abs_err"])
+        kernels[k].update({f"generative_f32_{name}": v for name, v in gen_convs[key].items()})
+    phase("generative", f"phase 34 took {time.perf_counter() - t_gen:.1f} s")
 
     paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
              "unet_training": unet_train_counts, "ncc_op": ncc_counts,
@@ -4023,7 +4307,7 @@ def main() -> int:
              "unet3d_training": u3_train_counts, "unet3d_serving": u3_serve_counts,
              "cascade": cascade_counts, **raft_counts, **vxm_counts, **ff_counts,
              **{name.replace("csof_torch_", "nnunet tail ").replace(" --", " "): c
-                for name, c in tail_counts.items()}, **fam_counts}
+                for name, c in tail_counts.items()}, **fam_counts, **gen_counts}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {

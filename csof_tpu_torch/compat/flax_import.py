@@ -41,9 +41,13 @@ their trees, and the optimizer moments of RAFT's and VoxelMorph's
 ``rec_decoder``, ``df_head``), the temporal model's (``encoder``,
 ``bottleneck``, ``bus_read``, ``decoder``; flax's ``nn.vmap`` over frames
 keeps one unbatched copy of the decoder's parameters) and the deformable
-layer's (``DeformableAttention2D_0`` with ``offsets`` and ``weights``). A
-parameter flax declares with ``self.param`` (Swin's ``rel_pos_bias``, the
-temporal ``memory_bus``) is a torch parameter of the same name and layout.
+layer's (``DeformableAttention2D_0`` with ``offsets`` and ``weights``), and
+the generative family's (the denoisers' ``ConvNormAct_k`` / ``Dense_k``, the
+ControlNet's ``base_*`` / ``control_*``, the KL autoencoder's ``enc_i``,
+``moments``, ``dec_i``, ``out``, the Swin GAN's ``stage_i`` / ``merge_i``,
+the VQ-VAE's ``VectorQuantizer_0``). A parameter flax declares with
+``self.param`` (Swin's ``rel_pos_bias``, the temporal ``memory_bus``, the
+VQ-VAE's ``codebook``) is a torch parameter of the same name and layout.
 
 The map is built by walking the flax tree, so flax's auto-numbered scopes
 (``Dense_k``, ``LayerNorm_k``, ``GroupNorm_k``; the U-Net's

@@ -96,6 +96,17 @@ def routed_launches(blocks) -> dict[str, int]:
             "K6": sum(t * b.uses_k6(w) for b, w, t in blocks)}
 
 
+def routed_counts(convs, backward: bool = False) -> dict[str, int]:
+    """K5 and K6 (and with ``backward`` K6 dx) launches of ``convs``:
+    (ConvNormAct, input width, whether its input needs a gradient) triples,
+    each called once; a routed conv's dx runs where its input needs a
+    gradient."""
+    out = routed_launches([(block, w, 1) for block, w, _ in convs])
+    if backward:
+        out["K6_dx"] = sum(block.uses_k6(w) and grad for block, w, grad in convs)
+    return out
+
+
 class Encoder(nn.Module):
     """Two ConvNormAct per level, the first of each level after level 0 with
     stride 2; returns the per-level skips (NCHW)."""

@@ -33,8 +33,11 @@ writes the JAX trainer's observability files beside the checkpoints:
 ``debug.json`` and ``network_architecture.txt`` at its start
 (:meth:`Trainer.save_debug_information`), the timestamped
 ``training_log_<Y>_<M>_<D>_<hh>_<mm>_<ss>.txt`` and ``progress.png`` after
-each epoch (:mod:`csof_tpu_torch.utils.logging`). Not ported: sharding over
-a mesh, compile-draw autotuning and TensorBoard.
+each epoch (:mod:`csof_tpu_torch.utils.logging`); with ``tensorboard=True``
+also ``loss/train``, ``loss/val`` and ``metric/fg_dice`` each epoch to a
+TensorBoard event file in ``tb/`` (the port's own writer,
+:class:`csof_tpu_torch.utils.visualization.TensorBoardVisualizer`). Not
+ported: sharding over a mesh and compile-draw autotuning.
 """
 
 from __future__ import annotations
@@ -62,6 +65,7 @@ from csof_tpu_torch.ops.warp import warp_batch, warp_image_cm
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.schedules import build_optimizer
 from csof_tpu_torch.utils.logging import TrainingLog, count_parameters, model_summary, plot_progress
+from csof_tpu_torch.utils.visualization import TensorBoardVisualizer
 
 TRAINED_CORR_FUSE = ("concat", "split", "project", "mean1", "concat_cm")
 TRAINED_KINDS = ("segflow", "unet2d", "unet3d", "raft", "voxelmorph")
@@ -432,11 +436,14 @@ class Trainer:
 
     def run_training(self, train_iter: Iterator[dict], val_iter: Iterator[dict] | None = None,
                      max_epochs: int | None = None,
-                     log_fn: Callable[[str], None] | None = None) -> TrainerHistory:
+                     log_fn: Callable[[str], None] | None = None,
+                     tensorboard: bool = False) -> TrainerHistory:
         """The epoch loop; ``log_fn`` (default: a :class:`TrainingLog` in the
         output folder) takes each epoch's line. The debug files and the
         progress figure never stop training: a failure to write them is
-        logged with its exception, as the JAX trainer skips them."""
+        logged with its exception, as the JAX trainer skips them. With
+        ``tensorboard``, each epoch's losses and foreground Dice go to an
+        event file in ``output_folder/tb``, as the JAX trainer logs them."""
         if self.model is None:
             self.initialize()
         log_fn = log_fn or TrainingLog(self.output_folder)
@@ -444,6 +451,7 @@ class Trainer:
             self.save_debug_information()
         except Exception as e:  # noqa: BLE001 - the dumps must never kill training
             log_fn(f"debug information not written: {e!r}")
+        tb = TensorBoardVisualizer(self.output_folder / "tb") if tensorboard else None
         cfg = self.config
         max_epochs = max_epochs or cfg.max_num_epochs
         criterion_ma = None  # EMA of the epoch criterion, advanced every epoch
@@ -474,6 +482,13 @@ class Trainer:
                    + (f" val {hist.val_losses[-1]:.4f}" if hist.val_losses else "")
                    + (f" fg-dice {hist.eval_metrics[-1]:.4f}" if hist.eval_metrics else "")
                    + f" ({hist.epoch_times[-1]:.1f}s)")
+            if tb is not None:
+                scalars = {"loss/train": hist.train_losses[-1]}
+                if hist.val_losses:
+                    scalars["loss/val"] = hist.val_losses[-1]
+                if hist.eval_metrics:
+                    scalars["metric/fg_dice"] = hist.eval_metrics[-1]
+                tb.log_scalars(scalars, self.epoch)
             try:
                 plot_progress(self.output_folder, hist.train_losses, hist.val_losses,
                               hist.eval_metrics)
@@ -482,6 +497,8 @@ class Trainer:
             if self.epoch - best_epoch > self.patience:
                 log_fn(f"early stop: no improvement for {self.patience} epochs")
                 break
+        if tb is not None:
+            tb.close()
         self.save_checkpoint(ckpt.FINAL)
         return self.history
 

@@ -2,7 +2,8 @@
 canvas for line plots, so that the port writes its figures without
 matplotlib (which the card machine does not have).
 
-``write_png`` stores 8-bit RGB or RGBA rows with filter 0; ``read_png``
+``write_png`` (``encode_png`` for the bytes) stores 8-bit grey, RGB or RGBA
+rows with filter 0; ``read_png``
 reads the files it writes (8-bit grey, RGB or RGBA, filter 0 on every row).
 """
 
@@ -25,6 +26,12 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
 
 def write_png(path: str | Path, image: np.ndarray) -> Path:
     """Write ``image`` (H, W) grey or (H, W, 3|4) uint8 as a PNG."""
+    Path(path).write_bytes(encode_png(image))
+    return Path(path)
+
+
+def encode_png(image: np.ndarray) -> bytes:
+    """The PNG file's bytes of ``image`` (H, W) grey or (H, W, 3|4) uint8."""
     img = np.asarray(image)
     if img.dtype != np.uint8:
         raise ValueError(f"write_png takes uint8 pixels, got {img.dtype}")
@@ -35,10 +42,8 @@ def write_png(path: str | Path, image: np.ndarray) -> Path:
         raise ValueError(f"write_png takes 1, 3 or 4 channels, got {c}")
     rows = np.concatenate([np.zeros((h, 1), np.uint8), img.reshape(h, w * c)], axis=1)
     header = struct.pack(">IIBBBBB", w, h, 8, _COLOR_TYPES[c], 0, 0, 0)
-    data = (_SIGNATURE + _chunk(b"IHDR", header)
+    return (_SIGNATURE + _chunk(b"IHDR", header)
             + _chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + _chunk(b"IEND", b""))
-    Path(path).write_bytes(data)
-    return Path(path)
 
 
 def read_png(path: str | Path) -> np.ndarray:

@@ -1127,3 +1127,116 @@ def test_small_temporal_and_deformable_on_the_card_match_the_cpu(cuda):
     v = torch.from_numpy(rng.randn(3, 12, 20, 32).astype(np.float32))
     with torch.inference_mode():
         _close(gpu(q.to(cuda), v.to(cuda)), cpu(q, v), (1e-4, 1e-4))
+
+
+def _ddpm_step_on(device, seed=0):
+    """One DDPM training step (K6 and its dx under pallas on a CUDA tensor)
+    of a small denoiser on 2 x 64^2, the same weights and draws on any
+    device: (loss, parameters after the step, their gradients)."""
+    from csof_tpu_torch.models.diffusion import DDPM, DenoiserUNet, DiffusionConfig
+    from csof_tpu_torch.profile_generative import adamw
+    from csof_tpu_torch.training.generative import take_step
+
+    cfg = DiffusionConfig(timesteps=50, features=(16, 32), time_dim=32)
+    model = DenoiserUNet(cfg, torch.Generator().manual_seed(seed), "pallas").to(device)
+    rng = np.random.RandomState(seed + 1)
+    x = torch.from_numpy(rng.rand(2, 64, 64, 1).astype(np.float32)).to(device)
+    t = torch.tensor([3, 41], device=device)
+    noise = torch.from_numpy(rng.randn(2, 64, 64, 1).astype(np.float32)).to(device)
+    loss = DDPM(model, cfg).loss(x, t=t, noise=noise)
+    take_step(adamw(model.parameters(), lr=1e-3), loss)
+    return (loss.item(), {n: p.detach().cpu() for n, p in model.named_parameters()},
+            {n: p.grad.cpu() for n, p in model.named_parameters()})
+
+
+@pytest.mark.cuda
+def test_ddpm_training_step_on_the_card_equals_the_cpu(cuda):
+    """The loss and every gradient of one DDPM step (4 K6, 3 dx) within 1e-4
+    relative / 2e-3 of each leaf's largest entry (float32 sums in another
+    order); the updated weights within AdamW's first step, lr x sign(g), of
+    each other where a gradient is rounding alone."""
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    k6.launches = k6.bwd_launches = 0
+    a, pa, ga = _ddpm_step_on(cuda)
+    torch.cuda.synchronize()
+    assert (k6.launches, k6.bwd_launches) == (4, 3)
+    b, pb, gb = _ddpm_step_on(torch.device("cpu"))
+    assert abs(a - b) <= 1e-4 * abs(b)
+    for n in gb:
+        _close(ga[n], gb[n], (2e-3 * float(gb[n].abs().max()) + 1e-6, 0.0))
+        _close(pa[n], pb[n], (2.5e-3, 0.0))
+
+
+@pytest.mark.cuda
+def test_controlnet_step_on_the_card_equals_the_cpu_and_keeps_the_base(cuda):
+    """One ControlNet step at 64^2 with a 128^2 hint (the antialiased resize,
+    5 K6 and 2 dx under pallas: the step differentiates the control branch
+    alone): the loss and every control gradient card vs CPU, the base
+    parameters the same bits as before the step."""
+    from csof_tpu_torch.models.diffusion import DDPM, DiffusionConfig
+    from csof_tpu_torch.models.generative import ControlledDenoiserUNet, controlnet_param_labels
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.training.generative import (make_controlnet_optimizer,
+                                                    make_controlnet_train_step)
+
+    cfg = DiffusionConfig(timesteps=50, features=(16, 32), time_dim=32)
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.rand(2, 64, 64, 1).astype(np.float32))
+    hint = torch.from_numpy(rng.rand(2, 128, 128, 3).astype(np.float32))
+    noise = torch.from_numpy(rng.randn(2, 64, 64, 1).astype(np.float32))
+    t = torch.tensor([7, 30])
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        model = ControlledDenoiserUNet(cfg, 3, torch.Generator().manual_seed(4), "pallas")
+        with torch.no_grad():
+            for i in range(2):
+                getattr(model, f"control_zero_{i}").weight.normal_(
+                    0.0, 0.05, generator=torch.Generator().manual_seed(i))
+        model = model.to(device)
+        before = {n: p.detach().clone() for n, p in model.named_parameters()}
+        step = make_controlnet_train_step(model, DDPM(model, cfg), make_controlnet_optimizer(model))
+        k6.launches = k6.bwd_launches = 0
+        loss = step(x.to(device), hint.to(device), t=t.to(device), noise=noise.to(device))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert (k6.launches, k6.bwd_launches) == (5, 2) == (
+                model.kernel_launches(64, backward=True)["K6"],
+                model.kernel_launches(64, backward=True)["K6_dx"])
+        labels = controlnet_param_labels(model)
+        for n, p in model.named_parameters():
+            if labels[n] == "frozen":
+                assert torch.equal(p, before[n]), n
+        out[device.type] = (loss.item(), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                          if labels[n] == "control"})
+    (a, ga), (b, gb) = out["cuda"], out["cpu"]
+    assert abs(a - b) <= 1e-4 * abs(b)
+    for n in gb:
+        _close(ga[n], gb[n], (2e-3 * float(gb[n].abs().max()) + 1e-6, 0.0))
+
+
+@pytest.mark.cuda
+def test_event_files_are_the_same_bytes_from_card_or_cpu_tensors(cuda, tmp_path):
+    """The TensorBoard writer takes tensors on either device: scalars, an
+    overlay, a flow image, an attention map and a video from card tensors
+    write the same file as from their CPU copies (a fixed clock)."""
+    from csof_tpu_torch.utils.visualization import TensorBoardVisualizer
+
+    rng = np.random.RandomState(6)
+    data = {"image": rng.rand(24, 20).astype(np.float32), "seg": rng.randint(0, 4, (24, 20)),
+            "flow": rng.randn(24, 20, 2).astype(np.float32),
+            "attn": rng.rand(6, 5).astype(np.float32),
+            "video": rng.rand(3, 24, 20).astype(np.float32)}
+    files = []
+    for device in (cuda, torch.device("cpu")):
+        d = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        vis = TensorBoardVisualizer(tmp_path / device.type, clock=lambda: 1700000000.0)
+        vis.log_scalars({"loss/train": torch.tensor(0.25, device=device), "loss/val": 0.5}, 1)
+        vis.log_seg("seg", d["image"], d["seg"], 1)
+        vis.log_flow("flow", d["flow"], 1)
+        vis.log_attention("attn", d["image"], d["attn"], 2)
+        vis.log_video("video", d["video"], 2)
+        vis.close()
+        (path,) = list((tmp_path / device.type).glob("events.out.tfevents.*"))
+        files.append(path.read_bytes())
+    assert files[0] == files[1] and len(files[0]) > 1000
