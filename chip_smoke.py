@@ -7,7 +7,8 @@ the nnU-Net 3d_fullres U-Net's training and serving and the cascade, then
 the flow models: RAFT, VoxelMorph and FinalFlow; model selection,
 postprocessing and the model zoo on phase 23's folds; MTL, Swin, the
 temporal and the deformable models; the generative family, UDA and the
-policy search.
+policy search; last, data-parallel training and sharded serving over
+torch.distributed.
 
     python3 chip_smoke.py
 
@@ -247,6 +248,23 @@ Phases, each printed on its own line:
    (the step's losses and every gradient at phase 8's bound, the CPU
    replaying the card's signs); K6 and K6 dx vs plain at every shape these
    runs gave them, with one DDPM forward's and one DDPM step's times.
+35. parallel: (a) NCCL at world 1 (an in-process store): phase 7's SegFlow
+   (bf16, full width, 4 x 6 x 128^2, K1 + K2) through Trainer under DDP for
+   2 steps against two unwrapped trainers on the same batches: losses and
+   parameters within twice the unwrapped runs' spread, step-1 gradients at
+   phase 8's bound; (b) the Task002 2d U-Net step (batch 40 x 320x256,
+   CSOF_CONV2D_IMPL=pallas: K6 + dx) under DDP with the batch Dice through
+   the gather, against the step without a process group (loss, gradients,
+   the SGD parameters); (d) predict_sharded of one 320^2 slice with mirror
+   TTA under both kernel switches (K5, K6) against predict; DDP and
+   sharded host ms beside the unwrapped ones; (c) gloo at world 2 with both
+   ranks on the card (two spawned processes): SegFlow float32 with the video
+   augmentation on 2 + 2 videos against world 1 on 4 (loss, all-reduced
+   gradients); (e) csof_torch_train under torchrun's variables at world 1
+   (NCCL) on phase 23's root: one log, the checkpoints and debug.json with
+   the mesh; (f) the native host library (csof_tpu_torch/native) built with
+   g++: its gather and min-max against the numpy branches, host ms of both.
+   Every launch of the phase counts under "parallel".
 
 Then the script's total seconds, one JSON line with each kernel's launches, error and times, and, last,
 the device line. Any failure exits non-zero before the last line.
@@ -446,6 +464,14 @@ VXM_T, VXM_HW, VXM_3D = 17, 192, (10, 224, 256)
 #: phase 31, FinalFlow at bench.py:98's geometry (8 cines x 12 frames x
 #: 128^2); its float32 GPU-vs-CPU forwards at 1 cine x 6 frames
 FF_B, FF_T, FF_HW, FF_PARITY_T = 8, 12, 128, 6
+
+
+#: phase 35, data parallel over torch.distributed: the steps compared with
+#: and without DDP, the rounds of timed steps (a, b, b, a), and the softmax
+#: tolerance of predict_sharded against predict on the card (the tiles
+#: forwarded in other batch compositions: cuDNN's float32 sums in another
+#: order, a few ulp of a logit)
+PAR_STEPS, PAR_ROUNDS, PAR_PROBS_ATOL = 2, 3, 1e-4
 
 
 class PhaseError(RuntimeError):
@@ -2502,12 +2528,14 @@ def check_planned_unet_kernels(card: str, trained: dict, served: dict,
     return err
 
 
-def data_plane_phase(card: str, record3d: dict, tail: dict) -> tuple[dict, dict]:
+def data_plane_phase(card: str, record3d: dict, tail: dict,
+                     workdir: Path) -> tuple[dict, dict]:
     """Phase 23: the data plane at ACDC size, from a raw synthetic task to a
     trained, served and evaluated planned 2D U-Net, and the kernels against
     their plain versions at every shape it gave them; then the planned 3D
-    U-Net (``data_plane_3d``, its K6 shapes into ``record3d``). Returns each
-    command's launches and each kernel's max abs error."""
+    U-Net (``data_plane_3d``, its K6 shapes into ``record3d``). Its files stay
+    in ``workdir`` (phase 35 trains on its root). Returns each command's
+    launches and each kernel's max abs error."""
 
     from csof_tpu_torch.cli import main as cli
     from csof_tpu_torch.config.experiment import ExperimentConfig
@@ -2521,8 +2549,7 @@ def data_plane_phase(card: str, record3d: dict, tail: dict) -> tuple[dict, dict]
     def run(name: str, entry, argv: list, want: dict, **environ) -> float:
         return run_command(counts, "data plane", name, entry, argv, want, card, **environ)
 
-    with tempfile.TemporaryDirectory() as tmpdir:
-        tmp = Path(tmpdir)
+    with contextlib.nullcontext(workdir) as tmp:
         t0 = time.perf_counter()
         make_synthetic_acdc(tmp / "raw", num_patients=DP_PATIENTS, num_frames=DP_FRAMES,
                             shape_zyx=DP_SHAPE)
@@ -4149,6 +4176,374 @@ def generative_phase(card: str, dev: dict) -> tuple[dict, dict]:
     return counts, convs
 
 
+def _step_grads(trainer) -> list:
+    """Each step's gradients as ``Optimizer.step`` sees them (after DDP's
+    average), {name: tensor or None}, appended as the trainer steps."""
+    record: list = []
+    step = trainer.optimizer.step
+
+    def capturing_step():
+        record.append({n: None if p.grad is None else p.grad.detach().clone()
+                       for n, p in trainer.model.named_parameters()})
+        step()
+
+    trainer.optimizer.step = capturing_step
+    return record
+
+
+def _par_trainer(config, out: Path, **kw):
+    """A Trainer on the card (DDP-wrapped if a process group is up) and the
+    record of its gradients."""
+    from csof_tpu_torch.training.trainer import Trainer
+
+    tr = Trainer(config, out, device=kw.pop("device", "cuda"), **kw).initialize()
+    return tr, _step_grads(tr)
+
+
+def _par_grads(label: str, got: dict, ref: dict) -> float:
+    """Phase 8's bound on every gradient leaf (a leaf without a gradient on
+    one side must have none on the other); the worst ratio."""
+    worst, worst_name = 0.0, None
+    for name, r in ref.items():
+        g = got[name]
+        if r is None:
+            expect(g is None, f"{label}: {name} has a gradient on one side only")
+            continue
+        g, r = (np.asarray(x.float().cpu() if hasattr(x, "cpu") else x) for x in (g, r))
+        expect(bool(np.isfinite(g).all()), f"{label}: {name}: non-finite gradient")
+        ratio = float(np.abs(g - r).max()) / (GRAD_TOL * float(np.abs(r).max()) + 1e-6)
+        if ratio > worst:
+            worst, worst_name = ratio, name
+    expect(worst <= 1, f"{label}: gradient {worst_name} outside tolerance ({worst:.3f})")
+    return worst
+
+
+def _alternate(a, b, batch, rounds: int = PAR_ROUNDS) -> tuple[float, float]:
+    """Median host ms of a train step of ``a`` and of ``b``, in turns a, b,
+    b, a (each step ends in the loss read, a synchronize)."""
+    times: dict = {id(a): [], id(b): []}
+    for _ in range(rounds):
+        for tr in (a, b, b, a):
+            tr.run_iteration(batch)
+            times[id(tr)].append(tr.history.step_times[-1] * 1e3)
+    return statistics.median(times[id(a)]), statistics.median(times[id(b)])
+
+
+def _gloo_rank(rank: int, init: str, config, batch: dict) -> dict:
+    """Phase 35 (c), one of two gloo ranks on cuda:0 (a spawned process): one
+    Trainer step of SegFlow on its two videos of the global four."""
+    import torch
+    import torch.distributed as dist
+
+    from csof_tpu_torch.ops.kernels import _build
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    _build.load_library()
+    dist.init_process_group("gloo", init_method=init, world_size=2, rank=rank)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            tr, grads = _par_trainer(config, Path(tmp), device=torch.device("cuda", 0))
+            _reset_counts()
+            loss, _ = tr.run_iteration(batch)
+            torch.cuda.synchronize()
+            counts = _read_counts()
+        return {"loss": loss, "mesh": tr.mesh.shape, "counts": counts,
+                "grads": {n: None if g is None else g.cpu().numpy() for n, g in grads[0].items()}}
+    finally:
+        dist.destroy_process_group()
+
+
+def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
+    """Phase 35: data-parallel training and sharded serving over
+    torch.distributed. Returns the launches of every run of the phase."""
+    import multiprocessing
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from torch.nn.parallel import DistributedDataParallel
+
+    from csof_tpu_torch import native
+    from csof_tpu_torch.cli import main as cli
+    from csof_tpu_torch.config.experiment import (
+        DataConfig,
+        ExperimentConfig,
+        OptimConfig,
+        SegFlowModelConfig,
+    )
+    from csof_tpu_torch.config.plans import Plans, task002_heart_2d
+    from csof_tpu_torch.data import loaders
+    from csof_tpu_torch.data.loaders import VideoChunkLoader
+    from csof_tpu_torch.inference.predictor import PredictorConfig, SlidingWindowPredictor
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.ops.sliding_window import bucket_image_shape, step_grid
+    from csof_tpu_torch.parallel.mesh import make_mesh
+    from csof_tpu_torch.utils.logging import read_training_logs
+
+    total: dict = {}
+
+    def take() -> dict:
+        got = _read_counts()
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        _reset_counts()
+        return {k: v for k, v in got.items() if v}
+
+    _reset_counts()
+    tmp = dp_tmp / "parallel"
+    # (a), (b): the trainers without a process group first, then the group
+    # SGD, so that the parameters compare: AdamW turns rounding noise in
+    # near-zero gradients into full steps
+    sgd = OptimConfig(optimizer="sgd", scheduler="poly", initial_lr=1e-2, weight_decay=3e-5)
+    seg_cfg = ExperimentConfig(data=DataConfig(do_data_aug=False, batch_size=TRAIN_BATCH,
+                                               video_length=TRAIN_T, crop_size=TRAIN_HW),
+                               optim=sgd)
+    loader = VideoChunkLoader(synthetic_videos(), TRAIN_T, TRAIN_BATCH, TRAIN_HW, seed=0)
+    seg_batches = [next(loader) for _ in range(PAR_STEPS)]
+    plain_a, grads_a = _par_trainer(seg_cfg, tmp / "a")
+    plain_b, grads_b = _par_trainer(seg_cfg, tmp / "b")
+    plans = task002_heart_2d()
+    sp = plans.fullres_stage()
+    unet_cfg = ExperimentConfig(model="unet2d", data=DataConfig(do_data_aug=False), optim=sgd)
+    rng = np.random.RandomState(35)
+    seg = np.zeros((sp.batch_size, *sp.patch_size), np.int32)
+    seg[:, 100:220, 70:180] = 1
+    unet_batch = {"seg": seg, "data": (rng.randn(sp.batch_size, *sp.patch_size, 1)
+                                       + seg[..., None]).astype(np.float32)}
+    with env(CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0"):
+        unet_plain, unet_grads_plain = _par_trainer(unet_cfg, tmp / "u", plans=plans)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        # (a) SegFlow, bf16, full width, DDP over NCCL at world 1
+        ddp, grads_d = _par_trainer(seg_cfg, tmp / "d")
+        expect(isinstance(ddp.train_model, DistributedDataParallel)
+               and ddp.mesh.group is not None and ddp.mesh.shape == {"data": 1, "model": 1},
+               f"the trainer under NCCL is not data parallel: {ddp.mesh}")
+        take()
+        loss_d = [ddp.run_iteration(b)[0] for b in seg_batches]
+        seg_ddp = take()
+        loss_a = [plain_a.run_iteration(b)[0] for b in seg_batches]
+        loss_b = [plain_b.run_iteration(b)[0] for b in seg_batches]
+        seg_plain = take()
+        expect(seg_plain == {k: 2 * v for k, v in seg_ddp.items()}
+               and seg_ddp.get("K1") == seg_ddp.get("K2") == CORR_PER_STEP * PAR_STEPS,
+               f"SegFlow launches DDP {seg_ddp}, the two unwrapped {seg_plain}")
+        for i, (d, a, b) in enumerate(zip(loss_d, loss_a, loss_b)):
+            expect(abs(d - a) <= 2 * abs(b - a) + 1e-6 * abs(a),
+                   f"step {i + 1}: loss DDP {d} vs {a} (a second unwrapped run {b})")
+        worst = max(_par_grads("parallel segflow", gd, ga) for gd, ga in zip(grads_d, grads_a))
+        same = [sum(x[n] is None and y[n] is None or x[n] is not None and y[n] is not None
+                    and torch.equal(x[n], y[n]) for n in y)
+                for x, y in ((grads_d[0], grads_a[0]), (grads_b[0], grads_a[0]))]
+        # the gradient bound carried through two SGD-Nesterov steps (momentum
+        # m): lr (1 + m) (2 + m) (GRAD_TOL max|g| + 1e-6), and twice the
+        # spread of the two unwrapped runs
+        lr_m = sgd.initial_lr * (1 + sgd.sgd_momentum) * (2 + sgd.sgd_momentum)
+        p_a, p_b = dict(plain_a.model.named_parameters()), dict(plain_b.model.named_parameters())
+        param_worst = 0.0
+        for name, p in ddp.model.named_parameters():
+            g = grads_a[0][name]
+            bound = (lr_m * (GRAD_TOL * (0.0 if g is None else float(g.abs().max())) + 1e-6)
+                     + 2 * float((p_b[name] - p_a[name]).detach().abs().max()))
+            param_worst = max(param_worst, float((p - p_a[name]).detach().abs().max()) / bound)
+        expect(param_worst <= 1, f"parameters after {PAR_STEPS} SGD steps: DDP vs unwrapped "
+               f"{param_worst:.3f} of their bound")
+        seg_ms_plain, seg_ms_ddp = _alternate(plain_a, ddp, seg_batches[0])
+        phase("parallel", f"(a) SegFlow ({TRAIN_BATCH}, {TRAIN_T}, {TRAIN_HW}, {TRAIN_HW}, 1) "
+              f"bf16, SGD, under DDP over NCCL at world 1: losses {loss_d} vs unwrapped "
+              f"{loss_a} (a second unwrapped run {loss_b}); gradients worst {worst:.3f} of "
+              f"phase 8's bound, step 1 the same bits at {same[0]} of {len(grads_a[0])} leaves "
+              f"(the two unwrapped runs {same[1]}); parameters after {PAR_STEPS} steps "
+              f"{param_worst:.3f} of their bound; launches "
+              f"{seg_ddp} a trainer; step median {seg_ms_ddp:.3f} ms DDP vs {seg_ms_plain:.3f} "
+              f"ms unwrapped, host clock ({card})")
+        take()
+        del plain_a, plain_b, ddp, grads_a, grads_b, grads_d, p_a, p_b
+
+        # (b) the Task002 2d U-Net under pallas through the global-batch Dice
+        with env(CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0"):
+            unet_ddp, unet_grads_ddp = _par_trainer(unet_cfg, tmp / "v", plans=plans)
+        p0 = {n: p.detach().clone() for n, p in unet_plain.model.named_parameters()}
+        take()
+        u_loss_d = unet_ddp.run_iteration(unet_batch)[0]
+        u_loss_p = unet_plain.run_iteration(unet_batch)[0]
+        unet_counts = take()
+        per = unet_plain.model.kernel_launches(sp.patch_size[1], backward=True)
+        expect(unet_counts == {"K6": 2 * per["K6"], "K6_dx": 2 * per["K6_dx"]},
+               f"U-Net launches {unet_counts}, expected {per} a step")
+        expect(abs(u_loss_d - u_loss_p) <= LOSS_RTOL * abs(u_loss_p),
+               f"U-Net loss DDP {u_loss_d} vs {u_loss_p}")
+        u_worst = _par_grads("parallel unet", unet_grads_ddp[0], unet_grads_plain[0])
+        factor = unet_cfg.optim.initial_lr * (1 + unet_cfg.optim.sgd_momentum)
+        plain_params = dict(unet_plain.model.named_parameters())
+        for name, p in unet_ddp.model.named_parameters():
+            ref, g = plain_params[name], unet_grads_plain[0][name]
+            gmax = 0.0 if g is None else float(g.abs().max())
+            tol = factor * (GRAD_TOL * gmax + 1e-6) + 2 * float(torch.finfo(torch.float32).eps
+                                                                 * p0[name].abs().max())
+            expect(float((p - ref).detach().abs().max()) <= tol,
+                   f"U-Net {name} after one SGD step")
+        u_ms_plain, u_ms_ddp = _alternate(unet_plain, unet_ddp, unet_batch)
+        phase("parallel", f"(b) Task002 2d U-Net ({sp.batch_size}, 1, {sp.patch_size[0]}, "
+              f"{sp.patch_size[1]}) float32 under pallas, DDP over NCCL at world 1 with the "
+              f"batch Dice through the gather: loss {u_loss_d:.7f} vs {u_loss_p:.7f} "
+              f"unwrapped; gradients worst {u_worst:.3f} of phase 8's bound; the parameters "
+              f"after one SGD step within lr (1 + momentum) x that bound; launches "
+              f"{unet_counts} (both sides); step median {u_ms_ddp:.3f} ms DDP vs "
+              f"{u_ms_plain:.3f} ms unwrapped, host clock ({card})")
+        take()
+        del unet_plain, unet_ddp, unet_grads_plain, unet_grads_ddp, p0, plain_params
+        torch.cuda.empty_cache()
+
+        # (d) predict_sharded at world 1 over NCCL, K5 and K6
+        with env(CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="1"):
+            net = unet_from_plans(plans, fused_norm_act=True, conv_impl="pallas",
+                                  generator=torch.Generator().manual_seed(35)).cuda().eval()
+        pcfg = PredictorConfig(patch_size=tuple(sp.patch_size),
+                               num_classes=plans.num_classes_with_background,
+                               tile_batch=UNET_TILE_BATCH)
+        predictor = SlidingWindowPredictor(net, pcfg, "cuda")
+        image = synthetic_case(np.random.RandomState(36), depth=1)[None, 0].copy()
+        image = (image - image.mean()) / image.std()
+        mesh = make_mesh(device="cuda:0")
+        take()
+        seg_s, probs_s = predictor.predict_sharded(image, mesh)
+        sharded_counts = take()
+        seg_p, probs_p = predictor.predict(image)
+        predict_counts = take()
+        tiles = len(step_grid(sp.patch_size, bucket_image_shape(image.shape[1:], sp.patch_size,
+                                                                0.5, pcfg.bucket), 0.5))
+        per_fwd = net.kernel_launches(sp.patch_size[1])
+        fwd_s = -(-tiles // UNET_TILE_BATCH)
+        expect(sharded_counts == {k: v * fwd_s for k, v in per_fwd.items() if v},
+               f"predict_sharded launches {sharded_counts}, {fwd_s} forwards of {per_fwd}")
+        err = float(np.abs(probs_s - probs_p).max())
+        agree = float((seg_s == seg_p).mean())
+        expect(err <= PAR_PROBS_ATOL and agree >= 0.999 and np.isfinite(probs_s).all(),
+               f"predict_sharded vs predict: {err:.3e} softmax, {agree:.5f} labels")
+        ms_s = host_ms(lambda: predictor.predict_sharded(image, mesh), reps=5, warmup=1)
+        ms_p = host_ms(lambda: predictor.predict(image), reps=5, warmup=1)
+        phase("parallel", f"(d) predict_sharded of one {image.shape} slice ({tiles} tiles x 4 "
+              f"mirrors, K5 and K6 on) over NCCL at world 1 vs predict: softmax max abs "
+              f"{err:.3e} (tol {PAR_PROBS_ATOL:g}), labels {agree:.5f} equal; launches "
+              f"{sharded_counts} vs {predict_counts}; {ms_s:.3f} ms vs {ms_p:.3f} ms, host "
+              f"clock median of 5 ({card})")
+        take()
+        del net, predictor
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # (c) gloo at world 2, both ranks on cuda:0: SegFlow float32 on 2 + 2 videos
+    cfg_c = ExperimentConfig(segflow=SegFlowModelConfig(dtype="float32"),
+                             data=DataConfig(batch_size=4, video_length=TRAIN_T,
+                                             crop_size=TRAIN_HW))
+    batch_c = next(VideoChunkLoader(synthetic_videos(), TRAIN_T, 4, TRAIN_HW, seed=3))
+    t0 = time.perf_counter()
+    init = (tmp / "gloo_store").as_uri()
+    with multiprocessing.get_context("spawn").Pool(2) as pool:
+        ranks = pool.starmap(_gloo_rank, [(r, init, cfg_c, batch_c) for r in range(2)])
+    spawn_s = time.perf_counter() - t0
+    ref_tr, ref_grads = _par_trainer(cfg_c, tmp / "w1")
+    take()
+    ref_loss = ref_tr.run_iteration(batch_c)[0]
+    w1_counts = take()
+    c_worst = 0.0
+    for r, res in enumerate(ranks):
+        expect(res["mesh"] == {"data": 2, "model": 1}, f"rank {r}: mesh {res['mesh']}")
+        expect(abs(res["loss"] - ref_loss) <= LOSS_RTOL * abs(ref_loss),
+               f"rank {r}: loss {res['loss']} vs world 1 {ref_loss}")
+        c_worst = max(c_worst, _par_grads(f"parallel gloo rank {r}", res["grads"],
+                                          ref_grads[0]))
+        for k, v in res["counts"].items():
+            total[k] = total.get(k, 0) + v
+    expect(ranks[0]["counts"]["K1"] == CORR_PER_STEP and ranks[0]["counts"]["K2"] == CORR_PER_STEP,
+           f"a rank's launches {ranks[0]['counts']}")
+    phase("parallel", f"(c) SegFlow float32 with the video augmentation, gloo at world 2 on "
+          f"one card (2 + 2 videos of {TRAIN_T} x {TRAIN_HW}^2) vs world 1 on 4: losses "
+          f"{[r['loss'] for r in ranks]} vs {ref_loss}; all-reduced gradients worst "
+          f"{c_worst:.3f} of phase 8's bound; launches a rank "
+          f"{ {k: v for k, v in ranks[0]['counts'].items() if v} }, world 1 {w1_counts}; two "
+          f"spawned ranks {spawn_s:.1f} s host clock ({card})")
+    del ref_tr, ref_grads, ranks
+    torch.cuda.empty_cache()
+
+    # (e) csof_torch_train under torchrun's variables at world 1 (NCCL)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dp_plans = Plans.from_json(dp_root / "plans_2D.json")
+    per = unet_from_plans(dp_plans, conv_impl="pallas").kernel_launches(
+        dp_plans.fullres_stage().patch_size[1], backward=True)
+    out = tmp / "torchrun"
+    counts_e: dict = {}
+    with env(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", LOCAL_WORLD_SIZE="1",
+             MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)):
+        secs = run_command(counts_e, "parallel", "csof_torch_train unet2d torchrun",
+                           cli.train_entry, ["-c", dp_tmp / "unet.yaml", "-p", dp_root, "-o", out],
+                           {"K6": per["K6"] * (DP_STEPS + DP_VAL),
+                            "K6_dx": per["K6_dx"] * DP_STEPS}, card,
+                           CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
+    for k, v in counts_e["csof_torch_train unet2d torchrun"].items():
+        total[k] = total.get(k, 0) + v
+    fold = out / "fold_0"
+    debug = json.loads((fold / "debug.json").read_text())
+    logs = read_training_logs(fold)
+    expect(not dist.is_initialized() and len(logs) == 1 and len(logs[0]) == 1
+           and (fold / "model_final_checkpoint.pt").is_file()
+           and (fold / "model_best.pt").is_file() and (fold / "config.yaml").is_file()
+           and debug["mesh_shape"] == {"data": 1, "model": 1}
+           and debug["devices"] == ["cuda:0"],
+           f"torchrun fold: {sorted(p.name for p in fold.iterdir())}, {debug.get('mesh_shape')}")
+    phase("parallel", f"(e) csof_torch_train under torchrun's variables (world 1, NCCL) on phase "
+          f"23's root: {secs:.3f} s host clock, one log line {logs[0][0]!r}, the checkpoints and "
+          f"debug.json (mesh {debug['mesh_shape']}, devices {debug['devices']}) written once")
+
+    # (f) the native host library against its numpy versions, at the loaders'
+    # calls (SegPatchLoader: one centre a call; VideoChunkLoader: one clip)
+    lib = native.bindings.load_library()
+    case = np.load(sorted((dp_root / "preprocessed_2d").glob("*.npz"))[0])["data"]
+    arr = np.ascontiguousarray(case[:, case.shape[1] // 2], np.float32)
+    prng = np.random.RandomState(37)
+    centers = np.stack([prng.randint(-60, s + 60, 64) for s in arr.shape[1:]], 1)
+    patch = tuple(dp_plans.fullres_stage().patch_size)
+    got = native.extract_patches_2d(arr, centers, patch)
+    expect(np.array_equal(got, loaders.extract_patches(arr, centers, patch)),
+           "the C++ gather differs from the numpy branch")
+    clip = np.ascontiguousarray(synthetic_cine(prng)[:TRAIN_T, 0, :TRAIN_HW, :TRAIN_HW],
+                                np.float32)
+    mm = native.minmax_normalize(clip.copy())
+    mm_err = float(np.abs(mm - loaders.minmax_normalize(clip.copy())).max())
+    expect(mm_err <= 2.0 ** -22, f"the C++ min-max is {mm_err} off the numpy branch")
+
+    def host_med(fn, reps=21):
+        times = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t1) * 1e3)
+        return statistics.median(times)
+
+    one = centers[:1]
+    g_ms = host_med(lambda: native.extract_patches_2d(arr, one, patch))
+    g_np = host_med(lambda: loaders.extract_patches(arr, one, patch))
+    m_ms = host_med(lambda: native.minmax_normalize(clip.copy()))
+    m_np = host_med(lambda: loaders.minmax_normalize(clip.copy()))
+    phase("parallel", f"(f) {Path(lib._name).name}: the gather of 64 patches {patch} from "
+          f"{arr.shape} (centres past the borders) equal to the numpy branch, min-max of a "
+          f"{clip.shape} clip within {mm_err:.2e} of it; a loader's call: one patch "
+          f"{g_ms:.4f} ms vs {g_np:.4f} ms numpy, one clip {m_ms:.4f} ms vs {m_np:.4f} ms "
+          f"(host clock medians of 21, {os.cpu_count()} CPUs, threads a call "
+          f"{native.bindings.threads_for(1, got[0].size)} and "
+          f"{native.bindings.threads_for(len(clip), clip.size)})")
+    for k in ("K1", "K2", "K5", "K6", "K6_dx"):
+        expect(total.get(k, 0) > 0, f"phase 35 never launched {k}: {total}")
+    return total
+
+
 _MAIN_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
 
@@ -4245,7 +4640,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     record3d = {}
     tail_counts: dict = {}
-    dp_counts, dp_errs = data_plane_phase(card, record3d, tail_counts)
+    dp_dir = tempfile.TemporaryDirectory()  # phase 35 trains on its root
+    dp_tmp = Path(dp_dir.name)
+    dp_counts, dp_errs = data_plane_phase(card, record3d, tail_counts, dp_tmp)
     for k, e in dp_errs.items():
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], e)
     phase("data plane", f"phase 23 took {time.perf_counter() - t_dp:.1f} s (phase 32 included)")
@@ -4294,6 +4691,13 @@ def main() -> int:
         kernels[k]["max_abs_err"] = max(kernels[k]["max_abs_err"], gen_convs["max_abs_err"])
         kernels[k].update({f"generative_f32_{name}": v for name, v in gen_convs[key].items()})
     phase("generative", f"phase 34 took {time.perf_counter() - t_gen:.1f} s")
+    t_par = time.perf_counter()
+    torch.cuda.empty_cache()
+    try:
+        par_counts = parallel_phase(card, dp_tmp / f"pre_{DP_WORKERS}", dp_tmp)
+    finally:
+        dp_dir.cleanup()
+    phase("parallel", f"phase 35 took {time.perf_counter() - t_par:.1f} s")
 
     paths = {"serving": counts, "train": train_counts, "unet_serving": unet_counts,
              "unet_training": unet_train_counts, "ncc_op": ncc_counts,
@@ -4307,7 +4711,8 @@ def main() -> int:
              "unet3d_training": u3_train_counts, "unet3d_serving": u3_serve_counts,
              "cascade": cascade_counts, **raft_counts, **vxm_counts, **ff_counts,
              **{name.replace("csof_torch_", "nnunet tail ").replace(" --", " "): c
-                for name, c in tail_counts.items()}, **fam_counts, **gen_counts}
+                for name, c in tail_counts.items()}, **fam_counts, **gen_counts,
+             "parallel": par_counts}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
                for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
     sources = {

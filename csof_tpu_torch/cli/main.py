@@ -34,7 +34,13 @@ Console scripts (``pyproject.toml``), or ``python -m csof_tpu_torch.cli.main
   csof_torch_change_model  rewrite the model kind in a folder's config.yaml
   csof_torch_plot_task_pngs           an image + label overlay PNG per case of a raw task
 
-The last seven do no device work and take no ``--device``. A folder the
+The last seven do no device work and take no ``--device``.
+``csof_torch_train`` under ``torchrun`` (its variables ``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT`` set) trains data
+parallel: it joins the process group (NCCL with ``cuda:LOCAL_RANK`` a rank,
+gloo under ``--device cpu``), trains on the mesh of the config's
+``mesh_data`` / ``mesh_model``, writes its files from rank 0 and leaves the
+group at the end; without those variables it trains in one process. A folder the
 port trained holds ``model_*.pt`` where the JAX package's holds
 ``model_*.msgpack``: export keeps both, the listing finds both, and a JAX
 folder exports and lists exactly as in the JAX package.
@@ -43,7 +49,9 @@ folder exports and lists exactly as in the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
+import os
 import sys
 from pathlib import Path
 
@@ -63,6 +71,28 @@ def _device(p: argparse.ArgumentParser, name: str):
 
 def _add_device(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", default="cuda", help="torch device to run on (default: cuda)")
+
+
+@contextlib.contextmanager
+def _process_group(device):
+    """Under torchrun's variables, join the process group (NCCL on
+    ``cuda:LOCAL_RANK``, gloo on the CPU) for the body and leave it after;
+    yields the rank's device. A group the caller started is used and left
+    to it; without the variables, nothing changes."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized() or "WORLD_SIZE" not in os.environ:
+        yield device
+        return
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        yield device
+    finally:
+        dist.destroy_process_group()
 
 
 def convert_acdc_entry(argv=None):
@@ -189,11 +219,6 @@ def convert_decathlon_entry(argv=None):
 
 def train_entry(argv=None):
     from csof_tpu_torch.config.experiment import ExperimentConfig, load_experiment_config
-    from csof_tpu_torch.config.plans import Plans
-    from csof_tpu_torch.data.dataset import do_split, load_dataset, unpack_dataset
-    from csof_tpu_torch.data.loaders import Prefetcher, SegPatchLoader
-    from csof_tpu_torch.training.restore import save_trainer_sidecar
-    from csof_tpu_torch.training.trainer import Trainer
 
     p = argparse.ArgumentParser("csof_torch_train")
     p.add_argument("-c", "--config", help="experiment YAML (defaults used if absent)")
@@ -213,10 +238,22 @@ def train_entry(argv=None):
     config = load_experiment_config(a.config) if a.config else ExperimentConfig(model="unet2d")
     if a.fold is not None:
         config.fold = a.fold
-    if config.model in ("segflow", "voxelmorph", "raft"):
-        if not a.task_dir:
-            p.error(f"model '{config.model}' trains on cine videos: pass -t/--task-dir")
-        return _train_video(a, config, device)
+    video = config.model in ("segflow", "voxelmorph", "raft")
+    if video and not a.task_dir:
+        p.error(f"model '{config.model}' trains on cine videos: pass -t/--task-dir")
+    with _process_group(device) as device:
+        return (_train_video if video else _train_unet)(a, config, device)
+
+
+def _train_unet(a, config, device):
+    """The U-Net branch of csof_torch_train: SegPatchLoader batches of the
+    preprocessed folds."""
+    from csof_tpu_torch.config.plans import Plans
+    from csof_tpu_torch.data.dataset import do_split, load_dataset, unpack_dataset
+    from csof_tpu_torch.data.loaders import Prefetcher, SegPatchLoader
+    from csof_tpu_torch.training.restore import save_trainer_sidecar
+    from csof_tpu_torch.training.trainer import Trainer
+
     pre_root = Path(a.preprocessed)
     key = "2d" if config.model == "unet2d" else "3d"
     plans = Plans.from_json(pre_root / f"plans_{key.upper()}.json")
@@ -228,8 +265,11 @@ def train_entry(argv=None):
     out = Path(a.output) / f"fold_{config.fold}"
     trainer = Trainer(config, out, plans=plans, device=device,
                       for_training=not a.validation_only).initialize()
-    save_trainer_sidecar(out, config, plans, plans.num_classes_with_background)
+    if trainer.is_main_process:
+        save_trainer_sidecar(out, config, plans, plans.num_classes_with_background)
     if a.validation_only:
+        if not trainer.is_main_process:
+            return  # rank 0 scores the fold
         from csof_tpu_torch.training.validation import validate_fold
 
         trainer.load_checkpoint()
@@ -284,7 +324,8 @@ def _train_video(a, config, device):
 
     out = Path(a.output) / f"fold_{config.fold}"
     trainer = Trainer(config, out, num_classes=4, device=device).initialize()
-    save_trainer_sidecar(out, config, None, 4)
+    if trainer.is_main_process:
+        save_trainer_sidecar(out, config, None, 4)
     if a.continue_training:
         trainer.load_checkpoint()
     trainer.run_training(model_batches(make_loader(tr_videos, config.seed)),

@@ -160,7 +160,7 @@ class ExperimentConfig:
     raft: RaftModelConfig = field(default_factory=RaftModelConfig)
     voxelmorph: VoxelMorphModelConfig = field(default_factory=VoxelMorphModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
-    # devices per mesh axis in the JAX package; the port trains on one device
+    # ranks per mesh axis under a process group (csof_tpu_torch.parallel.mesh)
     mesh_data: int = -1
     mesh_model: int = 1
 

@@ -469,26 +469,45 @@ def apply_augment(images: torch.Tensor, segs: torch.Tensor, spatial: dict, inten
     return apply_intensity(img, intensity, cfg), seg.to(segs.dtype)
 
 
+#: intensity draws whose batch axis is not the first
+_BATCH_AXIS = {"rician_fields": 1}
+
+
+def _draws(gen: torch.Generator, shape, cfg: AugmentConfig, device,
+           rows: tuple[int, slice] | None) -> tuple[dict, dict]:
+    """The spatial and intensity draws of a batch of ``shape`` (N, C, H, W);
+    with ``rows`` = (n, sl), those of a batch of n, cut to its rows ``sl``
+    (a rank's rows of the global batch get the global batch's draws)."""
+    n = shape[0] if rows is None else rows[0]
+    spatial = draw_spatial(gen, n, shape[2], shape[3], cfg, device)
+    intensity = draw_intensity(gen, (n, *shape[1:]), cfg, device)
+    if rows is not None:
+        spatial = {k: v[rows[1]] for k, v in spatial.items()}
+        intensity = {k: v[(slice(None),) * _BATCH_AXIS.get(k, 0) + (rows[1],)]
+                     for k, v in intensity.items()}
+    return spatial, intensity
+
+
 def augment_batch_2d(gen: torch.Generator, images: torch.Tensor, segs: torch.Tensor,
-                     cfg: AugmentConfig = AugmentConfig()) -> tuple[torch.Tensor, torch.Tensor]:
+                     cfg: AugmentConfig = AugmentConfig(),
+                     rows: tuple[int, slice] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """images (N, C, H, W), segs (N, H, W) -> the augmented pair, each sample
-    with its own draw, on the batch's device."""
-    n, _, h, w = images.shape
-    spatial = draw_spatial(gen, n, h, w, cfg, images.device)
-    intensity = draw_intensity(gen, tuple(images.shape), cfg, images.device)
+    with its own draw, on the batch's device. ``rows`` = (n, sl): the batch
+    is rows ``sl`` of one of n, and takes their draws."""
+    spatial, intensity = _draws(gen, tuple(images.shape), cfg, images.device, rows)
     img, seg = apply_augment(images, segs[:, None], spatial, intensity, cfg)
     return img, seg[:, 0]
 
 
 def augment_video(gen: torch.Generator, video: torch.Tensor, seg: torch.Tensor,
-                  cfg: AugmentConfig | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+                  cfg: AugmentConfig | None = None,
+                  rows: tuple[int, slice] | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """video (N, T, H, W, C), seg (N, T, H, W): one spatial and one intensity
     draw per clip, applied to all of its frames (``clip_augment_config`` by
-    default)."""
+    default); ``rows`` as for ``augment_batch_2d``."""
     cfg = cfg or clip_augment_config()
     n, t, h, w, c = video.shape
     stacked = video.permute(0, 4, 1, 2, 3).reshape(n, c * t, h, w)
-    spatial = draw_spatial(gen, n, h, w, cfg, video.device)
-    intensity = draw_intensity(gen, tuple(stacked.shape), cfg, video.device)
+    spatial, intensity = _draws(gen, tuple(stacked.shape), cfg, video.device, rows)
     img, seg_out = apply_augment(stacked, seg, spatial, intensity, cfg)
     return img.reshape(n, c, t, h, w).permute(0, 2, 3, 4, 1), seg_out

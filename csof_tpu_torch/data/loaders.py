@@ -1,4 +1,6 @@
-"""Host data loaders (port of ``csof_tpu/data/loaders.py``), numpy only:
+"""Host data loaders (port of ``csof_tpu/data/loaders.py``), numpy and the
+port's threaded C++ library (:mod:`csof_tpu_torch.native`: the patch gather
+and the min-max, as in the JAX package):
 
 - ``SegPatchLoader``: random patches of preprocessed cases with nnU-Net's
   foreground oversampling, for the U-Net;
@@ -20,6 +22,7 @@ from typing import Iterator
 
 import numpy as np
 
+from csof_tpu_torch import native
 from csof_tpu_torch.data.dataset import load_case
 
 
@@ -28,7 +31,7 @@ def extract_patches(src: np.ndarray, centers, patch) -> np.ndarray:
     float32: the window ``[center - patch // 2, + patch)`` of each center,
     zero where it leaves the volume. The numpy branch of
     ``csof_tpu/native/bindings.py`` ``extract_patches_2d`` / ``_3d``, for 2D
-    and 3D alike."""
+    and 3D alike: the plain version of the C++ gather the loader runs."""
     src = np.ascontiguousarray(src, np.float32)
     patch = [int(p) for p in patch]
     out = np.zeros((len(centers), src.shape[0], *patch), np.float32)
@@ -95,7 +98,9 @@ class SegPatchLoader:
     def _crop_nd(self, arr: np.ndarray, center=None):
         if center is None:
             center = [self.rng.randint(0, max(1, s)) for s in arr.shape[1:]]
-        out = extract_patches(arr, [center], self.patch_size)[0]
+        nd = len(self.patch_size)
+        gather = native.extract_patches_2d if nd == 2 else native.extract_patches_3d
+        out = gather(arr, [center], self.patch_size)[0]
         seg = np.maximum(out[-1], 0)  # the -1 outside the nonzero mask -> background
         return out[: self.num_modalities], seg.astype(np.int32)
 
@@ -160,7 +165,9 @@ class Prefetcher:
 def minmax_normalize(data: np.ndarray, eps: float = 1e-8) -> np.ndarray:
     """In place: each leading index scaled to [0, 1] over its trailing dims,
     (x - min) / (max - min + eps). The numpy branch of
-    ``csof_tpu/native/bindings.py`` ``minmax_normalize``."""
+    ``csof_tpu/native/bindings.py`` ``minmax_normalize``: the plain version
+    of the C++ one the video loader runs, which multiplies by the
+    reciprocal (within one float32 rounding of this)."""
     if data.dtype != np.float32 or not data.flags.c_contiguous:
         raise ValueError("minmax_normalize needs a C-contiguous float32 array")
     flat = data.reshape(data.shape[0], -1)
@@ -239,7 +246,7 @@ class VideoChunkLoader:
             f_idx, mask, dist = sample_video_chunk(
                 t, v["ed"] % t, v["es"] % t, self.video_length, self.rng, self.start_es)
             clip = np.ascontiguousarray(self._center_crop(frames[f_idx, d_idx].astype(np.float32)))
-            vids.append(minmax_normalize(clip)[..., None])
+            vids.append(native.minmax_normalize(clip)[..., None])
             if v.get("seg") is not None:
                 s = self._center_crop(v["seg"][f_idx, d_idx].astype(np.int32))
                 s[~mask] = -1

@@ -8,8 +8,10 @@ As in the JAX package: the image is padded to a bucketed shape, every tile
 run ``tile_batch`` at a time with their mirror variants in one forward (the
 last chunk padded with zero tiles), the mirrored softmaxes are averaged in
 float32, and the tiles are Gaussian-weighted and added into the volume in
-job order, then divided by the summed weights. ``predict_sharded`` is not
-ported.
+job order, then divided by the summed weights. ``predict_sharded`` spreads
+the tile batch over the ranks of a process group
+(:mod:`csof_tpu_torch.parallel.spmd_inference`) and aggregates on the host,
+as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -112,6 +114,40 @@ class SlidingWindowPredictor:
         probs = probs[(slice(None), slice(None)) + slicer[2:]]
         return probs.argmax(0), probs
 
+    def predict_sharded(self, image: np.ndarray, mesh) -> tuple[np.ndarray, np.ndarray]:
+        """``predict`` with the tile batch (times the mirror variants) split
+        over the ranks of ``mesh`` (a :class:`csof_tpu_torch.parallel.mesh.Mesh`),
+        each rank forwarding its tiles ``tile_batch`` at a time (the last
+        chunk unpadded); the softmaxes are gathered and Gaussian-weighted
+        into the volume on the host, in tile order. Collective: every rank calls it on the same image and
+        gets the same outputs as ``predict``."""
+        from csof_tpu_torch.parallel.spmd_inference import make_sharded_batch_forward
+
+        cfg = self.cfg
+        if image.ndim != len(cfg.patch_size) + 1:
+            raise ValueError(f"image {image.shape} does not fit patch {cfg.patch_size}")
+        shape = bucket_image_shape(image.shape[1:], cfg.patch_size, cfg.step_size, cfg.bucket)
+        padded, slicer = pad_nd_image(image, shape)
+        starts = step_grid(cfg.patch_size, shape, cfg.step_size)
+        tb = max(1, cfg.tile_batch)
+        run = make_sharded_batch_forward(
+            lambda x: torch.cat([self._forward_tiles(c) for c in x.split(tb)]), mesh)
+        with torch.inference_mode():
+            vol = torch.from_numpy(np.ascontiguousarray(padded, np.float32)).to(self.device)
+            probs = run(extract_tiles(vol, starts, cfg.patch_size)).cpu()
+            gauss = self._weight_map()
+            out = torch.zeros((cfg.num_classes, *shape), dtype=torch.float32)
+            wsum = torch.zeros(shape, dtype=torch.float32)
+            add_tiles(out, wsum, probs * gauss, gauss, starts)
+        probs_full = (out / wsum).numpy()[(slice(None),) + slicer[1:]]
+        return probs_full.argmax(0), probs_full
+
+    def _weight_map(self) -> torch.Tensor:
+        """The tiles' aggregation weights (host): Gaussian, or uniform."""
+        patch = tuple(self.cfg.patch_size)
+        return torch.from_numpy(gaussian_importance_map(patch) if self.cfg.use_gaussian
+                                else np.ones(patch, np.float32))
+
     def _mirror_variants(self) -> list[tuple[int, ...]]:
         if not self.cfg.do_mirroring:
             return [()]
@@ -141,11 +177,9 @@ class SlidingWindowPredictor:
         patch = tuple(cfg.patch_size)
         lead = starts.shape[1] - len(patch)
         tb = max(1, cfg.tile_batch)
-        gauss = (gaussian_importance_map(patch) if cfg.use_gaussian
-                 else np.ones(patch, np.float32))
         with torch.inference_mode():
             vol = torch.from_numpy(np.ascontiguousarray(image, np.float32)).to(self.device)
-            gauss = torch.from_numpy(gauss).to(self.device)
+            gauss = self._weight_map().to(self.device)
             out = torch.zeros((cfg.num_classes, *vol.shape[1:]), dtype=torch.float32,
                               device=self.device)
             wsum = torch.zeros(vol.shape[1:], dtype=torch.float32, device=self.device)

@@ -16,6 +16,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from csof_tpu_torch.parallel.mesh import Mesh, global_batch_dice_stats
+
 
 def one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     """float32 one-hot; labels outside [0, num_classes) give a zero row, as
@@ -53,14 +55,20 @@ def get_tp_fp_fn_tn(probs: torch.Tensor, target: torch.Tensor,
 
 def soft_dice_loss(logits: torch.Tensor, target: torch.Tensor, batch_dice: bool = False,
                    do_bg: bool = False, smooth: float = 1e-5, mask: torch.Tensor | None = None,
-                   probs_input: bool = False) -> torch.Tensor:
+                   probs_input: bool = False, mesh: Mesh | None = None) -> torch.Tensor:
     """1 - mean soft Dice over the classes (background dropped unless
     ``do_bg``). ``batch_dice`` sums the statistics over the leading axis
-    too; ``probs_input`` takes probabilities instead of logits."""
+    too, and with the ``mesh`` of a process group over the global batch
+    (``global_batch_dice_stats``), as the JAX loss sums them over its
+    sharded batch; ``probs_input`` takes probabilities instead of logits."""
     probs = logits if probs_input else torch.softmax(logits, -1)
-    first = 0 if batch_dice else 1
-    tp, fp, fn, _ = get_tp_fp_fn_tn(probs, target, axes=range(first, probs.dim() - 1),
-                                    mask=mask)
+    if batch_dice and mesh is not None and mesh.group is not None:
+        tp, fp, fn, _ = get_tp_fp_fn_tn(probs, target, mask=mask)
+        tp, fp, fn = global_batch_dice_stats(tp, fp, fn, mesh)
+    else:
+        first = 0 if batch_dice else 1
+        tp, fp, fn, _ = get_tp_fp_fn_tn(probs, target, axes=range(first, probs.dim() - 1),
+                                        mask=mask)
     dc = (2 * tp + smooth) / (2 * tp + fp + fn + smooth)
     if not do_bg:
         dc = dc[..., 1:]
@@ -81,11 +89,13 @@ def cross_entropy_loss(logits: torch.Tensor, target: torch.Tensor,
 
 def dice_and_ce_loss(logits: torch.Tensor, target: torch.Tensor, weight_ce: float = 1.0,
                      weight_dice: float = 1.0, batch_dice: bool = True,
-                     smooth: float = 1e-5) -> torch.Tensor:
+                     smooth: float = 1e-5, mesh: Mesh | None = None) -> torch.Tensor:
     """nnU-Net's Dice + CE: mean cross-entropy plus batch soft Dice
-    (the 2D recipe's default, smooth 1e-5), channels-last."""
+    (the 2D recipe's default, smooth 1e-5, over the global batch of
+    ``mesh``), channels-last."""
     return (weight_ce * cross_entropy_loss(logits, target)
-            + weight_dice * soft_dice_loss(logits, target, batch_dice=batch_dice, smooth=smooth))
+            + weight_dice * soft_dice_loss(logits, target, batch_dice=batch_dice, smooth=smooth,
+                                           mesh=mesh))
 
 
 def deep_supervision_weights(num_outputs: int, mask_last: bool = True) -> np.ndarray:

@@ -36,8 +36,20 @@ writes the JAX trainer's observability files beside the checkpoints:
 each epoch (:mod:`csof_tpu_torch.utils.logging`); with ``tensorboard=True``
 also ``loss/train``, ``loss/val`` and ``metric/fg_dice`` each epoch to a
 TensorBoard event file in ``tb/`` (the port's own writer,
-:class:`csof_tpu_torch.utils.visualization.TensorBoardVisualizer`). Not
-ported: sharding over a mesh and compile-draw autotuning.
+:class:`csof_tpu_torch.utils.visualization.TensorBoardVisualizer`).
+
+Under an initialized ``torch.distributed`` process group the trainer is
+data parallel, as the JAX trainer on a mesh: its :class:`Mesh` comes from
+``config.mesh_data`` / ``config.mesh_model`` (the data size cut to a divisor
+of the global batch, as JAX clamps it), every rank takes the global host
+batch and keeps its rows (its augmentation draws are the global batch's
+rows), the model trains wrapped in ``DistributedDataParallel``, the U-Net's
+batch Dice and its validation statistics are summed over the global batch
+(:func:`csof_tpu_torch.parallel.mesh.global_batch_dice_stats`), losses are
+averaged over the ranks, and only rank 0 writes the logs, ``debug.json``,
+``progress.png``, TensorBoard and the checkpoints, so every rank takes the
+same early-stop and checkpoint decisions. Not ported: compile-draw
+autotuning.
 """
 
 from __future__ import annotations
@@ -52,6 +64,8 @@ from typing import Callable, Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from csof_tpu_torch.compat.flax_import import load_flax_train_state
 from csof_tpu_torch.config.experiment import ExperimentConfig
@@ -62,6 +76,8 @@ from csof_tpu_torch.models.unet import GenericUNet, conv_impl_from_env, unet_fro
 from csof_tpu_torch.models.voxelmorph import VoxelMorph
 from csof_tpu_torch.ops import losses as L
 from csof_tpu_torch.ops.warp import warp_batch, warp_image_cm
+from csof_tpu_torch.parallel.mesh import (Mesh, all_mean, fit_batch, global_batch_dice_stats,
+                                          make_mesh, shard_batch)
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.schedules import build_optimizer
 from csof_tpu_torch.utils.logging import TrainingLog, count_parameters, model_summary, plot_progress
@@ -122,15 +138,19 @@ def _check_trainable(config: ExperimentConfig, for_training: bool = True) -> Non
             "JAX package uses it for inference only. Unset it to train.")
 
 
-def make_seg_loss(config: ExperimentConfig):
+def make_seg_loss(config: ExperimentConfig, mesh: Mesh | None = None):
     """loss_fn(model, batch) -> (loss, {"tp", "fp", "fn"}) of the U-Net:
     the deep-supervision Dice + CE over the heads against the seg map
     downsampled to each head's scale, and the soft Dice statistics of the
     full-resolution head summed over the batch (per class). batch: "data"
     (B, C, H, W) float32 and "seg" (B, H, W) int, on the model's device.
-    The JAX loss fences the heads with an XLA scheduling barrier
-    (``fence_outputs``); it computes the identity and has no counterpart
-    here."""
+    With the ``mesh`` of a process group, the batch Dice and the
+    statistics are the global batch's. The JAX loss fences the heads with
+    an XLA scheduling barrier (``fence_outputs``); it computes the identity
+    and has no counterpart here."""
+
+    def head_loss(logits, target):
+        return L.dice_and_ce_loss(logits, target, mesh=mesh)
 
     def loss_fn(model: torch.nn.Module, batch: dict):
         outs = model(batch["data"])
@@ -138,10 +158,13 @@ def make_seg_loss(config: ExperimentConfig):
             outs = (outs,)
         outs = [o.movedim(1, -1) for o in outs]  # channels last at the loss boundary
         seg = batch["seg"]
-        targets = L.downsample_seg_for_ds(seg, model.pool_kernel_sizes)[: len(outs)]
-        loss = L.deep_supervision_loss(outs, targets, L.dice_and_ce_loss)
-        tp, fp, fn, _ = L.get_tp_fp_fn_tn(torch.softmax(outs[0], -1), seg)
-        return loss, {"tp": tp.sum(0), "fp": fp.sum(0), "fn": fn.sum(0)}
+        pools = getattr(model, "module", model).pool_kernel_sizes  # through a DDP wrapper
+        targets = L.downsample_seg_for_ds(seg, pools)[: len(outs)]
+        loss = L.deep_supervision_loss(outs, targets, head_loss)
+        with torch.no_grad():
+            tp, fp, fn, _ = L.get_tp_fp_fn_tn(torch.softmax(outs[0], -1), seg)
+            tp, fp, fn = global_batch_dice_stats(tp, fp, fn, mesh)
+        return loss, {"tp": tp, "fp": fp, "fn": fn}
 
     return loss_fn
 
@@ -263,10 +286,13 @@ def make_raft_loss(config: ExperimentConfig):
     return loss_fn
 
 
-def make_loss_fn(config: ExperimentConfig):
-    """The loss of ``config.model``: loss_fn(model, batch) -> (loss, aux)."""
+def make_loss_fn(config: ExperimentConfig, mesh: Mesh | None = None):
+    """The loss of ``config.model``: loss_fn(model, batch) -> (loss, aux).
+    Only the U-Net's sums over the global batch of ``mesh``: the others are
+    means over the batch of per-sample losses, which DDP's average over
+    equal shards reproduces."""
     if config.model in UNET_KINDS:
-        return make_seg_loss(config)
+        return make_seg_loss(config, mesh)
     if config.model == "segflow":
         return make_segflow_loss(config)
     if config.model == "voxelmorph":
@@ -288,11 +314,14 @@ class TrainerHistory:
 
 class Trainer:
     """Config-driven trainer of any model kind on one device
-    (``"cuda"`` unless told otherwise). ``train_iter`` / ``val_iter`` yield
+    (``"cuda"`` unless told otherwise), data parallel over the ranks of an
+    initialized process group. ``train_iter`` / ``val_iter`` yield
     host (numpy) batch dicts with a leading batch axis, as
     :class:`csof_tpu_torch.data.loaders.VideoChunkLoader` and
-    :class:`csof_tpu_torch.data.loaders.SegPatchLoader` do. ``plans`` builds
-    the U-Net of a plans file."""
+    :class:`csof_tpu_torch.data.loaders.SegPatchLoader` do: on every rank
+    the global batch, of which the rank keeps its rows. ``plans`` builds
+    the U-Net of a plans file; ``mesh`` defaults to ``make_mesh(
+    config.mesh_data, config.mesh_model)`` over the process group."""
 
     # EMA / patience constants of the JAX trainer
     train_loss_ma_alpha = 0.93
@@ -305,7 +334,7 @@ class Trainer:
 
     def __init__(self, config: ExperimentConfig, output_folder: str | Path, plans=None,
                  num_classes: int | None = None, device: torch.device | str = "cuda",
-                 for_training: bool = True):
+                 for_training: bool = True, mesh: Mesh | None = None):
         # a trainer restored to serve (for_training=False) may hold a model
         # that cannot train: a forward-only kernel switch or corr_fuse mode
         _check_trainable(config, for_training)
@@ -315,10 +344,16 @@ class Trainer:
         self.plans = plans
         self.num_classes = num_classes
         self.device = torch.device(device)
-        self.loss_fn = make_loss_fn(config)
+        self.for_training = for_training
+        if mesh is None:  # one process: one device, whatever the config's mesh
+            mesh = (make_mesh(config.mesh_data, config.mesh_model, self.device)
+                    if dist.is_initialized() else Mesh(1, devices=(str(self.device),)))
+        self.mesh = mesh
+        self.loss_fn = make_loss_fn(config, self.mesh)
         self.history = TrainerHistory()
         self.epoch = 0
         self.model: torch.nn.Module | None = None
+        self._ddp: DistributedDataParallel | None = None
         self.optimizer = None
         #: "pt" or "msgpack": the format the last load_checkpoint read
         self.checkpoint_format: str | None = None
@@ -331,14 +366,42 @@ class Trainer:
         gen = torch.Generator().manual_seed(seed)
         return build_model(self.config, self.num_classes, gen, self.plans).to(self.device)
 
+    @property
+    def train_model(self) -> torch.nn.Module:
+        """The module a train step runs: the model, or its DDP wrapper."""
+        return self.model if self._ddp is None else self._ddp
+
+    @property
+    def is_main_process(self) -> bool:
+        """Rank 0 alone writes logs, figures and checkpoints."""
+        return self.mesh.rank == 0
+
     def initialize(self, example_batch: dict | None = None):
-        """Draw the weights from ``config.seed`` and build the optimizer. The
-        batch is accepted for the JAX trainer's signature: torch modules
-        need no example input."""
+        """Draw the weights from ``config.seed`` and build the optimizer; under
+        a process group, wrap the model in DDP, which looks for parameters
+        without a gradient each step: a zero-weight deep-supervision head
+        gets none on any rank, and ``Optimizer.step`` decays it as on one
+        rank. ``example_batch``, the global batch, fits the mesh to its
+        size; torch modules need no example input."""
         self.model = self._new_model(self.config.seed)
         self.optimizer = build_optimizer(self.config.optim, self.total_steps,
                                          self.model.parameters())
+        if dist.is_initialized() and self.for_training:
+            # device_ids None: the inputs are on the model's device already
+            self._ddp = DistributedDataParallel(self.model, find_unused_parameters=True)
+        if example_batch is not None:
+            self._fit_mesh(example_batch)
         return self
+
+    def _fit_mesh(self, batch: dict) -> int:
+        """Cut the mesh's data size to a divisor of the global batch; returns
+        the batch's size."""
+        n = len(next(v for v in batch.values() if v is not None))
+        mesh = fit_batch(self.mesh, n)
+        if mesh is not self.mesh:
+            self.mesh = mesh
+            self.loss_fn = make_loss_fn(self.config, mesh)
+        return n
 
     def _to_device(self, batch: dict) -> dict:
         out = {}
@@ -351,36 +414,40 @@ class Trainer:
             out[k] = t
         return out
 
-    def augment(self, batch: dict) -> dict:
+    def augment(self, batch: dict, rows: tuple[int, slice] | None = None) -> dict:
         """The batch (on the device) augmented as the JAX train step augments
-        it, from the generator of the seed and the step count."""
+        it, from the generator of the seed and the step count; ``rows`` =
+        (n, sl) when the batch is rows ``sl`` of a global batch of n."""
         gen = step_generator(self.config.seed, self.optimizer.count, self.device)
         if self.config.model == "unet2d":
-            data, seg = augment_batch_2d(gen, batch["data"], batch["seg"])
+            data, seg = augment_batch_2d(gen, batch["data"], batch["seg"], rows=rows)
             return {**batch, "data": data, "seg": seg}
-        video, seg = augment_video(gen, batch["video"], batch["seg"])
+        video, seg = augment_video(gen, batch["video"], batch["seg"], rows=rows)
         # unlabelled frames stay -1 (the warp's zero padding would label them)
         seg = torch.where(batch["labeled_mask"][:, :, None, None] > 0, seg, -1)
         return {**batch, "video": video, "seg": seg}
 
     def run_iteration(self, batch: dict, train: bool = True):
-        """One train step (or a loss evaluation); returns (loss, metrics)."""
+        """One train step (or a loss evaluation) on the global host batch;
+        returns (loss, metrics), the loss averaged over the ranks."""
         if self.model is None:
             raise RuntimeError("initialize() first")
         t0 = time.perf_counter()
-        batch = self._to_device(batch)
+        n = self._fit_mesh(batch)
+        rows = None if self.mesh.n_data == 1 else (n, self.mesh.rows(n))
+        batch = self._to_device(shard_batch(batch, self.mesh))
         # the JAX step augments only the 2D U-Net's and SegFlow's batches
         if train and self.config.data.do_data_aug and self.config.model in AUGMENTED_KINDS:
-            batch = self.augment(batch)
+            batch = self.augment(batch, rows)
         if train:
-            loss, aux = self.loss_fn(self.model, batch)
+            loss, aux = self.loss_fn(self.train_model, batch)
             self.optimizer.zero_grad()
-            loss.backward()
+            loss.backward()  # DDP's gradient average completes inside
             self.optimizer.step()
         else:
             with torch.no_grad():
                 loss, aux = self.loss_fn(self.model, batch)
-        loss = float(loss.detach())
+        loss = all_mean(float(loss.detach()), self.mesh)
         if train:
             self.history.step_times.append(time.perf_counter() - t0)
         if self.nan_guard and not np.isfinite(loss):
@@ -389,7 +456,8 @@ class Trainer:
 
     def _validate(self, val_iter: Iterator[dict]) -> None:
         """Mean validation loss, and the foreground Dice of the summed
-        tp/fp/fn where the loss reports them (the U-Net's)."""
+        tp/fp/fn where the loss reports them (the U-Net's); both over the
+        global batches, the same on every rank."""
         losses, stats = [], None
         for _ in range(self.config.num_val_batches_per_epoch):
             loss, aux = self.run_iteration(next(val_iter), train=False)
@@ -405,17 +473,19 @@ class Trainer:
 
     def save_debug_information(self) -> None:
         """``debug.json`` (the config, the folder, the epoch, the model's
-        class, the trainer's constants, the parameter count, the device and
-        its name) and ``network_architecture.txt`` (:func:`model_summary`)
-        in the output folder, as the JAX trainer writes them at the start of
-        training; the device and its name stand where JAX writes its mesh,
-        devices and backend."""
+        class, the mesh's shape and every rank's device, the trainer's
+        constants, the parameter count, this rank's device and its name) and
+        ``network_architecture.txt`` (:func:`model_summary`) in the output
+        folder, as the JAX trainer writes them at the start of training; the
+        device and its name stand where JAX writes its backend."""
         dev = self.device
         dct = {
             "config": dataclasses.asdict(self.config),
             "output_folder": str(self.output_folder),
             "epoch": self.epoch,
             "model_class": type(self.model).__name__,
+            "mesh_shape": self.mesh.shape,
+            "devices": list(self.mesh.devices),
             "device": str(dev),
             "device_name": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                             else dev.type),
@@ -446,12 +516,15 @@ class Trainer:
         event file in ``output_folder/tb``, as the JAX trainer logs them."""
         if self.model is None:
             self.initialize()
-        log_fn = log_fn or TrainingLog(self.output_folder)
+        main = self.is_main_process
+        # the other ranks print their lines (rank-0 file IO, as in JAX)
+        log_fn = log_fn or (TrainingLog(self.output_folder) if main else print)
         try:
-            self.save_debug_information()
+            if main:
+                self.save_debug_information()
         except Exception as e:  # noqa: BLE001 - the dumps must never kill training
             log_fn(f"debug information not written: {e!r}")
-        tb = TensorBoardVisualizer(self.output_folder / "tb") if tensorboard else None
+        tb = TensorBoardVisualizer(self.output_folder / "tb") if tensorboard and main else None
         cfg = self.config
         max_epochs = max_epochs or cfg.max_num_epochs
         criterion_ma = None  # EMA of the epoch criterion, advanced every epoch
@@ -490,8 +563,9 @@ class Trainer:
                     scalars["metric/fg_dice"] = hist.eval_metrics[-1]
                 tb.log_scalars(scalars, self.epoch)
             try:
-                plot_progress(self.output_folder, hist.train_losses, hist.val_losses,
-                              hist.eval_metrics)
+                if main:
+                    plot_progress(self.output_folder, hist.train_losses, hist.val_losses,
+                                  hist.eval_metrics)
             except Exception as e:  # noqa: BLE001 - plotting must never kill training
                 log_fn(f"progress.png not written: {e!r}")
             if self.epoch - best_epoch > self.patience:
@@ -530,6 +604,9 @@ class Trainer:
         return True
 
     def save_checkpoint(self, name: str = ckpt.LATEST):
+        """Rank 0 writes the checkpoint and its sidecar; the others nothing."""
+        if not self.is_main_process:
+            return None
         meta = {"epoch": self.epoch, "config_model": self.config.model,
                 "train_losses": self.history.train_losses[-5:],
                 "val_losses": self.history.val_losses[-5:]}

@@ -1,0 +1,144 @@
+"""Profiling and throughput utilities (port of ``csof_tpu/utils/profiling.py``):
+a ``torch.profiler`` trace for TensorBoard, a FLOP count, a synchronizing
+fetch, the warm-up + timed-reps throughput protocol and a rolling step
+timer. Nothing here is a benchmark: these are the tools one is built from.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+
+@contextlib.contextmanager
+def trace(log_dir: str | Path):
+    """``torch.profiler`` over the body (the CPU, and the card where there is
+    one), written into ``log_dir`` by the TensorBoard trace handler; view it
+    with ``tensorboard --logdir``. Yields the profiler."""
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))
+                 ) as prof:
+        yield prof
+
+
+def estimate_flops(fn, *args) -> float | None:
+    """The floating-point operations of one call of ``fn(*args)``, counted by
+    ``torch.utils.flop_counter.FlopCounterMode`` from the shapes of the
+    ATen operations it dispatches (convolutions and matrix products; a
+    multiply-add counts two). A hand-written kernel called through ctypes
+    dispatches no ATen operation, so its work is not in the count (K6 under
+    ``CSOF_CONV2D_IMPL=pallas`` counts nothing for its convs). ``None``
+    where the call cannot be counted, as the JAX function returns."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    try:
+        counter = FlopCounterMode(display=False)
+        with counter, torch.no_grad():
+            fn(*args)
+        return float(counter.get_total_flops())
+    except Exception:  # noqa: BLE001 - an uncountable call has no estimate, as in JAX
+        return None
+
+
+def _first_tensor(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    for item in tree if isinstance(tree, (list, tuple)) else ():
+        found = _first_tensor(item)
+        if found is not None:
+            return found
+    return None
+
+
+def fetch_sync(tree) -> None:
+    """Wait for the device (``torch.cuda.synchronize`` where the first tensor
+    of ``tree`` is on the card), then fetch one element of that tensor to
+    the host: the end of a timed region."""
+    leaf = _first_tensor(tree)
+    if leaf is None:
+        return
+    if leaf.is_cuda:
+        torch.cuda.synchronize(leaf.device)
+    leaf.detach().reshape(-1)[:1].cpu()
+
+
+def _chain(acc, out):
+    """The running sum of the outputs' tensors, so that each rep's result is
+    consumed."""
+    if acc is None:
+        return out
+    if isinstance(out, torch.Tensor):
+        return acc + out
+    if isinstance(out, dict):
+        return {k: _chain(acc[k], v) for k, v in out.items()}
+    if isinstance(out, (list, tuple)):
+        return type(out)(_chain(a, b) for a, b in zip(acc, out))
+    return acc
+
+
+def get_throughput(fn, args, frames_per_call: int, warmup: int = 2, reps: int = 20) -> dict:
+    """Steady-state frames per second of ``fn(*args)``: ``warmup`` calls,
+    then ``reps`` timed calls chained through an accumulator of their
+    outputs. On the card the time is CUDA events' (the device's time from
+    the first call's launch to the last's end); on the CPU the host clock's.
+    Returns the JAX function's keys: ``fps``, ``sec_per_call``,
+    ``gflops_per_call`` (``estimate_flops``; ``None`` where uncountable) and
+    ``device``."""
+    first = _first_tensor(args)
+    cuda = first is not None and first.is_cuda
+    with torch.no_grad():
+        out = None
+        for _ in range(warmup):
+            out = fn(*args)
+        fetch_sync(out if out is not None else args)
+        acc = None
+        if cuda:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            acc = _chain(acc, fn(*args))
+        if cuda:
+            end.record()
+        fetch_sync(acc)
+        dt = start.elapsed_time(end) / 1e3 if cuda else time.perf_counter() - t0
+    flops = estimate_flops(fn, *args)
+    device = first.device if first is not None else torch.device("cpu")
+    return {
+        "fps": frames_per_call * reps / dt,
+        "sec_per_call": dt / reps,
+        "gflops_per_call": flops / 1e9 if flops else None,
+        "device": torch.cuda.get_device_name(device) if cuda else str(device),
+    }
+
+
+class StepTimer:
+    """Rolling wall time of the last ``window`` steps (host clock)."""
+
+    def __init__(self, window: int = 50):
+        self.window = window
+        self.times: list[float] = []
+        self._t0 = None
+
+    def start(self) -> None:
+        self._t0 = time.perf_counter()
+
+    def stop(self) -> None:
+        if self._t0 is not None:
+            self.times.append(time.perf_counter() - self._t0)
+            self.times = self.times[-self.window:]
+            self._t0 = None
+
+    @property
+    def mean(self) -> float:
+        return float(np.mean(self.times)) if self.times else float("nan")

@@ -348,8 +348,8 @@ def test_the_trainer_augments_train_steps_only(tmp_path, monkeypatch):
     tr = Trainer(cfg, tmp_path, device="cpu").initialize()
     real = tr.augment
 
-    def spy(batch):
-        out = real(batch)
+    def spy(batch, rows=None):
+        out = real(batch, rows)
         seen.append(out)
         return out
 

@@ -143,8 +143,9 @@ def _batches(seed):
 
 
 def test_the_trainer_writes_the_jax_observability_files(tmp_path, monkeypatch):
-    """debug.json with the JAX trainer's keys where they mean something on
-    one device, the device and its name in place of the mesh;
+    """debug.json with the JAX trainer's keys (the mesh's shape and devices:
+    one of each in one process), the device and its name in place of JAX's
+    backend;
     network_architecture.txt; progress.png after each epoch; the epoch
     lines in the timestamped log. A figure that fails to draw is logged
     and training goes on."""
@@ -154,8 +155,10 @@ def test_the_trainer_writes_the_jax_observability_files(tmp_path, monkeypatch):
     tr = trainer.Trainer(config, tmp_path, num_classes=4, device="cpu")
     tr.run_training(_batches(0), _batches(1))
     debug = json.loads((tmp_path / "debug.json").read_text())
-    assert set(debug) == {"config", "output_folder", "epoch", "model_class", "device",
-                          "device_name", "trainer_constants", "num_parameters"}
+    assert set(debug) == {"config", "output_folder", "epoch", "model_class", "mesh_shape",
+                          "devices", "device", "device_name", "trainer_constants",
+                          "num_parameters"}
+    assert debug["mesh_shape"] == {"data": 1, "model": 1} and debug["devices"] == ["cpu"]
     assert debug["device"] == "cpu" and debug["model_class"] == "GenericUNet"
     assert debug["config"]["model"] == "unet2d" and debug["epoch"] == 0
     assert set(debug["trainer_constants"]) == {
