@@ -16,8 +16,9 @@ forward and dx on (``CSOF_CONV2D_IMPL=pallas``; K5 has no backward and stays
 off), on a batch drawn from a seed. Besides the table it prints the device
 time of the step's kernels in groups by kernel name (K6 forward, K6 dx,
 cuDNN dgrad and wgrad, other convolutions, elementwise, reductions, the
-optimizer) and the CUDA-event time of the step's phases (forward + loss,
-backward, clip + SGD) in one unprofiled step.
+optimizer) and the step's ``csof:train.*`` spans in the profiled step
+(``profiling.span_times``): each phase's host ms and the device ms of the
+work launched in it.
 
 ``--3d``: the Task002 3d_fullres U-Net of ``task002_heart_3d`` instead
 (2 classes, base 32, cap 320, float32, remat at its default, ``save_conv``),
@@ -48,6 +49,7 @@ from csof_tpu_torch.config.plans import task002_heart_2d, task002_heart_3d
 from csof_tpu_torch.inference.predictor import TILE_BATCH_3D
 from csof_tpu_torch.models.unet import unet_from_plans
 from csof_tpu_torch.profile_serving import device_summary, forward_ms, report
+from csof_tpu_torch.utils import profiling
 
 BATCH, PATCH = 32, (320, 256)
 TRAIN_BATCH = 40
@@ -83,24 +85,6 @@ def grouped_device_time(prof) -> list[tuple[str, float, int]]:
     return [(name, ms, n) for name, (ms, n) in sums.items()]
 
 
-def phase_ms(trainer, batch) -> dict[str, float]:
-    """CUDA-event time of the phases of one train step, as run_iteration
-    runs them."""
-    names = ("forward + loss", "backward", "clip + SGD")
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
-    b = trainer._to_device(batch)
-    ev[0].record()
-    loss, _ = trainer.loss_fn(trainer.model, b)
-    ev[1].record()
-    trainer.optimizer.zero_grad()
-    loss.backward()
-    ev[2].record()
-    trainer.optimizer.step()
-    ev[3].record()
-    torch.cuda.synchronize()
-    return {n: ev[i].elapsed_time(ev[i + 1]) for i, n in enumerate(names)}
-
-
 def peak_gib() -> str:
     return f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB"
 
@@ -132,20 +116,21 @@ def train_main(out_path, three_d: bool = False) -> int:
             trainer.run_iteration(batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        phases = phase_ms(trainer, batch)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer.run_iteration(batch)
             torch.cuda.synchronize()
     wall = statistics.median(times)
     summary, table = device_summary(prof, wall, "train step")
     groups = grouped_device_time(prof)
+    spans = profiling.span_times(prof)
     rate = (f"{batch_n / wall * 1e3:.3f} train patches/s" if three_d
             else f"{TRAIN_BATCH / wall * 1e3:.2f} train slices/s")
     lines = [f"{summary}; {rate} unprofiled; {peak_gib()} ({torch.cuda.get_device_name(0)})",
              "device time by kernel group (ms, kernels): "
              + "; ".join(f"{name} {ms:.3f} ({n})" for name, ms, n in groups),
-             "CUDA-event phases of one unprofiled step (ms): "
-             + "; ".join(f"{k} {v:.3f}" for k, v in phases.items())]
+             "spans of the profiled step (host ms / device ms): "
+             + "; ".join(f"{k} {v['host_ms']:.3f} / {v['device_ms']:.3f}"
+                         for k, v in spans.items())]
     report("\n".join(lines), table, out_path)
     return 0
 

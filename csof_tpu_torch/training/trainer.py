@@ -50,6 +50,16 @@ averaged over the ranks, and only rank 0 writes the logs, ``debug.json``,
 ``progress.png``, TensorBoard and the checkpoints, so every rank takes the
 same early-stop and checkpoint decisions. Not ported: compile-draw
 autotuning.
+
+While a ``torch.profiler`` records, a train step opens its phases as
+spans (:func:`csof_tpu_torch.utils.profiling.span`), all inside
+``csof:train.step``: ``train.input`` (the batch fitted to the mesh, sharded
+and copied to the device), ``train.augment``, ``train.forward`` (the
+network's forward; for the kinds other than the U-Net's, the whole loss),
+``train.loss`` (the U-Net's deep-supervision loss and Dice statistics),
+``train.backward`` (zero_grad and backward, DDP's all-reduce included),
+``train.optimizer`` and ``train.loss_read`` (the loss to the host, averaged
+over the ranks). An evaluation opens none.
 """
 
 from __future__ import annotations
@@ -80,6 +90,7 @@ from csof_tpu_torch.parallel.mesh import (Mesh, all_mean, fit_batch, global_batc
                                           make_mesh, shard_batch)
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.schedules import build_optimizer
+from csof_tpu_torch.utils import profiling
 from csof_tpu_torch.utils.logging import TrainingLog, count_parameters, model_summary, plot_progress
 from csof_tpu_torch.utils.visualization import TensorBoardVisualizer
 
@@ -153,17 +164,21 @@ def make_seg_loss(config: ExperimentConfig, mesh: Mesh | None = None):
         return L.dice_and_ce_loss(logits, target, mesh=mesh)
 
     def loss_fn(model: torch.nn.Module, batch: dict):
-        outs = model(batch["data"])
-        if not isinstance(outs, tuple):
-            outs = (outs,)
-        outs = [o.movedim(1, -1) for o in outs]  # channels last at the loss boundary
-        seg = batch["seg"]
-        pools = getattr(model, "module", model).pool_kernel_sizes  # through a DDP wrapper
-        targets = L.downsample_seg_for_ds(seg, pools)[: len(outs)]
-        loss = L.deep_supervision_loss(outs, targets, head_loss)
-        with torch.no_grad():
-            tp, fp, fn, _ = L.get_tp_fp_fn_tn(torch.softmax(outs[0], -1), seg)
-            tp, fp, fn = global_batch_dice_stats(tp, fp, fn, mesh)
+        # a train step's spans; an evaluation runs under no_grad and opens none
+        span = profiling.span if torch.is_grad_enabled() else profiling.no_span
+        with span("train.forward"):
+            outs = model(batch["data"])
+        with span("train.loss"):
+            if not isinstance(outs, tuple):
+                outs = (outs,)
+            outs = [o.movedim(1, -1) for o in outs]  # channels last at the loss boundary
+            seg = batch["seg"]
+            pools = getattr(model, "module", model).pool_kernel_sizes  # through a DDP wrapper
+            targets = L.downsample_seg_for_ds(seg, pools)[: len(outs)]
+            loss = L.deep_supervision_loss(outs, targets, head_loss)
+            with torch.no_grad():
+                tp, fp, fn, _ = L.get_tp_fp_fn_tn(torch.softmax(outs[0], -1), seg)
+                tp, fp, fn = global_batch_dice_stats(tp, fp, fn, mesh)
         return loss, {"tp": tp, "fp": fp, "fn": fn}
 
     return loss_fn
@@ -429,25 +444,37 @@ class Trainer:
 
     def run_iteration(self, batch: dict, train: bool = True):
         """One train step (or a loss evaluation) on the global host batch;
-        returns (loss, metrics), the loss averaged over the ranks."""
+        returns (loss, metrics), the loss averaged over the ranks. A train
+        step opens the ``csof:train.*`` spans while a profiler records; an
+        evaluation opens none."""
         if self.model is None:
             raise RuntimeError("initialize() first")
+        span = profiling.span if train else profiling.no_span
         t0 = time.perf_counter()
-        n = self._fit_mesh(batch)
-        rows = None if self.mesh.n_data == 1 else (n, self.mesh.rows(n))
-        batch = self._to_device(shard_batch(batch, self.mesh))
-        # the JAX step augments only the 2D U-Net's and SegFlow's batches
-        if train and self.config.data.do_data_aug and self.config.model in AUGMENTED_KINDS:
-            batch = self.augment(batch, rows)
-        if train:
-            loss, aux = self.loss_fn(self.train_model, batch)
-            self.optimizer.zero_grad()
-            loss.backward()  # DDP's gradient average completes inside
-            self.optimizer.step()
-        else:
-            with torch.no_grad():
-                loss, aux = self.loss_fn(self.model, batch)
-        loss = all_mean(float(loss.detach()), self.mesh)
+        with span("train.step"):
+            with span("train.input"):
+                n = self._fit_mesh(batch)
+                rows = None if self.mesh.n_data == 1 else (n, self.mesh.rows(n))
+                batch = self._to_device(shard_batch(batch, self.mesh))
+            # the JAX step augments only the 2D U-Net's and SegFlow's batches
+            if train and self.config.data.do_data_aug and self.config.model in AUGMENTED_KINDS:
+                with span("train.augment"):
+                    batch = self.augment(batch, rows)
+            if train:
+                # the U-Net's loss opens train.forward and train.loss itself
+                whole = profiling.no_span if self.config.model in UNET_KINDS else span
+                with whole("train.forward"):
+                    loss, aux = self.loss_fn(self.train_model, batch)
+                with span("train.backward"):
+                    self.optimizer.zero_grad()
+                    loss.backward()  # DDP's gradient average completes inside
+                with span("train.optimizer"):
+                    self.optimizer.step()
+            else:
+                with torch.no_grad():
+                    loss, aux = self.loss_fn(self.model, batch)
+            with span("train.loss_read"):
+                loss = all_mean(float(loss.detach()), self.mesh)
         if train:
             self.history.step_times.append(time.perf_counter() - t0)
         if self.nan_guard and not np.isfinite(loss):

@@ -1,11 +1,13 @@
 """Profiling and throughput utilities (port of ``csof_tpu/utils/profiling.py``):
-a ``torch.profiler`` trace for TensorBoard, a FLOP count, a synchronizing
-fetch, the warm-up + timed-reps throughput protocol and a rolling step
-timer. Nothing here is a benchmark: these are the tools one is built from.
+a ``torch.profiler`` trace for TensorBoard, the program's named spans in
+such a trace and their times, a FLOP count, a synchronizing fetch, the
+warm-up + timed-reps throughput protocol and a rolling step timer. Nothing
+here is a benchmark: these are the tools one is built from.
 """
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import time
 from pathlib import Path
@@ -27,6 +29,69 @@ def trace(log_dir: str | Path):
     with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(str(log_dir))
                  ) as prof:
         yield prof
+
+
+#: the prefix of the program's spans among a trace's host events
+SPAN_PREFIX = "csof:"
+_NO_SPAN = contextlib.nullcontext()
+_profiler_enabled = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A named span of the program: while a ``torch.profiler`` is recording,
+    ``record_function("csof:<name>")``, on the profiler's clock and in the
+    same trace as the kernels launched inside it (``trace`` above shows it,
+    ``span_times`` reads it); otherwise one shared no-op context, so that a
+    span costs one check when nothing is recording: no allocation, no
+    ``record_function``, no CUDA event."""
+    if _profiler_enabled():
+        return torch.profiler.record_function(SPAN_PREFIX + name)
+    return _NO_SPAN
+
+
+def no_span(name: str):
+    """The no-op context ``span`` gives when nothing is recording, for a path
+    that opens no span whether or not a profiler records (an evaluation)."""
+    return _NO_SPAN
+
+
+def span_times(prof) -> dict[str, dict[str, float]]:
+    """{span: {"calls", "host_ms", "device_ms"}} of the ``csof:`` spans in a
+    finished ``torch.profiler`` profile, summed over their calls: the host
+    time inside each, and the device time of the kernels, copies and fills
+    launched while it was the innermost span open. A launch is found by the
+    correlation id the profiler records with each device event, and placed by
+    its host time on any thread (a backward's kernels are launched on
+    autograd's thread while the step's thread waits inside its span)."""
+    from torch.autograd import DeviceType
+
+    spans, launched_at, device = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name.startswith(SPAN_PREFIX):
+                spans.append((e.start_ns(), e.end_ns(), name[len(SPAN_PREFIX):]))
+            elif name.startswith("cu"):  # a CUDA runtime or driver call
+                launched_at[e.correlation_id()] = e.start_ns()
+        elif not e.is_user_annotation():
+            device.append((e.correlation_id(), e.duration_ns()))
+    spans.sort()
+    out = {}
+    for s, e, name in spans:
+        t = out.setdefault(name, {"calls": 0, "host_ms": 0.0, "device_ms": 0.0})
+        t["calls"] += 1
+        t["host_ms"] += (e - s) / 1e6
+    starts = [s for s, _, _ in spans]
+    for corr, ns in device:
+        at = launched_at.get(corr)
+        if at is None:
+            continue
+        # spans nest: the innermost holding the launch is the latest-starting one that does
+        for i in range(bisect.bisect_right(starts, at) - 1, -1, -1):
+            if spans[i][1] >= at:
+                out[spans[i][2]]["device_ms"] += ns / 1e6
+                break
+    return out
 
 
 def estimate_flops(fn, *args) -> float | None:
