@@ -66,14 +66,21 @@ Phases, each printed on its own line:
    version at the 4 distinct dx shapes of a Task002 2d training step (batch
    40) and ragged shapes across the tile edges, float32 and bfloat16; the
    dx time beside the plain version's and cuDNN's dgrad
-   (torch.nn.grad.conv2d_input) and the bounds.
+   (torch.nn.grad.conv2d_input) and the bounds. Then K7 and K7 dx (the
+   native norm and activation, csrc/inorm_lrelu.cu) at the 26 blocks of a
+   training step (batch 40): y, mean, rstd, dz and the per-plane sums
+   against the plain versions in float64 (the backward on the kernel's
+   signs), both twice on the largest planes (the same bits), and each
+   kernel's time and device time beside the float32 plain version's, the
+   eager path's and the bound.
 14. unet train: 4 synthetic Task002-like cases (1, 40, 320, 320) through
    run_cropping -> Preprocessor.run -> unpack_dataset -> load_dataset ->
    do_split -> SegPatchLoader, then Trainer.run_training of the full-width
    Task002 2d U-Net (float32, SGD-Nesterov + poly, CSOF_CONV2D_IMPL=pallas)
    at batch 40 x 320x256: 2 epochs x 6 steps + 2 validation batches;
-   finite losses, a fg-dice in the log, 7 K6 + 6 K6-dx launches per step,
-   the checkpoint triad written and reloaded; train slices/s.
+   finite losses, a fg-dice in the log, 7 K6 + 6 K6-dx + 26 K7 + 26 K7-dx
+   launches per step (7 K6 + 26 K7 a validation batch), the checkpoint
+   triad written and reloaded; train slices/s.
 15. unet train parity: full width, batch 2 of 320x256, float32: the GPU
    loss and every parameter gradient against the CPU's.
 16. ncc: K4 against its plain version at 20 and 88 planes of 128^2 (the
@@ -122,7 +129,8 @@ Phases, each printed on its own line:
    fused_cm: 136 K3 a cine; the Flow, Registered and Segmentation files),
    csof_torch_train on the Task002 2d U-Net (the default config,
    augmentation on, CSOF_CONV2D_IMPL=pallas, 1 epoch x 4 steps at batch 40
-   x 320x256: 7 K6 + 6 K6 dx a step), --validation-only (summary.json),
+   x 320x256: 7 K6 + 6 K6 dx + 26 K7 + 26 K7 dx a step), --validation-only
+   (summary.json; 7 K6 + 26 K7 a forward),
    csof_torch_predict on 2 cases with both kernel switches (26 K5 + 7 K6 a
    forward), csof_torch_evaluate and csof_torch_ensemble on those outputs;
    then one cine from the same SegFlow folder, float32 without TTA, on the
@@ -143,8 +151,8 @@ Phases, each printed on its own line:
    this process used CUDA) and with 1, into two roots: every plans file,
    .npz (member by member) and .pkl equal; the plans printed; then
    csof_torch_train on the planned 2d U-Net under CSOF_CONV2D_IMPL=pallas
-   (the K6 and K6-dx launches GenericUNet.kernel_launches gives at the
-   planned patch and batch), csof_torch_predict on 2 cases with both kernel
+   (the K6, K6-dx, K7 and K7-dx launches GenericUNet.kernel_launches gives
+   at the planned patch and batch), csof_torch_predict on 2 cases with both kernel
    switches (K5 and K6 counted) and csof_torch_evaluate; every command's
    host seconds. Last, K5, K6 and K6 dx against their plain versions
    (float32 and bfloat16, phase 9's tolerances) at every distinct shape the
@@ -226,7 +234,9 @@ Phases, each printed on its own line:
    x 12 frames x 128^2, 12 frames past its bus of 8) and the deformable
    layer (d = 128, 32 x 32 maps, batch 96), float32 and bf16, the switches
    off and on (with instance norm: CSOF_FUSED_NORM=1 too): K6 and K5
-   launches = kernel_launches = a fresh process's device events, outputs
+   launches = kernel_launches = a fresh process's device events (float32
+   instance norm with the switches off: K7 in each block K5 runs with them
+   on), outputs
    on vs off, ms a forward, peak memory, busy share; K6 and K5 vs plain at
    every shape these forwards gave them; float32 card vs CPU at batch 1.
 34. generative: the generative family, UDA and the policy search at the
@@ -239,12 +249,13 @@ Phases, each printed on its own line:
    the 128^2 hint (antialiased resize); VQVAE(); SwinGenerator() ->
    SwinDiscriminator() at batch 16; UDA with the Task002 2d U-Net on 8 + 8
    images of 320 x 256; PolicyNet(). Each forward and training step under
-   CSOF_CONV2D_IMPL=pallas: K6 and K6 dx launches = kernel_launches = a
-   fresh process's device events (profile_generative --launches); latent
-   diffusion's sample (50 steps at batch 4) and decode, its seconds; the
-   forwards switch on vs off (MODEL_TOL); ms a forward and a step (off, on,
-   on, off), peak memory, busy share; the ControlNet's base parameters the
-   same bits after a step; each forward and step card vs CPU at batch 1
+   CSOF_CONV2D_IMPL=pallas: K6 and K6 dx (UDA's U-Net: K7 and K7 dx too)
+   launches = kernel_launches = a fresh process's device events
+   (profile_generative --launches); latent diffusion's sample (50 steps at
+   batch 4) and decode, its seconds; the forwards switch on vs off
+   (MODEL_TOL); ms a forward and a step (off, on, on, off), peak memory,
+   busy share; the ControlNet's base parameters the same bits after a
+   step; each forward and step card vs CPU at batch 1
    (the step's losses and every gradient at phase 8's bound, the CPU
    replaying the card's signs); K6 and K6 dx vs plain at every shape these
    runs gave them, with one DDPM forward's and one DDPM step's times.
@@ -253,7 +264,7 @@ Phases, each printed on its own line:
    2 steps against two unwrapped trainers on the same batches: losses and
    parameters within twice the unwrapped runs' spread, step-1 gradients at
    phase 8's bound; (b) the Task002 2d U-Net step (batch 40 x 320x256,
-   CSOF_CONV2D_IMPL=pallas: K6 + dx) under DDP with the batch Dice through
+   CSOF_CONV2D_IMPL=pallas: K6 + dx, K7 + dx) under DDP with the batch Dice through
    the gather, against the step without a process group (loss, gradients,
    the SGD parameters); (d) predict_sharded of one 320^2 slice with mirror
    TTA under both kernel switches (K5, K6) against predict; DDP and
@@ -527,6 +538,26 @@ def compare(label: str, name: str, got, ref, atol: float, rtol: float) -> float:
     phase(label, f"{name}: max_abs_err={max_abs:.3e} max_rel_err={max_rel:.3e} "
           f"tol=atol {atol:g} + rtol {rtol:g} -> {'ok' if ok else 'FAIL'}")
     expect(ok, f"{name}: outside tolerance")
+    return max_abs
+
+
+def compare_by_plane(label: str, name: str, got, ref, rel: float) -> float:
+    """``compare`` for an (N, C, H, W) tensor whose planes differ in scale
+    (a constant plane's gradient is 1/sqrt(eps) times the others'): fail
+    where |got - ref| > rel (|ref| + max |ref| of its plane). Returns the max
+    abs error."""
+    import torch
+
+    got, ref = got.double(), ref.double()
+    expect(got.shape == ref.shape, f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
+    expect(bool(torch.isfinite(got).all()), f"{name}: non-finite output")
+    diff = (got - ref).abs()
+    scale = ref.abs().amax((2, 3), keepdim=True)
+    worst = float((diff / (ref.abs() + scale).clamp_min(1e-30)).max())
+    max_abs = float(diff.max())
+    phase(label, f"{name}: max_abs_err={max_abs:.3e}, worst |diff| / (|ref| + plane max) "
+          f"{worst:.3e}, tol {rel:g} -> {'ok' if worst <= rel else 'FAIL'}")
+    expect(worst <= rel, f"{name}: outside tolerance")
     return max_abs
 
 
@@ -1144,8 +1175,8 @@ def unet_serve(model, plans, card: str) -> dict:
     from csof_tpu_torch.ops.kernels import skipfuse as k3
     from csof_tpu_torch.utils.nifti import load_nifti, save_nifti
 
-    per_forward = model.kernel_launches(plans.fullres_stage().patch_size[1])
-    expect(per_forward == {"K5": 26, "K6": 7}, f"launches per forward {per_forward}")
+    per_forward = model.kernel_launches(plans.fullres_stage().patch_size)
+    expect(per_forward == {"K5": 26, "K6": 7, "K7": 0}, f"launches per forward {per_forward}")
     rng = np.random.RandomState(3)
     spacing_xyz = (UNET_SPACING, UNET_SPACING, 1.37)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1336,6 +1367,101 @@ def check_unet_train_kernels(card: str) -> dict:
     return res
 
 
+def check_unet_norm_kernels(card: str) -> dict:
+    """Phase 13, continued: K7 and K7 dx at the 26 blocks of a Task002 2d
+    training step (batch 40, UNET_K5_SHAPES' planes), float32, against
+    their plain versions in float64 (``native_forward_plain``: y and each
+    plane's mean and rstd; ``native_backward_plain`` on the kernel's signs:
+    dz and each plane's sums behind dbeta and dgamma); both kernels twice on
+    the largest planes, the same bits; per kernel the step's summed median
+    time, device time (torch.profiler), the float32 plain version's time and
+    that of the eager path K7 replaces (``leaky_relu(InstanceNorm(z))``, and
+    its autograd backward alone for K7 dx), with the bound
+    (``bounds.unet_native_work``)."""
+    import torch
+
+    from csof_tpu_torch.bounds import UNET_K5_SHAPES, UNET_TRAIN_BATCH, bound_ms, unet_native_work
+    from csof_tpu_torch.kernel_times import device_ms
+    from csof_tpu_torch.models.blocks import InstanceNorm, leaky_relu
+    from csof_tpu_torch.ops.kernels import norm_act as k7
+
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    res = {k: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "device_ms": 0.0,
+               "library_ms": 0.0} for k in ("K7", "K7_dx")}
+
+    def rand(*shape, std=1.0, mean=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * std + mean
+
+    for (c, h, w), count in UNET_K5_SHAPES:
+        n = UNET_TRAIN_BATCH
+        z, dy = rand(n, c, h, w, std=2.0, mean=0.5), rand(n, c, h, w)
+        z[0, 0] = 0.25  # a constant plane
+        norm = InstanceNorm(c).cuda()
+        with torch.no_grad():
+            norm.weight.add_(rand(c, std=0.2))
+            norm.bias.add_(rand(c, std=0.2))
+        wb = (norm.weight.detach(), norm.bias.detach())
+        fplan, bplan = k7.native_plan(h * w), k7.native_plan(h * w, backward=True)
+        tag = (f"(N, C, H, W)={(n, c, h, w)}, plans {fplan.path} {fplan.cluster} / "
+               f"{bplan.path} {bplan.cluster}")
+        y, mean, rstd = k7.native_forward_cuda(z, *wb)
+        dz, pda, pdah = k7.native_backward_cuda(z, dy, mean, rstd, *wb)
+        torch.cuda.synchronize()
+        z64, wb64 = z.double(), [t.double() for t in wb]
+        ry, rmean, rrstd = k7.native_forward_plain(z64, *wb64)
+        label = "unet train kernels"
+        errs = {"K7": [compare(label, f"K7 y {tag}", y, ry, *UNET_TOL[("K5", "float32")]),
+                       compare(label, f"K7 mean {tag}", mean, rmean, 1e-5, 1e-5),
+                       compare(label, f"K7 rstd {tag}", rstd, rrstd, 1e-5, 1e-5)]}
+        del ry
+        ref = k7.native_backward_plain(z64, dy.double(), rmean, rrstd, *wb64, positive=y >= 0)
+        del z64
+        errs["K7_dx"] = [compare_by_plane(label, f"K7 dx dz {tag}", dz, ref[0], 1e-4)]
+        errs["K7_dx"] += [compare(label, f"K7 dx {what} {tag}", got, r,
+                                  1e-4 * float(r.abs().max()), 1e-4)
+                          for what, got, r in (("sum da", pda, ref[1]),
+                                               ("sum da zh", pdah, ref[2]))]
+        del ref
+        if (c, h, w) == UNET_K5_SHAPES[0][0]:  # the largest planes: a cluster each way
+            y2, _, _ = k7.native_forward_cuda(z, *wb)
+            again = k7.native_backward_cuda(z, dy, mean, rstd, *wb)
+            torch.cuda.synchronize()
+            expect(torch.equal(y, y2) and all(torch.equal(a, b) for a, b in
+                                              zip((dz, pda, pdah), again)),
+                   f"K7 or K7 dx {tag}: two runs on the same inputs differ")
+            phase(label, f"K7 and K7 dx twice at {tag}: bit-identical")
+            del y2, again
+        zr = z.detach().requires_grad_()
+        eager = leaky_relu(norm(zr))
+        runs = {"K7": (lambda: k7.native_forward_cuda(z, *wb),
+                       lambda: k7.native_forward_plain(z, *wb),
+                       lambda: leaky_relu(norm(z))),
+                "K7_dx": (lambda: k7.native_backward_cuda(z, dy, mean, rstd, *wb),
+                          lambda: k7.native_backward_plain(z, dy, mean, rstd, *wb),
+                          lambda: torch.autograd.grad(eager, (zr, norm.weight, norm.bias), dy,
+                                                      retain_graph=True))}
+        for kname, (kern, plain, lib) in runs.items():
+            t, p = timed_pair(kern, plain)
+            lib_ms, d = median_ms(lib), device_ms(kern)["all"]
+            r = res[kname]
+            r["max_abs_err"] = max(r["max_abs_err"], *errs[kname])
+            for key, v in (("ms", t), ("plain_ms", p), ("device_ms", d), ("library_ms", lib_ms)):
+                r[key] += count * v
+            phase(label, f"{kname} {tag} x{count} per step: kernel {t:.4f} ms, device {d:.4f} "
+                  f"ms, plain {p:.4f} ms, eager {lib_ms:.4f} ms ({card})")
+        del z, dy, y, mean, rstd, dz, pda, pdah, zr, eager, runs
+    for kname, backward in (("K7", False), ("K7_dx", True)):
+        r = res[kname]
+        r["bound_ms"], r["bound_by"] = bound_ms(*unet_native_work(backward))
+        phase("unet train kernels", f"{kname}, one training step ({UNET_TRAIN_BATCH} x 320x256, "
+              f"26 launches), float32: kernel {r['ms']:.4f} ms, device {r['device_ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, eager {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}) ({card})")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return res
+
+
 class _TimedIter:
     """Iterator wrapper that records the host seconds of each next()."""
 
@@ -1365,13 +1491,18 @@ def _kernel_modules():
 def _reset_counts() -> None:
     k1, k3, k4, k5, k6 = _kernel_modules()
     k1.launches = k1.bwd_launches = k3.launches = k4.launches = k5.launches = 0
+    k5.native_launches = k5.native_bwd_launches = 0
     k6.launches = k6.bwd_launches = 0
 
 
 def _read_counts() -> dict:
+    """Launches of K1-K7 since ``_reset_counts`` (K7 and K7 dx: the native
+    norm and activation, which every float32 2D instance block with K5 off
+    runs on the card)."""
     k1, k3, k4, k5, k6 = _kernel_modules()
     return {"K1": k1.launches, "K2": k1.bwd_launches, "K3": k3.launches, "K4": k4.launches,
-            "K5": k5.launches, "K6": k6.launches, "K6_dx": k6.bwd_launches}
+            "K5": k5.launches, "K6": k6.launches, "K6_dx": k6.bwd_launches,
+            "K7": k5.native_launches, "K7_dx": k5.native_bwd_launches}
 
 
 def unet_train_data(plans, tmp: Path) -> dict:
@@ -1441,8 +1572,9 @@ def unet_train(card: str) -> dict:
             out = Path(tmp) / "fold_0"
             trainer = Trainer(config, out, plans=plans, device="cuda").initialize()
             trainer.checkpoint_every = UNET_TRAIN_EPOCHS  # so that the run writes "latest"
-            per_step = trainer.model.kernel_launches(sp.patch_size[1], backward=True)
-            expect(per_step == {"K5": 0, "K6": 7, "K6_dx": 6}, f"per step {per_step}")
+            per_step = trainer.model.kernel_launches(sp.patch_size, backward=True)
+            expect(per_step == {"K5": 0, "K6": 7, "K7": 26, "K6_dx": 6, "K7_dx": 26},
+                   f"per step {per_step}")
             step, event_ms, losses, lines = trainer.run_iteration, [], [], []
 
             def timed_step(batch, train=True):
@@ -1469,7 +1601,7 @@ def unet_train(card: str) -> dict:
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             expect(len(losses) == n and all(np.isfinite(losses)), f"losses {losses}")
             want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 7 * (n + n_val),
-                    "K6_dx": 6 * n}
+                    "K6_dx": 6 * n, "K7": 26 * (n + n_val), "K7_dx": 26 * n}
             expect(counts == want, f"launches in the U-Net train run {counts}, expected {want}")
             expect(len(hist.eval_metrics) == UNET_TRAIN_EPOCHS
                    and all(np.isfinite(hist.eval_metrics)), f"fg-dice {hist.eval_metrics}")
@@ -1497,7 +1629,8 @@ def unet_train(card: str) -> dict:
     load_s = train_it.seconds[UNET_TRAIN_WARMUP:]
     phase("unet train", f"{n} steps + {n_val} validation batches, losses {losses[0]:.5f} -> "
           f"{losses[-1]:.5f}, fg-dice {hist.eval_metrics}; launches {counts} (7 K6 + 6 K6 dx "
-          f"per step, 7 K6 per validation batch); checkpoint triad written and reloaded; peak "
+          f"+ 26 K7 + 26 K7 dx per step, 7 K6 + 26 K7 per validation batch); checkpoint triad "
+          f"written and reloaded; peak "
           f"device memory {peak_gb:.2f} GB")
     phase("unet train", f"step ({sp.batch_size}, 1, 320, 256) float32: median "
           f"{med * 1e3:.3f} ms host clock over {len(steps)} steps after {UNET_TRAIN_WARMUP} "
@@ -1766,7 +1899,8 @@ def segflow_pallas_serving(card: str) -> tuple[dict, dict]:
         ref = off(video)
         times = [host_ms(lambda m=m: m(video)) for m in (off, on, on, off)]
     expect(counts == {"K1": 34, "K2": 0, "K3": 34, "K4": 0, "K5": 0, "K6": want["K6"],
-                      "K6_dx": 0}, f"launches of one forward under pallas: {counts}")
+                      "K6_dx": 0, "K7": 0, "K7_dx": 0},
+           f"launches of one forward under pallas: {counts}")
     for key in ("seg_logits", "cum_flow", "registered"):
         expect(bool(torch.isfinite(out[key]).all()), f"non-finite {key} under pallas")
     diff = float((out["cum_flow"].float() - ref["cum_flow"].float()).abs().max())
@@ -1851,7 +1985,7 @@ def segflow_pallas_train(card: str) -> tuple[dict, dict]:
             want = trainer.model.kernel_launches(TRAIN_T, TRAIN_HW, backward=True)
             k6 = (want["K6"], want["K6_dx"]) if switch == "pallas" else (0, 0)
             expect(counts == {"K1": CORR_PER_STEP, "K2": CORR_PER_STEP, "K3": 0, "K4": 0,
-                              "K5": 0, "K6": k6[0], "K6_dx": k6[1]},
+                              "K5": 0, "K6": k6[0], "K6_dx": k6[1], "K7": 0, "K7_dx": 0},
                    f"{switch}: launches of one step {counts}")
             phase("segflow pallas train", f"{switch}: step ({TRAIN_BATCH}, {TRAIN_T}, "
                   f"{TRAIN_HW}, {TRAIN_HW}, 1) bf16 concat + deep supervision: launches "
@@ -2268,7 +2402,8 @@ def cli_phase(card: str) -> dict:
         unet_cfg.to_yaml(tmp / "unet.yaml")
         run("csof_torch_train unet2d", cli.train_entry,
             ["-c", tmp / "unet.yaml", "-p", pre, "-o", tmp / "unet"],
-            {"K6": 7 * (CLI_UNET_STEPS + CLI_UNET_VAL), "K6_dx": 6 * CLI_UNET_STEPS},
+            {"K6": 7 * (CLI_UNET_STEPS + CLI_UNET_VAL), "K6_dx": 6 * CLI_UNET_STEPS,
+             "K7": 26 * (CLI_UNET_STEPS + CLI_UNET_VAL), "K7_dx": 26 * CLI_UNET_STEPS},
             CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
         unet_fold = tmp / "unet" / "fold_0"
         expect((unet_fold / "model_final_checkpoint.pt").is_file()
@@ -2281,7 +2416,8 @@ def cli_phase(card: str) -> dict:
         val_fwd = sum(unet_forwards(shapes[k], plans) for k in val_keys)
         run("csof_torch_train --validation-only", cli.train_entry,
             ["-c", tmp / "unet.yaml", "-p", pre, "-o", tmp / "unet", "--validation-only"],
-            {"K6": 7 * val_fwd}, CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
+            {"K6": 7 * val_fwd, "K7": 26 * val_fwd}, CSOF_CONV2D_IMPL="pallas",
+            CSOF_FUSED_NORM="0")
         summary = json.loads((unet_fold / "validation_raw" / "summary.json").read_text())
         expect(len(summary["all"]) == len(val_keys) and "1" in summary["mean"],
                f"validation summary {summary.get('mean')}")
@@ -2584,11 +2720,13 @@ def data_plane_phase(card: str, record3d: dict, tail: dict,
                       f"{sp.batch_size}, pools {sp.pool_op_kernel_sizes}, spacing "
                       f"{sp.current_spacing}")
 
-        # the planned 2d U-Net: K6 (and dx) where CSOF_CONV2D_IMPL=pallas routes it
+        # the planned 2d U-Net: K6 (and dx) where CSOF_CONV2D_IMPL=pallas routes it;
+        # K5 serving, K7 (and dx) training on the card
         sp = plans.fullres_stage()
-        net = unet_from_plans(plans, fused_norm_act=True, conv_impl="pallas")
-        per = net.kernel_launches(sp.patch_size[1], backward=True)
-        del net
+        per = unet_from_plans(plans, fused_norm_act=True, conv_impl="pallas").kernel_launches(
+            sp.patch_size, backward=True)
+        per_train = unet_from_plans(plans, fused_norm_act=False, conv_impl="pallas").cuda(
+            ).kernel_launches(sp.patch_size, backward=True)
         cfg = ExperimentConfig(model="unet2d", max_num_epochs=1, num_batches_per_epoch=DP_STEPS,
                                num_val_batches_per_epoch=DP_VAL)
         cfg.to_yaml(tmp / "unet.yaml")
@@ -2596,13 +2734,17 @@ def data_plane_phase(card: str, record3d: dict, tail: dict,
         with conv_shapes(train_convs):
             run("csof_torch_train unet2d planned", cli.train_entry,
                 ["-c", tmp / "unet.yaml", "-p", a, "-o", tmp / "unet"],
-                {"K6": per["K6"] * (DP_STEPS + DP_VAL), "K6_dx": per["K6_dx"] * DP_STEPS},
+                {"K6": per_train["K6"] * (DP_STEPS + DP_VAL),
+                 "K6_dx": per_train["K6_dx"] * DP_STEPS,
+                 "K7": per_train["K7"] * (DP_STEPS + DP_VAL),
+                 "K7_dx": per_train["K7_dx"] * DP_STEPS},
                 CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
         fold = tmp / "unet" / "fold_0"
         expect((fold / "model_final_checkpoint.pt").is_file()
                and Plans.from_json(fold / "plans.json") == plans, "U-Net fold not written")
-        phase("data plane", f"the planned U-Net: {per['K5']} K5, {per['K6']} K6, {per['K6_dx']} "
-              f"K6 dx a step at batch {sp.batch_size} x {sp.patch_size}")
+        phase("data plane", f"the planned U-Net: {per['K5']} K5 a forward; {per_train['K6']} K6, "
+              f"{per_train['K6_dx']} K6 dx, {per_train['K7']} K7, {per_train['K7_dx']} K7 dx a "
+              f"step at batch {sp.batch_size} x {sp.patch_size}")
 
         cases = sorted(p.name[:-len("_0000.nii.gz")] for p in (task / "imagesTr").glob("*.nii.gz"))
         served = cases[:DP_PREDICT]
@@ -2652,7 +2794,7 @@ def data_plane_3d(card: str, run, root: Path, tmp: Path, served: list, record: d
 
     plans = Plans.from_json(root / "plans_3D.json")
     patch = plans.fullres_stage().patch_size
-    per = unet_from_plans(plans, conv_impl="pallas").kernel_launches(patch[-1], backward=True)
+    per = unet_from_plans(plans, conv_impl="pallas").kernel_launches(patch, backward=True)
     cfg = ExperimentConfig(model="unet3d", max_num_epochs=1, num_batches_per_epoch=DP_STEPS,
                            num_val_batches_per_epoch=DP_VAL)
     cfg.to_yaml(tmp / "unet3d.yaml")
@@ -2756,8 +2898,9 @@ def unet3d_train(card: str, tmp: Path, root: Path) -> tuple[dict, Path]:
 
     plans = Plans.from_json(root / "plans_3D.json")
     sp = plans.fullres_stage()
-    per = unet_from_plans(plans, conv_impl="pallas").kernel_launches(sp.patch_size[-1], True)
-    expect(per == {"K5": 0, "K6": U3_K6, "K6_dx": U3_K6_DX}, f"3d_fullres launches {per}")
+    per = unet_from_plans(plans, conv_impl="pallas").kernel_launches(sp.patch_size, True)
+    expect(per == {"K5": 0, "K6": U3_K6, "K7": 0, "K6_dx": U3_K6_DX, "K7_dx": 0},
+           f"3d_fullres launches {per}")
     cfg = ExperimentConfig(model="unet3d", max_num_epochs=1, num_batches_per_epoch=U3_STEPS,
                            num_val_batches_per_epoch=U3_VAL,
                            optim=OptimConfig(optimizer="sgd", scheduler="poly", initial_lr=1e-2,
@@ -2887,13 +3030,22 @@ def leaky_slopes(masks: list, replay: bool, flips: list, sites=None):
     the signs, counting in ``flips`` the entries where the replayed mask
     differs from the input's own sign. ``sites``: (owner, attribute, default
     slope) triples, by default the ConvNormAct blocks' ``blocks.leaky_relu``
-    (``torch.relu`` is the site with slope 0)."""
+    (``torch.relu`` is the site with slope 0). Where ``blocks.leaky_relu``
+    is a site, a block that runs K7 on the card records its output's signs
+    too (the sign of y is that of the pre-activation): the CPU runs those
+    blocks through ``blocks.leaky_relu``, in the same order."""
     import torch
 
     from csof_tpu_torch.models import blocks
 
     sites = sites or [(blocks, "leaky_relu", 0.01)]
     replayed = iter(masks)
+    native = blocks.native_norm_act
+
+    def recording_native(*args, **kwargs):
+        y = native(*args, **kwargs)
+        masks.append((y >= 0).cpu())
+        return y
 
     def site(default):
         def act(x, negative_slope=default):
@@ -2910,6 +3062,9 @@ def leaky_slopes(masks: list, replay: bool, flips: list, sites=None):
     origs = [(owner, name, getattr(owner, name)) for owner, name, _ in sites]
     for owner, name, default in sites:
         setattr(owner, name, site(default))
+    if not replay and (blocks, "leaky_relu") in [(o, n) for o, n, _ in sites]:
+        origs.append((blocks, "native_norm_act", native))
+        blocks.native_norm_act = recording_native
     try:
         yield
     finally:
@@ -3846,7 +4001,9 @@ def family_phase(card: str, dev: dict) -> tuple[dict, dict]:
     defaults on 8 cines x 12 frames x 128^2, d = 128 over 32 x 32 maps at
     batch 96; random weights), float32 and bf16, the switches off and on:
     under them the wrapper counts equal kernel_launches and the device
-    events of a fresh process's trace (``dev``), the outputs match the
+    events of a fresh process's trace (``dev``) (a float32 instance-norm
+    run with them off: K7 in each block that runs K5 with them on), the
+    outputs match the
     switches-off ones (float32: MODEL_TOL; bf16: FAMILY_BF16_FACTOR times
     the switches-off bf16 forward's distance from the float32 one; the
     decoders' heads scaled by 1e4, so that the logits are of a few units);
@@ -3878,6 +4035,9 @@ def family_phase(card: str, dev: dict) -> tuple[dict, dict]:
             outs = {}
             for sw, model in models.items():
                 want = {k: v for k, v in family_want(model).items() if v and sw}
+                k7 = family_want(models[True])["K5"] if dtype == "float32" and not sw else 0
+                if k7:  # K5 off: each block that runs K5 with the switches on runs K7
+                    want["K7"] = k7
                 with torch.inference_mode():
                     _reset_counts()
                     with conv_shapes(k6_calls.setdefault((name, dtype), {})), \
@@ -3887,7 +4047,7 @@ def family_phase(card: str, dev: dict) -> tuple[dict, dict]:
                 got = {k: v for k, v in _read_counts().items() if v}
                 expect(got == want, f"{name} {dtype} switch {sw}: launches {got}, expected {want}")
                 if got:
-                    counts[f"{name} {dtype}"] = got
+                    counts[f"{name} {dtype}" + ("" if sw else " switches off")] = got
                 outs[sw] = out if isinstance(out, dict) else {"out": out}
                 for k, v in outs[sw].items():
                     expect(bool(torch.isfinite(v).all()), f"{name} {dtype}: {k} not finite")
@@ -4105,7 +4265,8 @@ def generative_phase(card: str, dev: dict) -> tuple[dict, dict]:
             expect(got == {k: v for k, v in want.items() if v},
                    f"{name} {kind}: launches {got}, kernel_launches {want}")
             d = dev[name][kind]
-            expect({k: d[k] for k in ("K6", "K6_dx")} == {k: got.get(k, 0) for k in ("K6", "K6_dx")},
+            keys = ("K6", "K6_dx", "K7", "K7_dx")
+            expect({k: d[k] for k in keys} == {k: got.get(k, 0) for k in keys},
                    f"{name} {kind}: device events {d}, wrapper {got}")
             counts[f"generative {name} {kind}"] = got
             if kind == "forward":
@@ -4371,8 +4532,9 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
         u_loss_d = unet_ddp.run_iteration(unet_batch)[0]
         u_loss_p = unet_plain.run_iteration(unet_batch)[0]
         unet_counts = take()
-        per = unet_plain.model.kernel_launches(sp.patch_size[1], backward=True)
-        expect(unet_counts == {"K6": 2 * per["K6"], "K6_dx": 2 * per["K6_dx"]},
+        per = unet_plain.model.kernel_launches(sp.patch_size, backward=True)
+        expect(unet_counts == {k: 2 * per[k] for k in ("K6", "K6_dx", "K7", "K7_dx")}
+               and per["K7"] == per["K7_dx"] == 26,
                f"U-Net launches {unet_counts}, expected {per} a step")
         expect(abs(u_loss_d - u_loss_p) <= LOSS_RTOL * abs(u_loss_p),
                f"U-Net loss DDP {u_loss_d} vs {u_loss_p}")
@@ -4416,7 +4578,7 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
         predict_counts = take()
         tiles = len(step_grid(sp.patch_size, bucket_image_shape(image.shape[1:], sp.patch_size,
                                                                 0.5, pcfg.bucket), 0.5))
-        per_fwd = net.kernel_launches(sp.patch_size[1])
+        per_fwd = net.kernel_launches(sp.patch_size)
         fwd_s = -(-tiles // UNET_TILE_BATCH)
         expect(sharded_counts == {k: v * fwd_s for k, v in per_fwd.items() if v},
                f"predict_sharded launches {sharded_counts}, {fwd_s} forwards of {per_fwd}")
@@ -4476,8 +4638,8 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
     dp_plans = Plans.from_json(dp_root / "plans_2D.json")
-    per = unet_from_plans(dp_plans, conv_impl="pallas").kernel_launches(
-        dp_plans.fullres_stage().patch_size[1], backward=True)
+    per = unet_from_plans(dp_plans, conv_impl="pallas", fused_norm_act=False).cuda(
+        ).kernel_launches(dp_plans.fullres_stage().patch_size, backward=True)
     out = tmp / "torchrun"
     counts_e: dict = {}
     with env(RANK="0", LOCAL_RANK="0", WORLD_SIZE="1", LOCAL_WORLD_SIZE="1",
@@ -4485,7 +4647,9 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
         secs = run_command(counts_e, "parallel", "csof_torch_train unet2d torchrun",
                            cli.train_entry, ["-c", dp_tmp / "unet.yaml", "-p", dp_root, "-o", out],
                            {"K6": per["K6"] * (DP_STEPS + DP_VAL),
-                            "K6_dx": per["K6_dx"] * DP_STEPS}, card,
+                            "K6_dx": per["K6_dx"] * DP_STEPS,
+                            "K7": per["K7"] * (DP_STEPS + DP_VAL),
+                            "K7_dx": per["K7_dx"] * DP_STEPS}, card,
                            CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
     for k, v in counts_e["csof_torch_train unet2d torchrun"].items():
         total[k] = total.get(k, 0) + v
@@ -4539,7 +4703,7 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
           f"(host clock medians of 21, {os.cpu_count()} CPUs, threads a call "
           f"{native.bindings.threads_for(1, got[0].size)} and "
           f"{native.bindings.threads_for(len(clip), clip.size)})")
-    for k in ("K1", "K2", "K5", "K6", "K6_dx"):
+    for k in ("K1", "K2", "K5", "K6", "K6_dx", "K7", "K7_dx"):
         expect(total.get(k, 0) > 0, f"phase 35 never launched {k}: {total}")
     return total
 
@@ -4615,6 +4779,7 @@ def main() -> int:
     del unet, unet_cpu
     torch.cuda.empty_cache()
     kernels["K6_dx"] = check_unet_train_kernels(card)
+    kernels.update(check_unet_norm_kernels(card))
     unet_train_counts = unet_train(card)
     unet_train_parity(card)
     kernels["K4"], ncc_counts = check_ncc(card)
@@ -4714,7 +4879,7 @@ def main() -> int:
                 for name, c in tail_counts.items()}, **fam_counts, **gen_counts,
              "parallel": par_counts}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
-               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx")}
+               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx", "K7", "K7_dx")}
     sources = {
         "K1": ("local_correlation", "csof_tpu_torch/csrc/corr.cu",
                "csof_tpu/ops/pallas/corr.py:131", None),
@@ -4737,6 +4902,13 @@ def main() -> int:
         "K6_dx": ("conv3x3_dx", "csof_tpu_torch/csrc/conv3x3.cu",
                   "csof_tpu/ops/pallas/conv.py:229",
                   "torch.nn.grad.conv2d_input(x.shape, w, dy, padding=1) (cuDNN dgrad)"),
+        "K7": ("instance_norm_leaky_relu_native", "csof_tpu_torch/csrc/inorm_lrelu.cu",
+               "none: the port's own fusion of leaky_relu(InstanceNorm(z)), the path the JAX "
+               "package runs with CSOF_FUSED_NORM=0",
+               "leaky_relu(InstanceNorm(z)), eager (the path the route replaces)"),
+        "K7_dx": ("instance_norm_leaky_relu_native_backward", "csof_tpu_torch/csrc/inorm_lrelu.cu",
+                  "none: the backward of K7's path",
+                  "autograd's backward of leaky_relu(InstanceNorm(z)), eager"),
     }
     line = {"kernels": [
         {"name": f"{k} {name}", "route": "cuda", "source": src, "replaces": rep,

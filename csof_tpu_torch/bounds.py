@@ -129,6 +129,26 @@ def norm_act_work(n: int, c: int, h: int, w: int, itemsize: int) -> tuple[float,
     return 2 * el * itemsize, 7 * el, 0.0
 
 
+def native_norm_act_work(n: int, c: int, h: int, w: int,
+                         backward: bool = False) -> tuple[float, float, float]:
+    """K7: float32 z -> y = LeakyReLU(InstanceNorm(z)) and each plane's mean
+    and rstd (2 passes of the tensor: mean, the two-pass variance, then a
+    subtract, two multiply-adds, a compare and a multiply: about 10
+    operations an element); K7 dx: z, dy, mean, rstd -> dz and two sums a
+    plane (3 passes; about 14 operations an element)."""
+    el, planes = n * c * h * w, n * c
+    if backward:
+        return 3 * el * 4 + 4 * planes * 4, 14 * el, 0.0
+    return 2 * el * 4 + 2 * planes * 4, 10 * el, 0.0
+
+
+def unet_native_work(backward: bool = False) -> tuple[float, float, float]:
+    """K7's (with ``backward``, K7 dx's) work summed over the 26 blocks of
+    one Task002 2d U-Net training step at batch 40."""
+    return _summed([(native_norm_act_work(UNET_TRAIN_BATCH, *shape, backward), count)
+                    for shape, count in UNET_K5_SHAPES])
+
+
 def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int, itemsize: int,
                  bias: bool = True) -> tuple[float, float, float, float]:
     """K6: a stride-1 3x3 SAME conv (+ bias), x and the float32 weight (and
@@ -240,6 +260,9 @@ def rows() -> list[tuple[str, str, float, str]]:
                                  "step (batch 2)")):
         out.append((name, f"f32 as 3xTF32, {what}", *bound_ms(*unet3d_work(name))))
         out.append((name, f"note: bf16, {what}", *bound_ms(*unet3d_work(name, 2))))
+    for name, backward in (("K7", False), ("K7_dx", True)):
+        out.append((name, "f32, the 26 launches of one Task002 2d U-Net training step (batch 40, "
+                    "320x256)", *bound_ms(*unet_native_work(backward))))
     # the training shapes the first table used, kept as a note
     out.append(("K5", "note: bf16, (40, 32, 320, 256) (Task002 2d U-Net training batch, "
                 "first stage)", *bound_ms(*norm_act_work(40, 32, 320, 256, 2))))

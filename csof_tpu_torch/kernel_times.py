@@ -6,6 +6,7 @@ a CUDA device.
     python3 -m csof_tpu_torch.kernel_times [out.json] [--only=K4,K5] [--k5-plans]
         [--k4-bands]
     python3 -m csof_tpu_torch.kernel_times [out.json] --only=K6_3D
+    python3 -m csof_tpu_torch.kernel_times [out.json] --only=K7
 
 K1, K3: B = 8, radius 4, (C, H, W, stride) = (32, 128, 128, 2), (64, 64, 64,
 1), (128, 32, 32, 1); K2: the same levels at the SegFlow training batch, B =
@@ -32,7 +33,13 @@ named) times K6 in the z taps of the Task002 3d_fullres U-Net
 batch (16 x 80 planes) and the training step's 16 dx at batch 2, the
 plain version beside each, and each routed 3D conv (``bounds.UNET3D_CONVS``,
 batch 2) through the tap route (``ConvNormAct._k6_taps``: the copies, the
-K6 launches, the sum) beside one ``F.conv3d``, the library call.
+K6 launches, the sum) beside one ``F.conv3d``, the library call. ``K7``
+(only when named) times K7 and K7 dx at the 26 blocks of a Task002 2d U-Net
+training step (batch 40, ``UNET_K5_SHAPES``' planes): each kernel's device
+ms per shape and summed over the launches, against their bounds
+(``bounds.unet_native_work``), and a forward and backward through the
+autograd function (with dgamma and dbeta) beside the eager
+``leaky_relu(InstanceNorm(z))`` they replace, in device ms.
 """
 
 from __future__ import annotations
@@ -252,6 +259,47 @@ def k5_plan_times(gen) -> dict:
     return res
 
 
+def k7_times(gen) -> dict:
+    """K7 and K7 dx at the Task002 2d U-Net training step's 26 blocks (batch
+    40), float32: per shape and summed over the launches, each kernel's
+    device ms, a forward and backward through the autograd function and
+    through the eager module and activation (device ms: the kernels, the
+    parameter-gradient sums and their accumulation), and the bounds."""
+    from csof_tpu_torch.bounds import UNET_K5_SHAPES, UNET_TRAIN_BATCH, bound_ms, unet_native_work
+    from csof_tpu_torch.models.blocks import InstanceNorm, leaky_relu
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    keys = ("K7", "K7_dx", "function_step", "eager_step")
+    res = {f"{k}_per_shape_device_ms": [] for k in keys}
+    for (c, h, w), count in UNET_K5_SHAPES:
+        z = torch.randn(UNET_TRAIN_BATCH, c, h, w, generator=gen, device="cuda") * 2 + 0.5
+        dy = torch.randn(UNET_TRAIN_BATCH, c, h, w, generator=gen, device="cuda") * 1e-3
+        norm = InstanceNorm(c).cuda()
+        with torch.no_grad():
+            norm.weight.add_(0.2 * torch.randn(c, generator=gen, device="cuda"))
+            norm.bias.add_(0.2 * torch.randn(c, generator=gen, device="cuda"))
+        wb = (norm.weight.detach(), norm.bias.detach())
+        _, mean, rstd = k5.native_forward_cuda(z, *wb)
+
+        def step(fn):
+            zz = z.detach().requires_grad_()
+            fn(zz).backward(dy)
+
+        calls = {"K7": lambda: k5.native_forward_cuda(z, *wb),
+                 "K7_dx": lambda: k5.native_backward_cuda(z, dy, mean, rstd, *wb),
+                 "function_step": lambda: step(
+                     lambda t: k5.native_norm_act(t, norm.weight, norm.bias)),
+                 "eager_step": lambda: step(lambda t: leaky_relu(norm(t)))}
+        for key, call in calls.items():
+            res[f"{key}_per_shape_device_ms"].append(count * device_ms(call)["all"])
+        del z, dy, mean, rstd
+    for key in keys:
+        res[f"{key}_device_ms"] = sum(res[f"{key}_per_shape_device_ms"])
+    res["K7_bound_ms"] = bound_ms(*unet_native_work())[0]
+    res["K7_dx_bound_ms"] = bound_ms(*unet_native_work(True))[0]
+    return res
+
+
 def k6_3d_times(gen) -> dict:
     """K6 at the Task002 3d_fullres z taps, float32 and bf16: per shape and
     summed over the launches (weights N(0, 2/(9 Ci)), no bias), the kernel's
@@ -411,6 +459,8 @@ def main() -> int:
         out.update(k4_times(gen))
     if "K6_3D" in wanted:
         out.update(k6_3d_times(gen))
+    if "K7" in wanted:
+        out.update(k7_times(gen))
     if "--k5-plans" in sys.argv:
         out["K5_plans"] = k5_plan_times(gen)
     if "--k4-bands" in sys.argv:

@@ -20,7 +20,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from csof_tpu_torch.ops.kernels.conv import conv3x3, conv3x3_worthwhile
-from csof_tpu_torch.ops.kernels.norm_act import instance_norm_leaky_relu
+from csof_tpu_torch.ops.kernels.norm_act import (instance_norm_leaky_relu, native_fits,
+                                                 native_norm_act)
 from csof_tpu_torch.ops.kernels.skipfuse import num_groups_for
 
 # flax's truncated-normal initializers divide the stddev by the std of a unit
@@ -241,6 +242,12 @@ class ConvNormAct(nn.Module):
       LeakyReLU as kernel K5 on a 2D block (GroupNorm blocks and 3D blocks
       ignore it, as in JAX).
 
+    With K5 off, a 2D InstanceNorm block runs its own norm and activation
+    (``leaky_relu(InstanceNorm(z))``, the same numerics) as kernels K7 and
+    K7 dx where the conv output is a float32 CUDA tensor whose planes K7 dx
+    can hold on chip (:meth:`uses_k7`); elsewhere (the CPU, bfloat16, 3D
+    blocks, GroupNorm) it runs the module and the activation as they are.
+
     ``conv_impl="tapsum"`` (the JAX package's tap-sum form, a TPU
     reformulation of the same conv) runs the native conv. ``remat_norm_act``
     recomputes the norm and activation in the backward pass from the saved
@@ -267,6 +274,13 @@ class ConvNormAct(nn.Module):
         conv = self.Conv_0
         return self.conv_impl == "pallas" and conv3x3_worthwhile(
             conv.kernel_size[-2:], conv.stride[-2:], conv.in_channels, conv.out_channels, width)
+
+    def uses_k7(self, hw: int, device: torch.device, dtype: torch.dtype) -> bool:
+        """Whether a conv output of ``hw`` pixels a plane, on ``device`` in
+        ``dtype``, runs the norm and activation as K7 (and K7 dx)."""
+        return (not self.fused_norm_act and len(self.Conv_0.kernel_size) == 2
+                and isinstance(getattr(self, self.norm_name), InstanceNorm)
+                and device.type == "cuda" and dtype == torch.float32 and native_fits(hw))
 
     def _k6_taps(self, x):
         """The 3D conv as the JAX package's ``Conv3dVia2D`` computes it under
@@ -298,6 +312,8 @@ class ConvNormAct(nn.Module):
         norm = getattr(self, self.norm_name)
         if self.fused_norm_act:
             return instance_norm_leaky_relu(x.contiguous(), norm.weight, norm.bias, norm.eps)
+        if self.uses_k7(x.shape[-2] * x.shape[-1], x.device, x.dtype):
+            return native_norm_act(x.contiguous(), norm.weight, norm.bias, norm.eps)
         return leaky_relu(norm(x))
 
     def forward(self, x):

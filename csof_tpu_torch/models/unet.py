@@ -136,20 +136,29 @@ class GenericUNet(nn.Module):
         seg_outputs = seg_outputs[::-1]  # full resolution first
         return tuple(seg_outputs) if self.deep_supervision else seg_outputs[0]
 
-    def kernel_launches(self, width: int, backward: bool = False) -> dict[str, int]:
-        """K5 and K6 launches of one forward of an input ``width`` pixels
-        wide (the last axis), counted from the modules without running them:
-        a routed 2D conv launches K6 once, a routed 3D conv once per z tap.
-        With ``backward``, also ``K6_dx``: the K6 launches of the backward,
-        one dx for each K6 launch whose input needs a gradient (every one
-        but a first conv on the data); under ``remat`` with policy ``full``
-        the backward runs the remat levels' convs again, which counts in
-        ``K6``."""
+    def kernel_launches(self, patch_size: Sequence[int],
+                        backward: bool = False) -> dict[str, int]:
+        """K5, K6 and K7 launches of one forward of an input of spatial shape
+        ``patch_size`` ((H, W), or (D, H, W) for a 3D net), counted from the
+        modules without running them: a routed 2D conv launches K6 once, a
+        routed 3D conv once per z tap; a block whose norm and activation run
+        as K7 (``ConvNormAct.uses_k7`` at its output's H x W plane on the
+        model's device) launches K7 once. With ``backward``, also ``K6_dx``
+        and ``K7_dx``: one dx for each K6 launch whose input needs a
+        gradient (every one but a first conv on the data), one K7 dx for
+        each block on K7; under ``remat`` the backward runs the norm and
+        activation again (policy ``full`` the remat levels' convs too),
+        which counts in ``K7`` (and ``K6``)."""
+        if len(patch_size) != len(self.conv_kernel_sizes[0]):
+            raise ValueError(f"patch_size {tuple(patch_size)} is not "
+                             f"{len(self.conv_kernel_sizes[0])}-D")
         n = self.num_pool
-        widths = [width]  # per level; level d's first conv has stride pool[d-1]
-        for d in range(1, n + 1):
+        widths, heights = [patch_size[-1]], [patch_size[-2]]  # per level
+        for d in range(1, n + 1):  # level d's first conv has stride pool[d-1]
             widths.append((widths[-1] - 1) // self.pool_kernel_sizes[d - 1][-1] + 1)
-        k5 = k6 = dx = 0
+            heights.append((heights[-1] - 1) // self.pool_kernel_sizes[d - 1][-2] + 1)
+        device = next(self.parameters()).device
+        k5 = k6 = dx = k7 = k7_dx = 0
         for name, level in self._stages():
             stack = getattr(self, name)
             w_in = widths[max(level - 1, 0)] if name == f"StackedConvs_{level}" else widths[level]
@@ -160,7 +169,12 @@ class GenericUNet(nn.Module):
                     block.Conv_0.kernel_size[0] if len(block.Conv_0.kernel_size) == 3 else 1)
                 k6 += taps * (2 if again else 1)
                 dx += taps * ((name, i) != ("StackedConvs_0", 0))
-        return {"K5": k5, "K6": k6, **({"K6_dx": dx} if backward else {})}
+                native = block.uses_k7(widths[level] * heights[level], device,
+                                       block.Conv_0.compute_dtype)
+                k7 += native * (2 if backward and self._remat_at(level) else 1)
+                k7_dx += native
+        counts = {"K5": k5, "K6": k6, "K7": k7}
+        return {**counts, "K6_dx": dx, "K7_dx": k7_dx} if backward else counts
 
 
 def unet_from_plans(plans: Plans, stage: int | None = None, deep_supervision: bool = True,

@@ -44,6 +44,12 @@ _SIGNATURES = {
     # x, scale, bias, out, planes, C, HW, cluster, slice, smem, eps, slope,
     # dtype_code, stream
     "csof_norm_act_forward": [_P] * 4 + [_I] * 6 + [_F, _F, _I, _P],
+    # z, gamma, beta, y, mean, rstd, planes, C, HW, cluster, slice, smem, eps,
+    # slope, stream
+    "csof_inorm_lrelu_forward": [_P] * 6 + [_I] * 6 + [_F, _F, _P],
+    # z, dy, mean, rstd, gamma, beta, dz, pda, pdah, planes, C, HW, cluster,
+    # slice, smem, slope, stream
+    "csof_inorm_lrelu_backward": [_P] * 9 + [_I] * 6 + [_F, _P],
     # x, packed w, bias, out, N, Ci, H, W, Co, nb, dtype_code, out_f32, dx, stream
     "csof_conv3x3_forward": [_P] * 4 + [_I] * 9 + [_P],
     # pred, target, cc, loss, planes, C, H, W, window, eps, dtype_code,

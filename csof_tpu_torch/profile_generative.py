@@ -18,10 +18,11 @@ on 8 source + 8 target images of 320 x 256 and ``PatchDiscriminator()`` on
 its 2-class softmax; ``PolicyNet()`` on 16 x 128^2. Each run has a forward
 and a training step (the port's training functions; the draws given, so
 that the card and the CPU take the same ones), and the K6 and K6 dx launches
-``kernel_launches`` gives for each.
+``kernel_launches`` gives for each (and UDA's U-Net on the card K7 and K7
+dx).
 
-With ``--launches``, one JSON line: for each run, the K6 and K6 dx kernels
-among the device events of one forward and of one step
+With ``--launches``, one JSON line: for each run, the K6, K6 dx, K7 and K7
+dx kernels among the device events of one forward and of one step
 (``kernel_times.device_events``, a fresh process: one that has taken many
 traces can lose kernels), under ``CSOF_CONV2D_IMPL=pallas``, beside the
 counts the modules give, with the device events and busy ms of that
@@ -216,11 +217,12 @@ def build_case(name: str, conv_impl: str, device, small: bool = False, seed: int
         state = uda.init_uda_state(net, disc, adamw(net.parameters()),
                                    adamw(disc.parameters()))
         step_fn = uda.make_uda_step(seg_apply, disc)
-        per = net.kernel_launches(w, backward=True)
+        per = net.kernel_launches((h, w), backward=True)
         return GenCase({"seg": net, "disc": disc},
                        lambda: seg_apply(net, batch["source"]),
-                       lambda: step_fn(state, batch)[1]["seg_loss"], net.kernel_launches(w),
-                       {"K5": 0, "K6": 4 * per["K6"], "K6_dx": 2 * per["K6_dx"]}, batch)
+                       lambda: step_fn(state, batch)[1]["seg_loss"], net.kernel_launches((h, w)),
+                       {"K5": 0, "K6": 4 * per["K6"], "K6_dx": 2 * per["K6_dx"],
+                        "K7": 4 * per["K7"], "K7_dx": 2 * per["K7_dx"]}, batch)
     if name == "policy":
         pol = policy_search.PolicyNet(generator=gen).to(dev)
         x = _data(rng, dev, b, GEN_HW, GEN_HW, 1)
@@ -244,8 +246,9 @@ def sample_ldm(case: GenCase, generator=None) -> torch.Tensor:
 
 
 def generative_launches(reps: int = 3) -> dict:
-    """{run: {"forward" | "step": {"K6", "K6_dx": device kernels of one
-    call, "want", "wall_ms", "events", "busy_ms"}}} under pallas, on the
+    """{run: {"forward" | "step": {"K6", "K6_dx", "K7", "K7_dx": device
+    kernels of one call, "want", "wall_ms", "events", "busy_ms"}}} under
+    pallas, on the
     card: one trace of one call (``device_events``, warm-up included) gives
     the kernels, the events and the busy ms; then the host-clock ms, the
     median of ``reps`` calls without the profiler."""
@@ -270,6 +273,8 @@ def generative_launches(reps: int = 3) -> dict:
             out.setdefault(name, {})[kind] = {
                 "K6": sum("conv3x3_kernel" in e.name for e in events),
                 "K6_dx": sum("conv3x3_dx_kernel" in e.name for e in events),
+                "K7": sum("inorm_lrelu_fwd" in e.name for e in events),
+                "K7_dx": sum("inorm_lrelu_bwd" in e.name for e in events),
                 "want": want, "wall_ms": statistics.median(times), "events": len(events),
                 "busy_ms": busy_ms(events)}
         del case

@@ -60,6 +60,8 @@ BATCH_3D, TRAIN_BATCH_3D, PATCH_3D = 8 * TILE_BATCH_3D, 2, (80, 192, 160)
 TRAIN_GROUPS = [
     ("K6 dx (conv3x3_dx_kernel)", ("conv3x3_dx_kernel",)),
     ("K6 forward (conv3x3_kernel)", ("conv3x3_kernel",)),
+    ("K7 dx (inorm_lrelu_bwd_*)", ("inorm_lrelu_bwd",)),
+    ("K7 (inorm_lrelu_fwd_*)", ("inorm_lrelu_fwd",)),
     ("cuDNN dgrad", ("dgrad",)),
     ("cuDNN wgrad", ("wgrad",)),
     ("other convolutions (cuDNN forward, FFT, transposed)",

@@ -310,6 +310,224 @@ def test_norm_act_kernel_is_deterministic(cuda, dtype):
     assert torch.equal(a, b)
 
 
+# K7 and K7 dx: the U-Net's level shapes at batch 2-3 (a cluster of 4 and of
+# 8, a block and a cluster of 2, a block, a block, and the warp path), then
+# each side of native_plan's edges: 1024 / 1025 elements (a warp / a block),
+# 10240 / 10241 (K7 dx a block of 80 KB / a cluster of 2), 20480 / 20481
+# (K7 a block / a cluster of 2), 40960 (2 / 4), 81983 (8 / 8), 160000 (K7 dx
+# 8 blocks of 160 KB), and an odd shape; plane sizes not a multiple of 4 put
+# planes off the 16-byte grid
+NATIVE_SHAPES = [(2, 32, 320, 256), (2, 64, 160, 128), (3, 128, 80, 64), (3, 256, 40, 32),
+                 (2, 480, 20, 16), (2, 480, 10, 8), (2, 480, 5, 4), (2, 3, 32, 32),
+                 (2, 3, 1, 1025), (2, 3, 64, 160), (2, 3, 1, 10241), (2, 3, 128, 160),
+                 (2, 3, 1, 20481), (1, 3, 256, 160), (1, 2, 257, 319), (1, 2, 400, 400),
+                 (3, 7, 33, 129)]
+
+
+def _native_reference(z, dy, weight, bias, negative_mask):
+    """y and the gradients of z, weight and bias in float64: F.instance_norm
+    (the module's formula), then LeakyReLU 0.01 where ``negative_mask`` says
+    the pre-activation is negative (the card's signs, replayed: a sign flip
+    at |a| within a rounding of 0 moves da by 0.99 dy at one element)."""
+    import torch.nn.functional as F
+
+    ref = [t.detach().double().requires_grad_() for t in (z, weight, bias)]
+    a = F.instance_norm(ref[0], weight=ref[1], bias=ref[2], eps=1e-5)
+    y = torch.where(negative_mask, a * 0.01, a)
+    y.backward(dy.double())
+    return y.detach(), *(t.grad for t in ref)
+
+
+def _close_by_plane(got, ref, rtol=1e-4, rel_plane=1e-4):
+    """|got - ref| <= rtol |ref| + rel_plane * max |ref| of its (n, c) plane
+    (of the whole tensor for a 1-D one): float32 sums over a plane in
+    another order, against float64."""
+    got, ref = got.double(), ref.double()
+    scale = ref.abs().amax((2, 3), keepdim=True) if ref.dim() == 4 else ref.abs().max()
+    bad = (got - ref).abs() > rtol * ref.abs() + rel_plane * scale
+    assert not bool(bad.any()), (int(bad.sum()), float((got - ref).abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,c,h,w", NATIVE_SHAPES)
+def test_native_norm_act_kernels_match_the_eager_autograd(cuda, n, c, h, w):
+    """K7 (y, and the mean and rstd it saves) and K7 dx (dz, dgamma, dbeta)
+    against leaky_relu(InstanceNorm(z)) and its autograd in float64, for z
+    and dy on and off the 16-byte grid; one launch of each."""
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    z, weight, bias = _norm_inputs(cuda, torch.float32, n, c, h, w)
+    dy = torch.from_numpy(np.random.RandomState(4).randn(n, c, h, w).astype(np.float32)).to(cuda)
+    for zin, dyin in ((z, dy), (_unaligned(z), dy), (z, _unaligned(dy))):
+        zz = zin.detach().requires_grad_()
+        wb = [t.detach().clone().requires_grad_() for t in (weight, bias)]
+        before = (k5.native_launches, k5.native_bwd_launches)
+        y = k5.native_norm_act(zz, *wb)
+        y.backward(dyin)
+        torch.cuda.synchronize()
+        assert (k5.native_launches, k5.native_bwd_launches) == (before[0] + 1, before[1] + 1)
+        assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(zz.grad).all())
+        ry, rdz, rdw, rdb = _native_reference(z, dy, weight, bias, y < 0)
+        _close(y, ry, NORM_TOL[torch.float32])
+        _close_by_plane(zz.grad, rdz)
+        _close_by_plane(wb[0].grad, rdw)
+        _close_by_plane(wb[1].grad, rdb)
+    _, mean, rstd = k5.native_forward_cuda(z, weight, bias)
+    zf = z.double().reshape(n * c, -1)
+    _close(mean, zf.mean(1), (1e-5, 1e-5))
+    _close(rstd, torch.rsqrt(zf.var(1, unbiased=False) + 1e-5), (1e-5, 1e-5))
+
+
+@pytest.mark.cuda
+def test_native_norm_act_kernels_are_deterministic(cuda):
+    """Sums in a fixed order, the cluster's partials in rank order, dgamma
+    and dbeta summed over N in order: two runs of K7 and K7 dx on the
+    U-Net's largest planes give the same bits."""
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    z, weight, bias = _norm_inputs(cuda, torch.float32, 4, 32, 320, 256)
+    dy = torch.randn(z.shape, generator=torch.Generator(device=cuda).manual_seed(1), device=cuda)
+    runs = []
+    for _ in range(2):
+        zz, w, b = (t.detach().clone().requires_grad_() for t in (z, weight, bias))
+        y = k5.native_norm_act(zz, w, b)
+        y.backward(dy)
+        runs.append((y, zz.grad, w.grad, b.grad))
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_native_norm_act_route_engages_only_on_float32_2d_instance_blocks(cuda):
+    """A float32 2D InstanceNorm block on the card runs K7 forward and K7 dx
+    backward, and equals the eager module and activation; bfloat16, a 3D
+    block, a GroupNorm block, a K5 block and a CPU block run none."""
+    from csof_tpu_torch.models.blocks import ConvNormAct, leaky_relu
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    def run(block, x):
+        before = (k5.native_launches, k5.native_bwd_launches)
+        out = block(x.requires_grad_())
+        out.float().square().sum().backward()
+        torch.cuda.synchronize()
+        return out, (k5.native_launches - before[0], k5.native_bwd_launches - before[1])
+
+    gen = torch.Generator().manual_seed(0)
+    block = ConvNormAct(4, 8, norm="instance", generator=gen)
+    x = torch.randn(2, 4, 48, 40, generator=gen)
+    out, counts = run(block.to(cuda), x.to(cuda))
+    assert counts == (1, 1)
+    with torch.no_grad():
+        want = leaky_relu(block.InstanceNorm_0(block.Conv_0(x.to(cuda))))
+    _close(out, want, NORM_TOL[torch.float32])
+    cases = [(ConvNormAct(4, 8, norm="instance", dtype=torch.bfloat16, generator=gen), cuda),
+             (ConvNormAct(4, 8, norm="instance", kernel_size=(3, 3, 3), generator=gen), cuda),
+             (ConvNormAct(4, 8, norm="group", generator=gen), cuda),
+             (ConvNormAct(4, 8, norm="instance", fused_norm_act=True, generator=gen), cuda),
+             (ConvNormAct(4, 8, norm="instance", generator=gen), torch.device("cpu"))]
+    for other, device in cases:
+        xi = x if len(other.Conv_0.kernel_size) == 2 else x[:, :, None].expand(2, 4, 3, 48, 40)
+        if other.fused_norm_act:  # K5 has no backward: its forward alone
+            with torch.no_grad():
+                other.to(device)(xi.to(device))
+            continue
+        assert run(other.to(device), xi.to(device).contiguous())[1] == (0, 0), other
+
+
+def _task002_step(cuda):
+    """The cell's U-Net (Task002 2d plan, conv_impl pallas, K5 off) at full
+    width on the card, a batch of two 320 x 256 patches, and its loss."""
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
+    from csof_tpu_torch.config.plans import task002_heart_2d
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.training.trainer import make_seg_loss
+
+    net = unet_from_plans(task002_heart_2d(), conv_impl="pallas", fused_norm_act=False,
+                          generator=torch.Generator().manual_seed(0)).to(cuda)
+    rng = np.random.RandomState(0)
+    seg = np.zeros((2, 320, 256), np.int64)
+    seg[:, 100:220, 60:200] = 1
+    batch = {"data": torch.from_numpy((rng.randn(2, 1, 320, 256) + seg[:, None])
+                                      .astype(np.float32)).to(cuda),
+             "seg": torch.from_numpy(seg).to(cuda)}
+    loss_fn = make_seg_loss(ExperimentConfig(model="unet2d", data=DataConfig(do_data_aug=False)))
+    return net, batch, loss_fn
+
+
+@pytest.mark.cuda
+def test_task002_step_launches_k7_as_kernel_launches_counts(cuda):
+    """One training step of the cell's model: the wrappers' K7 and K7 dx
+    counts equal GenericUNet.kernel_launches (26 blocks, each once a
+    direction), and so do the inorm_lrelu device events of a traced step."""
+    from csof_tpu_torch.kernel_times import device_events
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    net, batch, loss_fn = _task002_step(cuda)
+    per = net.kernel_launches((320, 256), backward=True)
+    assert (per["K7"], per["K7_dx"], per["K5"]) == (26, 26, 0)
+
+    def step():
+        net.zero_grad(set_to_none=True)
+        loss, _ = loss_fn(net, batch)
+        loss.backward()
+
+    before = (k5.native_launches, k5.native_bwd_launches)
+    step()
+    torch.cuda.synchronize()
+    assert (k5.native_launches - before[0], k5.native_bwd_launches - before[1]) == (26, 26)
+    events, _ = device_events(step, reps=1)
+    fwd = sum("inorm_lrelu_fwd" in e.name for e in events)
+    bwd = sum("inorm_lrelu_bwd" in e.name for e in events)
+    assert (fwd, bwd) == (per["K7"], per["K7_dx"]), (fwd, bwd)
+
+
+@pytest.mark.cuda
+def test_task002_sgd_steps_with_and_without_k7_agree(cuda, monkeypatch):
+    """Two SGD-Nesterov steps of the cell's model from the same weights and
+    batch, with the route and with the eager norm and activation: the losses
+    and every parameter gradient of both steps agree to float32 tolerance.
+    The eager run replays the routed run's LeakyReLU signs, block by block
+    (a pre-activation within a rounding of 0 may take either side, and one
+    such element moves a deep level's weight gradient by percents)."""
+    from csof_tpu_torch.models import blocks
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    def run(hook):
+        net, batch, loss_fn = _task002_step(cuda)
+        for m in net.modules():
+            if isinstance(m, blocks.ConvNormAct):
+                m.register_forward_hook(hook)
+        opt = torch.optim.SGD(net.parameters(), lr=1e-2, momentum=0.99, nesterov=True,
+                              weight_decay=3e-5)
+        out = []
+        for _ in range(2):
+            opt.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(net, batch)
+            loss.backward()
+            out.append((loss.item(), {k: p.grad.clone() for k, p in net.named_parameters()
+                                      if p.grad is not None}))
+            opt.step()
+        return out
+
+    signs = []
+    before = k5.native_launches
+    routed = run(lambda mod, inp, out: signs.append(out.detach() < 0))
+    assert k5.native_launches - before == 2 * 26 and len(signs) == 2 * 26
+    monkeypatch.setattr(blocks.ConvNormAct, "uses_k7", lambda self, *args: False)
+    replay = iter(signs)
+    monkeypatch.setattr(blocks, "leaky_relu", lambda a: torch.where(next(replay), a * 0.01, a))
+    eager = run(lambda *args: None)
+    assert k5.native_launches - before == 2 * 26
+    for (loss_k, grads_k), (loss_e, grads_e) in zip(routed, eager):
+        np.testing.assert_allclose(loss_k, loss_e, rtol=1e-5)
+        assert grads_k.keys() == grads_e.keys()
+        for name, r in grads_e.items():
+            r = r.cpu().numpy()
+            np.testing.assert_allclose(grads_k[name].cpu().numpy(), r, rtol=0,
+                                       atol=2e-3 * float(np.abs(r).max()) + 1e-6, err_msg=name)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("n,ci,co,h,w,bias,out_f32", [
@@ -430,7 +648,8 @@ def test_small_unet_on_the_card_matches_the_cpu(cuda, dtype):
     with torch.inference_mode():
         got = gpu(x.to(cuda))
         ref = cpu(x)
-    assert (k5.launches, k6.launches) == (14, 7) == tuple(gpu.kernel_launches(96).values())
+    assert (k5.launches, k6.launches) == (14, 7)
+    assert gpu.kernel_launches((64, 96)) == {"K5": 14, "K6": 7, "K7": 0}
     tol = (1e-3, 1e-3) if dtype == torch.float32 else (0.15, 0.05)
     for a, b in zip(got, ref):
         _close(a, b, tol)
@@ -722,8 +941,8 @@ def test_ncc_map_and_loss_are_the_same_bits_run_to_run(cuda):
 @pytest.mark.cuda
 def test_small_unet_train_step_on_the_card_matches_the_cpu(cuda):
     """The U-Net training loss, Dice statistics and every parameter
-    gradient, float32, conv_impl="pallas": K6 forward and dx on the card
-    against their plain versions on the CPU."""
+    gradient, float32, conv_impl="pallas": K6 forward and dx, K7 and K7 dx on
+    the card against their plain versions and the eager norm on the CPU."""
     from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
     from csof_tpu_torch.models.unet import GenericUNet
     from csof_tpu_torch.ops.kernels import conv as k6
@@ -742,8 +961,9 @@ def test_small_unet_train_step_on_the_card_matches_the_cpu(cuda):
     loss_gpu, aux_gpu = loss_fn(gpu, {k: v.to(cuda) for k, v in batch.items()})
     loss_gpu.backward()
     torch.cuda.synchronize()
-    counts = gpu.kernel_launches(64, backward=True)
+    counts = gpu.kernel_launches((64, 64), backward=True)
     assert (k6.launches, k6.bwd_launches) == (counts["K6"], counts["K6_dx"]) == (7, 6)
+    assert (counts["K7"], counts["K7_dx"]) == (14, 14)
     loss_cpu, aux_cpu = loss_fn(cpu, batch)
     loss_cpu.backward()
     np.testing.assert_allclose(loss_gpu.item(), loss_cpu.item(), rtol=1e-5)
@@ -935,8 +1155,8 @@ def test_unet3d_training_step_launches_match_the_device_events(cuda):
 
     net = unet_from_plans(task002_heart_3d(), conv_impl="pallas",
                           generator=torch.Generator().manual_seed(0)).to(cuda)
-    per = net.kernel_launches(96, backward=True)
-    assert per == {"K5": 0, "K6": 17, "K6_dx": 16}
+    per = net.kernel_launches((16, 96, 96), backward=True)
+    assert per == {"K5": 0, "K6": 17, "K7": 0, "K6_dx": 16, "K7_dx": 0}
     rng = np.random.RandomState(0)
     seg = np.zeros((1, 16, 96, 96), np.int64)
     seg[:, 4:12, 30:60, 20:70] = 1

@@ -6,7 +6,10 @@ tiles (window-row staging with the r*s halo, the g rows that dq and dm
 share, the kernel's shared-memory indices) against ``corr_bwd_plain``;
 ``norm_act_plan`` at every shape of the paths; and an emulation of K5's
 fixed-order reduction (threads, warp butterfly, warps, cluster ranks)
-against ``norm_act_plain`` at K5's float32 tolerance.
+against ``norm_act_plain`` at K5's float32 tolerance. K7 and K7 dx (csrc/
+inorm_lrelu.cu) likewise: their plain closed forms, which the CPU side of
+their autograd function runs, against autograd of the eager InstanceNorm +
+LeakyReLU in float64, with ``native_plan`` and the route at each shape.
 """
 
 import numpy as np
@@ -222,3 +225,62 @@ def test_cluster_reduction_emulation_matches_the_plain_version(n, c, h, w):
     got = emulate_norm_act(x, scale, bias, plan)
     np.testing.assert_allclose(got.numpy(), k5.norm_act_plain(x, scale, bias).numpy(),
                                atol=NORM_TOL_F32[0], rtol=NORM_TOL_F32[1])
+
+
+# K7's paths at U-Net-like planes: a warp a plane (5 x 7), a block (40 x 32;
+# K7 dx: a block too), a cluster (160 x 128: K7 a block of 80 KB, K7 dx a
+# cluster of 2)
+@pytest.mark.parametrize("n,c,h,w,fwd,bwd", [(2, 3, 5, 7, 0, 0), (2, 4, 40, 32, 1, 1),
+                                             (1, 2, 160, 128, 1, 2)])
+def test_native_norm_act_plain_forms_equal_the_eager_autograd(n, c, h, w, fwd, bwd):
+    import torch.nn.functional as F
+
+    from csof_tpu_torch.models.blocks import ConvNormAct, InstanceNorm, leaky_relu
+
+    assert (k5.native_plan(h * w).cluster, k5.native_plan(h * w, True).cluster) == (fwd, bwd)
+    rng = np.random.RandomState(11)
+    z = torch.from_numpy(rng.randn(n, c, h, w) * 2 + 0.5)
+    z[0, 0] = 0.25  # a constant plane
+    dy = torch.from_numpy(rng.randn(n, c, h, w))
+    norm = InstanceNorm(c)
+    with torch.no_grad():
+        norm.weight.copy_(torch.from_numpy(1 + 0.2 * rng.randn(c)))
+        norm.bias.copy_(torch.from_numpy(0.2 * rng.randn(c)))
+    # the module's float32 formula (biased two-pass variance, eps inside the
+    # root, then the affine and the activation), autograd in float64
+    ref = [t.detach().double().requires_grad_() for t in (z, norm.weight, norm.bias)]
+    leaky_relu(F.instance_norm(ref[0], weight=ref[1], bias=ref[2], eps=norm.eps)).backward(dy)
+    got = [t.detach().double().requires_grad_() for t in (z, norm.weight, norm.bias)]
+    before = (k5.native_launches, k5.native_bwd_launches)
+    y = k5.native_norm_act(*got, norm.eps)
+    y.backward(dy)
+    assert (k5.native_launches, k5.native_bwd_launches) == before  # no kernel on the CPU
+    with torch.no_grad():
+        want = leaky_relu(F.instance_norm(z, weight=ref[1], bias=ref[2], eps=norm.eps))
+    np.testing.assert_allclose(y.detach().numpy(), want.numpy(), rtol=1e-12, atol=1e-12)
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(), rtol=1e-10, atol=1e-10)
+    # the backward given the signs of y (as a check of the kernel replays its
+    # own) equals the backward taking them from its own pre-activation
+    wb = [t.detach().double() for t in (norm.weight, norm.bias)]
+    _, mean, rstd = k5.native_forward_plain(z, *wb, norm.eps)
+    own = k5.native_backward_plain(z, dy, mean, rstd, *wb)
+    given = k5.native_backward_plain(z, dy, mean, rstd, *wb, positive=y.detach() >= 0)
+    assert all(torch.equal(a, b) for a, b in zip(own, given))
+    # the route: float32 CUDA planes of a 2D instance block; never the CPU,
+    # bfloat16, a 3D block, GroupNorm or K5
+    block = ConvNormAct(c, c, norm="instance")
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert block.uses_k7(h * w, cuda, torch.float32)
+    assert not block.uses_k7(h * w, cpu, torch.float32)
+    assert not block.uses_k7(h * w, cuda, torch.bfloat16)
+    assert not ConvNormAct(c, c, norm="instance", kernel_size=(3, 3, 3)).uses_k7(h * w, cuda,
+                                                                                 torch.float32)
+    assert not ConvNormAct(c, c, norm="group").uses_k7(h * w, cuda, torch.float32)
+    assert not ConvNormAct(c, c, norm="instance", fused_norm_act=True).uses_k7(h * w, cuda,
+                                                                               torch.float32)
+    x = torch.from_numpy(rng.randn(n, c, h, w).astype(np.float32))
+    with torch.no_grad():
+        np.testing.assert_array_equal(block(x).numpy(),
+                                      leaky_relu(block.InstanceNorm_0(block.Conv_0(x))).numpy())
+    assert (k5.native_launches, k5.native_bwd_launches) == before

@@ -133,7 +133,7 @@ def test_uda_step_runs_k6_where_jax_routes_four_forwards_a_step(monkeypatch):
         out = _seg_apply(net, torch.from_numpy(x))
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0,
                                atol=1e-5 * float(np.abs(ref).max()))
-    per = net.kernel_launches(32, backward=True)
+    per = net.kernel_launches((32, 32), backward=True)
     assert calls["jax"] == calls["port"] == per["K6"] == 4 and per["K6_dx"] == 3
     tbatch = {k: torch.from_numpy(v) for k, v in _batch(4, hw=32).items()}
     tbatch["source_seg"] = tbatch["source_seg"].long()

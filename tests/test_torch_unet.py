@@ -366,8 +366,10 @@ def test_unet_from_plans_reads_the_jax_switches(switches_on):
     net = unet_from_plans(plans, deep_supervision=False)
     blocks = [m for m in net.modules() if hasattr(m, "uses_k6")]
     assert len(blocks) == 10 and all(b.fused_norm_act and b.conv_impl == "pallas" for b in blocks)
-    assert net.kernel_launches(64) == {"K5": 10, "K6": 7}
-    assert net.kernel_launches(48) == {"K5": 10, "K6": 4}  # level 1 is 24 wide: level 0 only
+    assert net.kernel_launches((64, 64)) == {"K5": 10, "K6": 7, "K7": 0}
+    assert net.kernel_launches((64, 48)) == {"K5": 10, "K6": 4, "K7": 0}  # level 1 is 24 wide
+    with pytest.raises(ValueError):  # the whole spatial shape, so a plane is never guessed
+        net.kernel_launches((48,))
     n_leaves = len(jax.tree_util.tree_leaves(_flax_params(jax_unet_from_plans(_plans(jplans)))))
     assert n_leaves == len(list(net.parameters()))
 
@@ -400,7 +402,7 @@ def test_task002_launch_counts_without_a_forward(switches_on, monkeypatch):
                    pools=pools)
     plans.base_num_features = 32
     net = unet_from_plans(plans)
-    assert net.features_at(6) == 480 and net.kernel_launches(256) == calls
+    assert net.features_at(6) == 480 and net.kernel_launches((320, 256)) == {**calls, "K7": 0}
 
 
 # -- the predictor and predict_case ----------------------------------------

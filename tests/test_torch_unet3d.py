@@ -52,7 +52,7 @@ SHAPE = (2, 1, 8, 32, 32)  # (N, C, D, H, W)
 #: routed convs of one forward at W = 32 (level 1 is 16 wide): the two
 #: (1, 3, 3) encoder convs of level 0 one tap each, its two (3, 3, 3)
 #: decoder convs three each; no dx for the first (its input is the data)
-LAUNCHES = {"K5": 0, "K6": 8}
+LAUNCHES = {"K5": 0, "K6": 8, "K7": 0}
 LAUNCHES_DX = 7
 #: float32 loss (relative) and gradients (|diff| <= GRAD_TOL max|leaf| + 1e-6
 #: per leaf): the same math summed in another order
@@ -164,8 +164,8 @@ def test_pallas_switch_runs_k6_in_the_z_taps_jax_routes(params, dtype, monkeypat
         got = net(torch.from_numpy(x))
     _assert_heads(got, ref, dtype)
     assert calls["jax"] == calls["port"] == LAUNCHES["K6"]
-    assert net.kernel_launches(SHAPE[-1]) == LAUNCHES
-    assert net.kernel_launches(SHAPE[-1], backward=True)["K6_dx"] == LAUNCHES_DX
+    assert net.kernel_launches(SHAPE[2:]) == LAUNCHES
+    assert net.kernel_launches(SHAPE[2:], backward=True)["K6_dx"] == LAUNCHES_DX
 
 
 def test_conv3d_native_and_fused_norm_run_no_kernel_on_the_3d_net(params, monkeypatch):
@@ -191,7 +191,8 @@ def test_conv3d_native_and_fused_norm_run_no_kernel_on_the_3d_net(params, monkey
         monkeypatch.setenv(var, value)
     net = unet_from_plans(_plans(tplans))
     load_flax_params(net, params)
-    assert net.kernel_launches(SHAPE[-1], backward=True) == {"K5": 0, "K6": 0, "K6_dx": 0}
+    assert net.kernel_launches(SHAPE[2:], backward=True) == {"K5": 0, "K6": 0, "K7": 0,
+                                                             "K6_dx": 0, "K7_dx": 0}
     k6.launches = 0
     with torch.no_grad():
         got = net(torch.from_numpy(x))
@@ -200,7 +201,7 @@ def test_conv3d_native_and_fused_norm_run_no_kernel_on_the_3d_net(params, monkey
     jnet = jax_unet_from_plans(_plans(jplans))
     assert (jnet.remat, jnet.remat_policy) == (net.remat, net.remat_policy) == (True, "save_conv")
     monkeypatch.setenv("CSOF_CONV3D_IMPL", "2d")
-    assert unet_from_plans(_plans(tplans)).kernel_launches(SHAPE[-1]) == LAUNCHES
+    assert unet_from_plans(_plans(tplans)).kernel_launches(SHAPE[2:]) == LAUNCHES
 
 
 @pytest.fixture(scope="module")
@@ -247,7 +248,7 @@ def test_unet3d_step_loss_and_every_gradient_match_jax(params, jax_step, remat, 
         ref = want[name]
         err = np.abs(p.grad.numpy() - ref).max()
         assert err <= GRAD_TOL * np.abs(ref).max() + 1e-6, f"{name}: {err:.2e}"
-    assert dx["n"] == net.kernel_launches(SHAPE[-1], backward=True)["K6_dx"] == LAUNCHES_DX
+    assert dx["n"] == net.kernel_launches(SHAPE[2:], backward=True)["K6_dx"] == LAUNCHES_DX
 
 
 @pytest.mark.parametrize("n,kernel,stride", [(1, (3, 3, 3), (1, 1, 1)), (1, (1, 3, 3), (1, 1, 1)),
@@ -284,7 +285,7 @@ def test_trainer_builds_and_steps_unet3d_with_fused_norm_set(tmp_path, monkeypat
                                 optim=texp.OptimConfig(optimizer="sgd", scheduler="poly",
                                                        initial_lr=1e-2))
     tr = trainer.Trainer(cfg, tmp_path, plans=_plans(tplans), device="cpu").initialize()
-    assert tr.model.remat_policy == "save_conv" and tr.model.kernel_launches(32)["K5"] == 0
+    assert tr.model.remat_policy == "save_conv" and tr.model.kernel_launches(SHAPE[2:])["K5"] == 0
     before = {k: v.clone() for k, v in tr.model.state_dict().items()}
     loss, _ = tr.run_iteration(_batch(seed=5))
     assert np.isfinite(loss) and tr.optimizer.count == 1

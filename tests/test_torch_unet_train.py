@@ -240,7 +240,8 @@ def test_k6_forward_and_dx_launches_per_step_from_the_modules(monkeypatch):
     the modules; at the small size, the plain versions' calls in one CPU
     step equal the modules' counts."""
     net = unet_from_plans(task002_heart_2d(), conv_impl="pallas")
-    assert net.kernel_launches(256, backward=True) == {"K5": 0, "K6": 7, "K6_dx": 6}
+    assert net.kernel_launches((320, 256), backward=True) == {"K5": 0, "K6": 7, "K7": 0, "K6_dx": 6,
+                                                       "K7_dx": 0}  # K7: on the card only
     calls = {"plain": 0, "dx": 0}
     plain, dx_plain = k6.conv3x3_plain, k6.conv3x3_dx_plain
 
@@ -257,8 +258,8 @@ def test_k6_forward_and_dx_launches_per_step_from_the_modules(monkeypatch):
     small = _port_net(_flax_params(), "pallas")
     loss, _ = trainer.make_seg_loss(_config())(small, _torch_batch(_seg_batch()))
     loss.backward()
-    want = small.kernel_launches(PATCH[1], backward=True)
-    assert want == {"K5": 0, "K6": 7, "K6_dx": 6}  # levels 0 and 1, as at Task002
+    want = small.kernel_launches(PATCH, backward=True)
+    assert want == {"K5": 0, "K6": 7, "K7": 0, "K6_dx": 6, "K7_dx": 0}  # levels 0, 1
     # every dx runs the plain forward once, on dy
     assert (calls["plain"] - calls["dx"], calls["dx"]) == (want["K6"], want["K6_dx"])
 
