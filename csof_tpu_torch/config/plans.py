@@ -164,7 +164,10 @@ def task002_heart_3d(num_classes: int = 1) -> Plans:
     80x192x160 at 1.37 x 1.25 x 1.25 mm, batch 2, base 32 features (capped
     at 320), pools (1, 2, 2), 3 x (2, 2, 2), (1, 2, 2), kernels (1, 3, 3)
     then (3, 3, 3) at the 5 deeper levels, one z-scored modality;
-    ``num_classes`` foreground classes."""
+    ``num_classes`` foreground classes. nnU-Net v1's planner
+    (:func:`csof_tpu_torch.data.planning.get_pool_and_conv_props`) gives
+    this spacing (3, 3, 3) kernels at every level and pools 4 x (2, 2, 2)
+    then (1, 2, 2): level 0 here departs from it."""
     spacing = (1.37, 1.25, 1.25)
     stage = StagePlans(batch_size=2, patch_size=(80, 192, 160), current_spacing=spacing,
                        original_spacing=spacing,

@@ -23,6 +23,7 @@ from csof_tpu_torch.ops.kernels.conv import conv3x3, conv3x3_worthwhile
 from csof_tpu_torch.ops.kernels.norm_act import (instance_norm_leaky_relu, native_fits,
                                                  native_norm_act)
 from csof_tpu_torch.ops.kernels.skipfuse import num_groups_for
+from csof_tpu_torch.utils import profiling
 
 # flax's truncated-normal initializers divide the stddev by the std of a unit
 # normal cut at +-2, so the sample has the variance asked for
@@ -253,6 +254,12 @@ class ConvNormAct(nn.Module):
     recomputes the norm and activation in the backward pass from the saved
     conv output (``torch.utils.checkpoint``; JAX's ``save_conv`` remat
     policy).
+
+    A 3D block opens two spans of its own while grad is enabled (a train
+    step; :func:`csof_tpu_torch.utils.profiling.span`): ``block3d.ztaps``
+    around :meth:`_k6_taps` and ``block3d.norm_act`` around the norm and
+    activation, again in the recompute inside the backward pass under
+    ``remat_norm_act``. A 2D block and an evaluation open none.
     """
 
     def __init__(self, in_channels, features, stride=1, norm="group", dtype=torch.float32,
@@ -282,6 +289,12 @@ class ConvNormAct(nn.Module):
                 and isinstance(getattr(self, self.norm_name), InstanceNorm)
                 and device.type == "cuda" and dtype == torch.float32 and native_fits(hw))
 
+    def _span3d(self, name: str):
+        """The span ``name`` of a 3D block in a train step, else the no-op."""
+        if len(self.Conv_0.kernel_size) == 3 and torch.is_grad_enabled():
+            return profiling.span(name)
+        return profiling.no_span(name)
+
     def _k6_taps(self, x):
         """The 3D conv as the JAX package's ``Conv3dVia2D`` computes it under
         the Pallas switch: z padded, then for each z tap dz the input's z
@@ -290,23 +303,24 @@ class ConvNormAct(nn.Module):
         dtype is narrower and kz > 1, JAX's ``acc_t``); the taps summed in dz
         order, rounded to the dtype, unfolded to ``(N, Co, D_out, H, W)``,
         and the bias added in the dtype."""
-        conv = self.Conv_0
-        dt = conv.compute_dtype
-        kz, sz = conv.kernel_size[0], conv.stride[0]
-        out_f32 = kz > 1 and dt != torch.float32
-        x = F.pad(x.to(dt), (0, 0, 0, 0, *conv.pads[0]))
-        n, ci, d, h, w = x.shape
-        d_out = (d - kz) // sz + 1
-        y = None
-        for dz in range(kz):
-            xs = x[:, :, dz:dz + (d_out - 1) * sz + 1:sz]
-            xs = xs.transpose(1, 2).contiguous().view(n * d_out, ci, h, w)
-            yz = conv3x3(xs, conv.weight[:, :, dz].contiguous(), None, out_f32)
-            y = yz if y is None else y + yz
-        y = y.view(n, d_out, -1, h, w).transpose(1, 2).contiguous().to(dt)
-        if conv.bias is not None:
-            y = y + conv.bias.to(dt).view(1, -1, 1, 1, 1)
-        return y
+        with self._span3d("block3d.ztaps"):
+            conv = self.Conv_0
+            dt = conv.compute_dtype
+            kz, sz = conv.kernel_size[0], conv.stride[0]
+            out_f32 = kz > 1 and dt != torch.float32
+            x = F.pad(x.to(dt), (0, 0, 0, 0, *conv.pads[0]))
+            n, ci, d, h, w = x.shape
+            d_out = (d - kz) // sz + 1
+            y = None
+            for dz in range(kz):
+                xs = x[:, :, dz:dz + (d_out - 1) * sz + 1:sz]
+                xs = xs.transpose(1, 2).contiguous().view(n * d_out, ci, h, w)
+                yz = conv3x3(xs, conv.weight[:, :, dz].contiguous(), None, out_f32)
+                y = yz if y is None else y + yz
+            y = y.view(n, d_out, -1, h, w).transpose(1, 2).contiguous().to(dt)
+            if conv.bias is not None:
+                y = y + conv.bias.to(dt).view(1, -1, 1, 1, 1)
+            return y
 
     def _norm_act(self, x):
         norm = getattr(self, self.norm_name)
@@ -314,7 +328,8 @@ class ConvNormAct(nn.Module):
             return instance_norm_leaky_relu(x.contiguous(), norm.weight, norm.bias, norm.eps)
         if self.uses_k7(x.shape[-2] * x.shape[-1], x.device, x.dtype):
             return native_norm_act(x.contiguous(), norm.weight, norm.bias, norm.eps)
-        return leaky_relu(norm(x))
+        with self._span3d("block3d.norm_act"):
+            return leaky_relu(norm(x))
 
     def forward(self, x):
         conv = self.Conv_0

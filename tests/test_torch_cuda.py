@@ -1180,6 +1180,90 @@ def test_unet3d_training_step_launches_match_the_device_events(cuda):
     assert (fwd, dx) == (per["K6"], per["K6_dx"]), (fwd, dx)
 
 
+def _kernels_by_span(fn) -> dict:
+    """{innermost csof: span open at its launch, or None: [kernel names]}
+    of one profiled call of fn, a launch found by its correlation id (the
+    call bracketed by two spin kernels, which are left out)."""
+    import bisect
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from csof_tpu_torch.utils import profiling
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        fn()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    spans, launched_at, kernels = [], {}, []
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == DeviceType.CPU:
+            if name.startswith(profiling.SPAN_PREFIX):
+                spans.append((e.start_ns(), e.end_ns(), name[len(profiling.SPAN_PREFIX):]))
+            elif name.startswith("cu"):
+                launched_at[e.correlation_id()] = e.start_ns()
+        elif not e.is_user_annotation() and "spin_kernel" not in name and not name.startswith(
+                ("Memcpy", "Memset")):
+            kernels.append((e.correlation_id(), name))
+    spans.sort()
+    starts = [s for s, _, _ in spans]
+    out: dict = {}
+    for corr, name in kernels:
+        at, owner = launched_at.get(corr), None
+        if at is not None:
+            for i in range(bisect.bisect_right(starts, at) - 1, -1, -1):
+                if spans[i][1] >= at:
+                    owner = spans[i][2]
+                    break
+        out.setdefault(owner, []).append(name)
+    return out
+
+
+@pytest.mark.cuda
+def test_unet3d_ztaps_span_holds_the_k6_launches_and_a_2d_step_opens_none(cuda):
+    """Spans of the 3D blocks: a Task002 2d training step at full width opens
+    no block3d.* span; a 3d_fullres step (the plans' remat, save_conv, on the
+    cut patch of the test above) runs in block3d.ztaps exactly the K6
+    launches kernel_launches counts for its forward, and no other K6, and
+    launches the norms' kernels in block3d.norm_act."""
+    from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
+    from csof_tpu_torch.config.plans import task002_heart_3d
+    from csof_tpu_torch.models.unet import unet_from_plans
+    from csof_tpu_torch.training.trainer import make_seg_loss
+
+    def step_of(net, batch, loss_fn):
+        def step():
+            net.zero_grad(set_to_none=True)
+            loss, _ = loss_fn(net, batch)
+            loss.backward()
+        return step
+
+    step2d = step_of(*_task002_step(cuda))
+    step2d()
+    assert not any(k and k.startswith("block3d.") for k in _kernels_by_span(step2d))
+
+    net = unet_from_plans(task002_heart_3d(), conv_impl="pallas",
+                          generator=torch.Generator().manual_seed(0)).to(cuda)
+    assert (net.remat, net.remat_policy) == (True, "save_conv")
+    per = net.kernel_launches((16, 96, 96))
+    seg = np.zeros((1, 16, 96, 96), np.int64)
+    seg[:, 4:12, 30:60, 20:70] = 1
+    rng = np.random.RandomState(0)
+    batch = {"data": torch.from_numpy((rng.randn(1, 1, 16, 96, 96) + seg[:, None])
+                                      .astype(np.float32)).to(cuda),
+             "seg": torch.from_numpy(seg).to(cuda)}
+    step3d = step_of(net, batch, make_seg_loss(
+        ExperimentConfig(model="unet3d", data=DataConfig(do_data_aug=False))))
+    step3d()
+    by_span = _kernels_by_span(step3d)
+    k6_in = {k: sum("conv3x3_kernel" in n for n in v) for k, v in by_span.items()}
+    assert k6_in.get("block3d.ztaps") == per["K6"] == 17 == sum(k6_in.values()), k6_in
+    assert by_span.get("block3d.norm_act")
+
+
 @pytest.mark.cuda
 def test_unet3d_predict_case_fits_at_its_tile_batch(cuda, tmp_path):
     """predict_case of the Task002 3d_fullres U-Net (mirror TTA, pallas) on

@@ -30,6 +30,7 @@ import numpy as np
 import pytest
 import torch
 from test_torch_unet import UNET_TOL
+from torch.profiler import ProfilerActivity, profile
 
 import csof_tpu.ops.pallas.conv as jconv
 import csof_tpu.ops.pallas.norm_act as jna
@@ -45,6 +46,7 @@ from csof_tpu_torch.models import blocks
 from csof_tpu_torch.models.unet import GenericUNet, unet_from_plans
 from csof_tpu_torch.ops.kernels import conv as k6
 from csof_tpu_torch.training import trainer
+from csof_tpu_torch.utils import profiling
 
 SMALL3D = dict(num_classes=3, base_num_features=4, pool_kernel_sizes=((1, 2, 2), (2, 2, 2)),
                conv_kernel_sizes=((1, 3, 3), (3, 3, 3), (3, 3, 3)))
@@ -293,3 +295,43 @@ def test_trainer_builds_and_steps_unet3d_with_fused_norm_set(tmp_path, monkeypat
     net = trainer.build_model(cfg, 3)
     assert net.num_pool == 4 and net.base_num_features == 16
     assert net.conv_kernel_sizes == [(3, 3, 3)] * 5 and not net.remat
+
+
+def _spans(prof) -> list:
+    """(name, start, end) of the csof: spans of a profile."""
+    return [(e.name[len(profiling.SPAN_PREFIX):], e.time_range.start, e.time_range.end)
+            for e in prof.events() if e.name.startswith(profiling.SPAN_PREFIX)]
+
+
+def _inside(spans: list, name: str, outer: str) -> int:
+    """How many ``name`` spans lie inside an ``outer`` span."""
+    outs = [(s, e) for n, s, e in spans if n == outer]
+    return sum(any(lo <= s and e <= hi for lo, hi in outs) for n, s, e in spans if n == name)
+
+
+@pytest.mark.parametrize("remat", [True, False], ids=["save_conv", "remat_off"])
+def test_a_3d_train_step_opens_the_ztaps_and_norm_act_spans(tmp_path, monkeypatch, remat):
+    """Under pallas, each routed 3D block opens block3d.ztaps and every 3D
+    block block3d.norm_act inside train.forward; save_conv (the plans'
+    default) opens block3d.norm_act once more a block inside train.backward,
+    in its recompute. An evaluation and a forward without grad open none."""
+    monkeypatch.setenv("CSOF_CONV2D_IMPL", "pallas")
+    cfg = texp.ExperimentConfig(model="unet3d", data=texp.DataConfig(do_data_aug=False))
+    tr = trainer.Trainer(cfg, tmp_path, plans=_plans(tplans), device="cpu").initialize()
+    convs = [m for m in tr.model.modules() if isinstance(m, blocks.ConvNormAct)]
+    for m in convs:
+        m.remat_norm_act = remat
+    routed = 4  # level 0's two encoder and two decoder blocks; level 1 is 16 wide
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        loss, _ = tr.run_iteration(_batch())
+    spans = _spans(prof)
+    assert np.isfinite(loss)
+    assert sum(n == "block3d.ztaps" for n, _, _ in spans) == routed
+    assert _inside(spans, "block3d.ztaps", "train.forward") == routed
+    assert _inside(spans, "block3d.norm_act", "train.forward") == len(convs) == 10
+    assert _inside(spans, "block3d.norm_act", "train.backward") == (len(convs) if remat else 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        tr.run_iteration(_batch(), train=False)
+        with torch.no_grad():
+            tr.model(torch.from_numpy(_input()))
+    assert _spans(prof) == []
