@@ -62,11 +62,16 @@ Phases, each printed on its own line:
 12. unet throughput: slices/s of predict_2d_stack (host clock, median of 5)
    and the CUDA-event time of one batch-32 forward.
 13. unet train kernels: K6's backward (Conv3x3Function: dx by K6 on the
-   flipped weight, dw and db by the library) against autograd of the plain
-   version at the 4 distinct dx shapes of a Task002 2d training step (batch
-   40) and ragged shapes across the tile edges, float32 and bfloat16; the
-   dx time beside the plain version's and cuDNN's dgrad
-   (torch.nn.grad.conv2d_input) and the bounds. Then K7 and K7 dx (the
+   flipped weight, dw by K6 dw, db by the library) against autograd of the
+   plain version at the 4 distinct dx shapes of a Task002 2d training step
+   (batch 40) and ragged shapes across the tile edges, float32 and
+   bfloat16; the dx time beside the plain version's and cuDNN's dgrad
+   (torch.nn.grad.conv2d_input) and the bounds. Then K6 dw
+   (csrc/conv3x3_wgrad.cu) against the float64 plain twin at every call
+   shape of a Task002 2d step (batch 40) and of the benchmark's 3d_fullres
+   step (160 and 80 folded planes) and the ragged ones, twice for the same
+   bits, and its time at those shapes beside the plain twin's, the library's
+   torch.nn.grad.conv2d_weight and the bound. Then K7 and K7 dx (the
    native norm and activation, csrc/inorm_lrelu.cu) at the 26 blocks of a
    training step (batch 40): y, mean, rstd, dz and the per-plane sums
    against the plain versions in float64 (the backward on the kernel's
@@ -78,8 +83,8 @@ Phases, each printed on its own line:
    do_split -> SegPatchLoader, then Trainer.run_training of the full-width
    Task002 2d U-Net (float32, SGD-Nesterov + poly, CSOF_CONV2D_IMPL=pallas)
    at batch 40 x 320x256: 2 epochs x 6 steps + 2 validation batches;
-   finite losses, a fg-dice in the log, 7 K6 + 6 K6-dx + 26 K7 + 26 K7-dx
-   launches per step (7 K6 + 26 K7 a validation batch), the checkpoint
+   finite losses, a fg-dice in the log, 7 K6 + 6 K6-dx + 7 K6-dw + 26 K7 +
+   26 K7-dx launches per step (7 K6 + 26 K7 a validation batch), the checkpoint
    triad written and reloaded; train slices/s.
 15. unet train parity: full width, batch 2 of 320x256, float32: the GPU
    loss and every parameter gradient against the CPU's.
@@ -103,7 +108,7 @@ Phases, each printed on its own line:
    off and on; a float32 forward at the same widths GPU vs CPU.
 18. segflow pallas train: Trainer steps at 4 x 6 x 128^2, bf16, concat +
    deep supervision, the switch read by build_model (off, then on): 16 K1 +
-   16 K2, and 55 K6 + 52 K6 dx a step under pallas; host clock both ways;
+   16 K2, and 55 K6 + 52 K6 dx + 55 K6 dw a step under pallas; host clock both ways;
    then the float32 loss and every gradient GPU vs CPU at (1, 4, 128, 128).
 19. segflow modes: split + fuse_q_hoist, project, mean1, the linear
    decoder and remat, each one loss forward + backward at full width, batch
@@ -129,7 +134,7 @@ Phases, each printed on its own line:
    fused_cm: 136 K3 a cine; the Flow, Registered and Segmentation files),
    csof_torch_train on the Task002 2d U-Net (the default config,
    augmentation on, CSOF_CONV2D_IMPL=pallas, 1 epoch x 4 steps at batch 40
-   x 320x256: 7 K6 + 6 K6 dx + 26 K7 + 26 K7 dx a step), --validation-only
+   x 320x256: 7 K6 + 6 K6 dx + 7 K6 dw + 26 K7 + 26 K7 dx a step), --validation-only
    (summary.json; 7 K6 + 26 K7 a forward),
    csof_torch_predict on 2 cases with both kernel switches (26 K5 + 7 K6 a
    forward), csof_torch_evaluate and csof_torch_ensemble on those outputs;
@@ -166,7 +171,7 @@ Phases, each printed on its own line:
    synthetic cases of 115 x 320 x 232 at its spacing (written, cropped and
    preprocessed): csof_torch_train (SGD-Nesterov + poly, clip 12, 3 steps + 1
    validation batch, pallas, CSOF_FUSED_NORM=1 set): 17 K6 a forward and 16
-   K6 dx a step, in the z taps; then Trainer steps with the switch off and
+   K6 dx and 17 K6 dw a step, in the z taps; then Trainer steps with the switch off and
    on and remat at its default (save_conv) and off: host ms a step and peak
    device memory.
 25. unet3d serving: csof_torch_predict on 2 of those cases with mirror TTA
@@ -176,7 +181,7 @@ Phases, each printed on its own line:
    tiles x 8.
 26. unet3d parity: the 3d_fullres U-Net's float32 logits of one 80x192x160
    patch GPU vs CPU (MODEL_TOL), and the loss and every gradient of a
-   training step on 1 x 32x96x96 (17 K6 + 16 dx), the CPU replaying the
+   training step on 1 x 32x96x96 (17 K6 + 16 dx + 17 dw), the CPU replaying the
    GPU's LeakyReLU slopes as in phase 15.
 27. unet3d kernels: K6 and K6 dx against their plain versions at every
    distinct z-tap shape phases 23-26 gave them (float32, bf16, bf16 with
@@ -373,10 +378,18 @@ UNET_TILE_BATCH = 8  # PredictorConfig's default, which predict_case serves with
 #: W), whose dx conv is (Co, Ci): Ci' 1, 13, 130 and Co' 5, 40, 128, 130
 K6_BWD_RAGGED = [(3, 13, 40, 17, 23), (2, 5, 9, 9, 70), (2, 130, 1, 17, 65),
                  (1, 128, 130, 1, 129), (2, 40, 13, 17, 1), (2, 5, 130, 1, 70)]
-#: dx, dw, db (atol as a fraction of max|ref|, rtol): the same sums in another
-#: order (float32); bf16: dx rounds once as the plain version, dw is rounded
-#: to bf16 as the JAX VJP rounds it where autograd of the plain version is not
+#: dx, db (atol as a fraction of max|ref|, rtol): the same sums in another
+#: order (float32); bf16: dx rounds once as the plain version
 K6_BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-2, 1e-2)}
+
+
+def k6_dw_tol(dtype: str, ref) -> tuple[float, float]:
+    """K6 dw against float64 of the same inputs (atol, rtol): a float32
+    3xTF32 sum (measured 4e-7 of the largest entry); bf16 rounds it once
+    (half an ulp, up to 2^-8 of the value)."""
+    return 1e-5 * float(ref.abs().max()), (1e-5 if dtype == "float32" else 2 ** -8)
+
+
 UNET_TRAIN_CASES = 4
 UNET_TRAIN_EPOCHS, UNET_TRAIN_STEPS, UNET_VAL_STEPS, UNET_TRAIN_WARMUP = 2, 6, 2, 2
 #: K4 (N, H, W, window): the SegFlow loss's B=4 x (T-1)=5 planes of 128^2 and
@@ -399,11 +412,11 @@ TRAIN_EPOCHS, TRAIN_STEPS_PER_EPOCH, TRAIN_WARMUP = 2, 7, 2
 #: package routes its Pallas conv (tests/test_torch_segflow_k6.py holds the
 #: port's count against JAX's): a serving forward of 12 frames (the
 #: encoders' level-0 convs and level 1's second, the decoders' four convs,
-#: level 2 never: 128 channels), and (forward, dx) of a concat training step
+#: level 2 never: 128 channels), and (forward, dx, dw) of a concat training step
 #: of 6 frames (the skip fuses of levels 0 and 1 too; no dx for the query
 #: encoder's first conv nor the memory encoder's first at frames 0 and 1)
 PALLAS_SERVING_K6 = 3 + 4 + 3 * T_FRAMES + 4 * (T_FRAMES - 1)
-PALLAS_TRAIN_K6 = (55, 52)
+PALLAS_TRAIN_K6 = (55, 52, 55)
 PALLAS_TRAIN_STEPS, PALLAS_TRAIN_WARMUP = 5, 2
 #: the configurations beside concat and fused_cm, phase 19
 MODES = [("split + fuse_q_hoist", dict(corr_fuse="split", fuse_q_hoist=True)),
@@ -1333,9 +1346,14 @@ def check_unet_train_kernels(card: str) -> dict:
                           *UNET_TOL[("K6", dname)])
             res["max_abs_err"] = max(res["max_abs_err"], err)
             frac, rtol = K6_BWD_TOL[dname]
-            for gname, a, r in (("dw", got[1], ref[1]), ("db", got[2], ref[2])):
-                compare("unet train kernels", f"K6 {gname} {tag}", a, r,
-                        frac * float(r.abs().max()), rtol)
+            compare("unet train kernels", f"K6 db {tag}", got[2], ref[2],
+                    frac * float(ref[2].abs().max()), rtol)
+            # dw is K6 dw's: held to the float64 plain twin (cuDNN's float32
+            # weight gradient, FFT among its algorithms, is off by up to about
+            # 2e-4 of its largest entry at a step's 819,200 pixels a call)
+            ref_dw = k6.conv3x3_dw_plain(x.detach().double(), dy.double())
+            compare("unet train kernels", f"K6 dw {tag} vs float64", got[1], ref_dw,
+                    *k6_dw_tol(dname, ref_dw))
             if not count:
                 continue
             xd, wd, dyd = x.detach(), wt.detach(), dy.contiguous()
@@ -1364,6 +1382,78 @@ def check_unet_train_kernels(card: str) -> dict:
           f"bfloat16: kernel {bf16_ms[0]:.4f} ms, plain {bf16_ms[1]:.4f} ms, conv2d_input "
           f"{bf16_ms[2]:.4f} ms, bound {bf16_bound:.4f} ms ({bf16_by}) ({card})")
     torch.cuda.synchronize()
+    return res
+
+
+def check_unet_train_dw(card: str) -> dict:
+    """Phase 13, K6 dw: the kernel pair against its float64 plain twin,
+    float32 and bfloat16, twice for the same bits, at the ragged shapes and
+    at the step's own call shapes: the 7 calls of a Task002 2d training
+    step (batch 40) and the 21 of the benchmark's 3d_fullres step (160 and
+    80 folded planes), so each split's sum is checked at the cell's length;
+    then the time of each step's calls (each shape's median times its
+    calls) of kernel, plain twin and the library's 2-D weight gradient in
+    x's dtype (what the backward called before), with the bounds."""
+    import torch
+
+    from csof_tpu_torch.bounds import (
+        UNET3D_PLANNER_DW_SHAPES,
+        UNET_K6_SHAPES,
+        UNET_TRAIN_BATCH,
+        bound_ms,
+        unet_dw_work,
+    )
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    steps = {"2d": [((UNET_TRAIN_BATCH, ci, co, h, w), n) for (ci, co, h, w), n in UNET_K6_SHAPES],
+             "3d": [((planes, ci, co, h, w), n)
+                    for (ci, co, h, w), planes, n in UNET3D_PLANNER_DW_SHAPES]}
+    res = {"max_abs_err": 0.0}
+
+    def check(x, dy, tag):
+        got = k6.conv3x3_dw_cuda(x, dy)
+        again = k6.conv3x3_dw_cuda(x, dy)
+        torch.cuda.synchronize()
+        ref = k6.conv3x3_dw_plain(x.double(), dy.double())
+        err = compare("unet train kernels", f"K6 dw {tag} vs float64", got, ref,
+                      *k6_dw_tol(str(x.dtype).removeprefix("torch."), ref))
+        expect(torch.equal(got, again), f"K6 dw {tag}: two calls gave other bits")
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).removeprefix("torch.")
+        for n, ci, co, h, w in K6_BWD_RAGGED:
+            x = torch.randn(n, ci, h, w, generator=gen, device="cuda").to(dtype)
+            dy = torch.randn(n, co, h, w, generator=gen, device="cuda").to(dtype)
+            check(x, dy, f"{dname} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, {w})")
+        for step, runs in steps.items():
+            total = [0.0, 0.0, 0.0]
+            for (n, ci, co, h, w), count in runs:
+                x = torch.randn(n, ci, h, w, generator=gen, device="cuda").to(dtype)
+                dy = torch.randn(n, co, h, w, generator=gen, device="cuda").to(dtype)
+                tag = f"{dname} {step} (N, Ci, Co, H, W)=({n}, {ci}, {co}, {h}, {w})"
+                check(x, dy, tag)
+                kern = lambda: k6.conv3x3_dw_cuda(x, dy)  # noqa: E731
+                plain = lambda: k6.conv3x3_dw_plain(x, dy)  # noqa: E731
+                lib = lambda: torch.nn.grad.conv2d_weight(  # noqa: E731
+                    x, (co, ci, 3, 3), dy, padding=1)
+                t, p = timed_pair(kern, plain, reps=5)
+                lib_ms = median_ms(lib, reps=5)
+                total = [a + count * v for a, v in zip(total, (t, p, lib_ms))]
+                phase("unet train kernels", f"K6 dw {tag} x{count} a step: kernel {t:.4f} ms, "
+                      f"plain {p:.4f} ms, torch.nn.grad.conv2d_weight {lib_ms:.4f} ms ({card})")
+                del x, dy
+                torch.cuda.empty_cache()
+            bound, by = bound_ms(*unet_dw_work(step == "3d", 4 if dtype == torch.float32 else 2))
+            key = "" if (step, dname) == ("2d", "float32") else f"{step}_{dname}_"
+            res.update({f"{key}ms": total[0], f"{key}plain_ms": total[1],
+                        f"{key}library_ms": total[2], f"{key}bound_ms": bound,
+                        f"{key}bound_by": by})
+            phase("unet train kernels", f"K6 dw, the calls of one {step} training step, {dname}: "
+                  f"kernel {total[0]:.4f} ms, plain {total[1]:.4f} ms, conv2d_weight "
+                  f"{total[2]:.4f} ms, bound {bound:.4f} ms ({by}) ({card})")
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1492,17 +1582,17 @@ def _reset_counts() -> None:
     k1, k3, k4, k5, k6 = _kernel_modules()
     k1.launches = k1.bwd_launches = k3.launches = k4.launches = k5.launches = 0
     k5.native_launches = k5.native_bwd_launches = 0
-    k6.launches = k6.bwd_launches = 0
+    k6.launches = k6.bwd_launches = k6.dw_launches = 0
 
 
 def _read_counts() -> dict:
-    """Launches of K1-K7 since ``_reset_counts`` (K7 and K7 dx: the native
-    norm and activation, which every float32 2D instance block with K5 off
-    runs on the card)."""
+    """Launches of K1-K7 since ``_reset_counts`` (K6_dw: calls of K6's
+    weight-gradient pair; K7 and K7 dx: the native norm and activation,
+    which every float32 2D instance block with K5 off runs on the card)."""
     k1, k3, k4, k5, k6 = _kernel_modules()
     return {"K1": k1.launches, "K2": k1.bwd_launches, "K3": k3.launches, "K4": k4.launches,
             "K5": k5.launches, "K6": k6.launches, "K6_dx": k6.bwd_launches,
-            "K7": k5.native_launches, "K7_dx": k5.native_bwd_launches}
+            "K6_dw": k6.dw_launches, "K7": k5.native_launches, "K7_dx": k5.native_bwd_launches}
 
 
 def unet_train_data(plans, tmp: Path) -> dict:
@@ -1573,7 +1663,8 @@ def unet_train(card: str) -> dict:
             trainer = Trainer(config, out, plans=plans, device="cuda").initialize()
             trainer.checkpoint_every = UNET_TRAIN_EPOCHS  # so that the run writes "latest"
             per_step = trainer.model.kernel_launches(sp.patch_size, backward=True)
-            expect(per_step == {"K5": 0, "K6": 7, "K7": 26, "K6_dx": 6, "K7_dx": 26},
+            expect(per_step == {"K5": 0, "K6": 7, "K7": 26, "K6_dx": 6, "K6_dw": 7,
+                                "K7_dx": 26},
                    f"per step {per_step}")
             step, event_ms, losses, lines = trainer.run_iteration, [], [], []
 
@@ -1601,7 +1692,7 @@ def unet_train(card: str) -> dict:
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             expect(len(losses) == n and all(np.isfinite(losses)), f"losses {losses}")
             want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 7 * (n + n_val),
-                    "K6_dx": 6 * n, "K7": 26 * (n + n_val), "K7_dx": 26 * n}
+                    "K6_dx": 6 * n, "K6_dw": 7 * n, "K7": 26 * (n + n_val), "K7_dx": 26 * n}
             expect(counts == want, f"launches in the U-Net train run {counts}, expected {want}")
             expect(len(hist.eval_metrics) == UNET_TRAIN_EPOCHS
                    and all(np.isfinite(hist.eval_metrics)), f"fg-dice {hist.eval_metrics}")
@@ -1659,7 +1750,7 @@ def unet_train_parity(card: str) -> None:
     seg = np.zeros((2, 320, 256), np.int32)
     seg[:, 100:200, 80:170] = 1
     data = (rng.randn(2, 1, 320, 256) + seg[:, None]).astype(np.float32)
-    grad_parity("unet train parity", cpu, data, seg, "unet2d", (7, 6), card)
+    grad_parity("unet train parity", cpu, data, seg, "unet2d", (7, 6, 7), card)
 
 
 def ncc_planes(rng: np.random.RandomState, n: int, h: int, w: int):
@@ -1899,7 +1990,7 @@ def segflow_pallas_serving(card: str) -> tuple[dict, dict]:
         ref = off(video)
         times = [host_ms(lambda m=m: m(video)) for m in (off, on, on, off)]
     expect(counts == {"K1": 34, "K2": 0, "K3": 34, "K4": 0, "K5": 0, "K6": want["K6"],
-                      "K6_dx": 0, "K7": 0, "K7_dx": 0},
+                      "K6_dx": 0, "K6_dw": 0, "K7": 0, "K7_dx": 0},
            f"launches of one forward under pallas: {counts}")
     for key in ("seg_logits", "cum_flow", "registered"):
         expect(bool(torch.isfinite(out[key]).all()), f"non-finite {key} under pallas")
@@ -1983,9 +2074,11 @@ def segflow_pallas_train(card: str) -> tuple[dict, dict]:
                                       reps=PALLAS_TRAIN_STEPS, warmup=0)
             expect(all(np.isfinite(losses)), f"{switch}: losses {losses}")
             want = trainer.model.kernel_launches(TRAIN_T, TRAIN_HW, backward=True)
-            k6 = (want["K6"], want["K6_dx"]) if switch == "pallas" else (0, 0)
+            k6 = ((want["K6"], want["K6_dx"], want["K6_dw"]) if switch == "pallas"
+                  else (0, 0, 0))
             expect(counts == {"K1": CORR_PER_STEP, "K2": CORR_PER_STEP, "K3": 0, "K4": 0,
-                              "K5": 0, "K6": k6[0], "K6_dx": k6[1], "K7": 0, "K7_dx": 0},
+                              "K5": 0, "K6": k6[0], "K6_dx": k6[1], "K6_dw": k6[2], "K7": 0,
+                              "K7_dx": 0},
                    f"{switch}: launches of one step {counts}")
             phase("segflow pallas train", f"{switch}: step ({TRAIN_BATCH}, {TRAIN_T}, "
                   f"{TRAIN_HW}, {TRAIN_HW}, 1) bf16 concat + deep supervision: launches "
@@ -1993,7 +2086,8 @@ def segflow_pallas_train(card: str) -> tuple[dict, dict]:
                   f"{PALLAS_TRAIN_STEPS} steps; losses {losses[0]:.5f} -> {losses[-1]:.5f} "
                   f"({card})")
             pallas_counts = counts
-    expect((want["K6"], want["K6_dx"]) == PALLAS_TRAIN_K6, f"kernel_launches {want}")
+    expect((want["K6"], want["K6_dx"], want["K6_dw"]) == PALLAS_TRAIN_K6,
+           f"kernel_launches {want}")
 
     config32 = ExperimentConfig(segflow=SegFlowModelConfig(deep_supervision=True,
                                                            dtype="float32"),
@@ -2009,7 +2103,8 @@ def segflow_pallas_train(card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     counts = _read_counts()
     want = gpu.kernel_launches(4, 128, backward=True)
-    expect((counts["K6"], counts["K6_dx"]) == (want["K6"], want["K6_dx"]),
+    expect((counts["K6"], counts["K6_dx"], counts["K6_dw"])
+           == (want["K6"], want["K6_dx"], want["K6_dw"]),
            f"float32 step: launches {counts}, expected {want}")
     loss_cpu, _ = loss_fn(cpu, {k: torch.from_numpy(v) for k, v in small.items()})
     loss_cpu.backward()
@@ -2054,8 +2149,9 @@ def segflow_modes(card: str) -> dict:
             total[k] = total.get(k, 0) + v
         want = gpu.kernel_launches(4, 128, backward=True)
         # remat runs each step's forward again in the backward: K1 twice
-        expect((counts["K6"], counts["K6_dx"]) == (want["K6"], want["K6_dx"]) and counts["K1"]
-               == counts["K2"] * (2 if cfg.remat else 1) > 0,
+        expect((counts["K6"], counts["K6_dx"], counts["K6_dw"])
+               == (want["K6"], want["K6_dx"], want["K6_dw"])
+               and counts["K1"] == counts["K2"] * (2 if cfg.remat else 1) > 0,
                f"{name}: launches {counts}, expected {want}")
         loss_cpu, _ = loss_fn(cpu, {k: torch.from_numpy(v) for k, v in batch.items()})
         loss_cpu.backward()
@@ -2403,7 +2499,8 @@ def cli_phase(card: str) -> dict:
         run("csof_torch_train unet2d", cli.train_entry,
             ["-c", tmp / "unet.yaml", "-p", pre, "-o", tmp / "unet"],
             {"K6": 7 * (CLI_UNET_STEPS + CLI_UNET_VAL), "K6_dx": 6 * CLI_UNET_STEPS,
-             "K7": 26 * (CLI_UNET_STEPS + CLI_UNET_VAL), "K7_dx": 26 * CLI_UNET_STEPS},
+             "K6_dw": 7 * CLI_UNET_STEPS, "K7": 26 * (CLI_UNET_STEPS + CLI_UNET_VAL),
+             "K7_dx": 26 * CLI_UNET_STEPS},
             CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
         unet_fold = tmp / "unet" / "fold_0"
         expect((unet_fold / "model_final_checkpoint.pt").is_file()
@@ -2736,6 +2833,7 @@ def data_plane_phase(card: str, record3d: dict, tail: dict,
                 ["-c", tmp / "unet.yaml", "-p", a, "-o", tmp / "unet"],
                 {"K6": per_train["K6"] * (DP_STEPS + DP_VAL),
                  "K6_dx": per_train["K6_dx"] * DP_STEPS,
+                 "K6_dw": per_train["K6_dw"] * DP_STEPS,
                  "K7": per_train["K7"] * (DP_STEPS + DP_VAL),
                  "K7_dx": per_train["K7_dx"] * DP_STEPS},
                 CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
@@ -2801,7 +2899,8 @@ def data_plane_3d(card: str, run, root: Path, tmp: Path, served: list, record: d
     with conv_shapes(record):
         run("csof_torch_train unet3d planned", cli.train_entry,
             ["-c", tmp / "unet3d.yaml", "-p", root, "-o", tmp / "unet3d"],
-            {"K6": per["K6"] * (DP_STEPS + DP_VAL), "K6_dx": per["K6_dx"] * DP_STEPS},
+            {"K6": per["K6"] * (DP_STEPS + DP_VAL), "K6_dx": per["K6_dx"] * DP_STEPS,
+             "K6_dw": per["K6_dw"] * DP_STEPS},
             CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="1")
     fold = tmp / "unet3d" / "fold_0"
     expect((fold / "model_final_checkpoint.pt").is_file(), "3D U-Net fold not written")
@@ -2899,7 +2998,8 @@ def unet3d_train(card: str, tmp: Path, root: Path) -> tuple[dict, Path]:
     plans = Plans.from_json(root / "plans_3D.json")
     sp = plans.fullres_stage()
     per = unet_from_plans(plans, conv_impl="pallas").kernel_launches(sp.patch_size, True)
-    expect(per == {"K5": 0, "K6": U3_K6, "K7": 0, "K6_dx": U3_K6_DX, "K7_dx": 0},
+    expect(per == {"K5": 0, "K6": U3_K6, "K7": 0, "K6_dx": U3_K6_DX, "K6_dw": U3_K6,
+                   "K7_dx": 0},
            f"3d_fullres launches {per}")
     cfg = ExperimentConfig(model="unet3d", max_num_epochs=1, num_batches_per_epoch=U3_STEPS,
                            num_val_batches_per_epoch=U3_VAL,
@@ -2910,7 +3010,8 @@ def unet3d_train(card: str, tmp: Path, root: Path) -> tuple[dict, Path]:
     torch.cuda.reset_peak_memory_stats()
     run_command(counts, "unet3d train", "csof_torch_train unet3d", cli.train_entry,
                 ["-c", tmp / "unet3d.yaml", "-p", root, "-o", tmp / "unet3d"],
-                {"K6": U3_K6 * (U3_STEPS + U3_VAL), "K6_dx": U3_K6_DX * U3_STEPS}, card,
+                {"K6": U3_K6 * (U3_STEPS + U3_VAL), "K6_dx": U3_K6_DX * U3_STEPS,
+                 "K6_dw": U3_K6 * U3_STEPS}, card,
                 CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="1")
     fold = tmp / "unet3d" / "fold_0"
     log = "\n".join(line for lines in read_training_logs(fold) for line in lines)
@@ -2947,8 +3048,8 @@ def unet3d_train(card: str, tmp: Path, root: Path) -> tuple[dict, Path]:
                     times.append((time.perf_counter() - t0) * 1e3)
                     losses.append(loss)
                 got = {k: v for k, v in _read_counts().items() if v}
-            want = ({"K6": U3_K6 * U3_TIMED, "K6_dx": U3_K6_DX * U3_TIMED}
-                    if switch == "pallas" else {})
+            want = ({"K6": U3_K6 * U3_TIMED, "K6_dx": U3_K6_DX * U3_TIMED,
+                     "K6_dw": U3_K6 * U3_TIMED} if switch == "pallas" else {})
             expect(got == want and all(np.isfinite(losses)),
                    f"{switch}, remat {label}: launches {got}, expected {want}; losses {losses}")
             phase("unet3d train", f"Trainer step ({sp.batch_size}, 1, {sp.patch_size}) float32, "
@@ -3073,7 +3174,7 @@ def leaky_slopes(masks: list, replay: bool, flips: list, sites=None):
 
 
 def grad_parity(label: str, cpu, data: np.ndarray, seg: np.ndarray, model: str,
-                want: tuple[int, int], card: str) -> None:
+                want: tuple[int, int, int], card: str) -> None:
     """The float32 loss and every gradient of make_seg_loss, GPU kernels vs
     CPU plain versions, every leaf within GRAD_TOL and the loss within
     LOSS_RTOL. A LeakyReLU input within rounding of 0 can take the other
@@ -3101,12 +3202,12 @@ def grad_parity(label: str, cpu, data: np.ndarray, seg: np.ndarray, model: str,
                              for k, p in m.named_parameters()}
 
     masks, flips = [], []
-    before = (k6.launches, k6.bwd_launches)
+    before = (k6.launches, k6.bwd_launches, k6.dw_launches)
     with leaky_slopes(masks, False, flips):
         a, g_gpu = grads(gpu, "cuda")
     torch.cuda.synchronize()
-    got = (k6.launches - before[0], k6.bwd_launches - before[1])
-    expect(got == want, f"the GPU step ran {got} K6 and K6 dx, expected {want}")
+    got = (k6.launches - before[0], k6.bwd_launches - before[1], k6.dw_launches - before[2])
+    expect(got == want, f"the GPU step ran {got} K6, K6 dx and K6 dw, expected {want}")
     with leaky_slopes(masks, True, flips):
         b, g_cpu = grads(cpu, "cpu")
     expect(len(flips) == len(masks), f"{len(flips)} LeakyReLUs replayed of {len(masks)}")
@@ -3170,7 +3271,8 @@ def unet3d_parity(card: str, record: dict) -> None:
     seg[:, 8:24, 30:70, 25:65] = 1
     data = (rng.randn(1, 1, *U3_PARITY_PATCH) + seg[:, None]).astype(np.float32)
     with conv_shapes(record):
-        grad_parity("unet3d parity", train, data, seg, "unet3d", (U3_K6, U3_K6_DX), card)
+        grad_parity("unet3d parity", train, data, seg, "unet3d", (U3_K6, U3_K6_DX, U3_K6),
+                    card)
 
 
 def check_unet3d_kernels(card: str, record: dict) -> dict:
@@ -4265,7 +4367,7 @@ def generative_phase(card: str, dev: dict) -> tuple[dict, dict]:
             expect(got == {k: v for k, v in want.items() if v},
                    f"{name} {kind}: launches {got}, kernel_launches {want}")
             d = dev[name][kind]
-            keys = ("K6", "K6_dx", "K7", "K7_dx")
+            keys = ("K6", "K6_dx", "K6_dw", "K7", "K7_dx")
             expect({k: d[k] for k in keys} == {k: got.get(k, 0) for k in keys},
                    f"{name} {kind}: device events {d}, wrapper {got}")
             counts[f"generative {name} {kind}"] = got
@@ -4533,7 +4635,7 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
         u_loss_p = unet_plain.run_iteration(unet_batch)[0]
         unet_counts = take()
         per = unet_plain.model.kernel_launches(sp.patch_size, backward=True)
-        expect(unet_counts == {k: 2 * per[k] for k in ("K6", "K6_dx", "K7", "K7_dx")}
+        expect(unet_counts == {k: 2 * per[k] for k in ("K6", "K6_dx", "K6_dw", "K7", "K7_dx")}
                and per["K7"] == per["K7_dx"] == 26,
                f"U-Net launches {unet_counts}, expected {per} a step")
         expect(abs(u_loss_d - u_loss_p) <= LOSS_RTOL * abs(u_loss_p),
@@ -4648,6 +4750,7 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
                            cli.train_entry, ["-c", dp_tmp / "unet.yaml", "-p", dp_root, "-o", out],
                            {"K6": per["K6"] * (DP_STEPS + DP_VAL),
                             "K6_dx": per["K6_dx"] * DP_STEPS,
+                            "K6_dw": per["K6_dw"] * DP_STEPS,
                             "K7": per["K7"] * (DP_STEPS + DP_VAL),
                             "K7_dx": per["K7_dx"] * DP_STEPS}, card,
                            CSOF_CONV2D_IMPL="pallas", CSOF_FUSED_NORM="0")
@@ -4703,7 +4806,7 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
           f"(host clock medians of 21, {os.cpu_count()} CPUs, threads a call "
           f"{native.bindings.threads_for(1, got[0].size)} and "
           f"{native.bindings.threads_for(len(clip), clip.size)})")
-    for k in ("K1", "K2", "K5", "K6", "K6_dx", "K7", "K7_dx"):
+    for k in ("K1", "K2", "K5", "K6", "K6_dx", "K6_dw", "K7", "K7_dx"):
         expect(total.get(k, 0) > 0, f"phase 35 never launched {k}: {total}")
     return total
 
@@ -4779,6 +4882,7 @@ def main() -> int:
     del unet, unet_cpu
     torch.cuda.empty_cache()
     kernels["K6_dx"] = check_unet_train_kernels(card)
+    kernels["K6_dw"] = check_unet_train_dw(card)
     kernels.update(check_unet_norm_kernels(card))
     unet_train_counts = unet_train(card)
     unet_train_parity(card)
@@ -4879,7 +4983,7 @@ def main() -> int:
                 for name, c in tail_counts.items()}, **fam_counts, **gen_counts,
              "parallel": par_counts}
     by_path = {k: {path: c.get(k, 0) for path, c in paths.items()}
-               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx", "K7", "K7_dx")}
+               for k in ("K1", "K2", "K3", "K4", "K5", "K6", "K6_dx", "K6_dw", "K7", "K7_dx")}
     sources = {
         "K1": ("local_correlation", "csof_tpu_torch/csrc/corr.cu",
                "csof_tpu/ops/pallas/corr.py:131", None),
@@ -4902,6 +5006,10 @@ def main() -> int:
         "K6_dx": ("conv3x3_dx", "csof_tpu_torch/csrc/conv3x3.cu",
                   "csof_tpu/ops/pallas/conv.py:229",
                   "torch.nn.grad.conv2d_input(x.shape, w, dy, padding=1) (cuDNN dgrad)"),
+        "K6_dw": ("conv3x3_dw", "csof_tpu_torch/csrc/conv3x3_wgrad.cu",
+                  "none: the weight gradient the JAX package's K6 VJP "
+                  "(csof_tpu/ops/pallas/conv.py:223) leaves to XLA",
+                  "torch.nn.grad.conv2d_weight(x, w.shape, dy, padding=1) in x's dtype"),
         "K7": ("instance_norm_leaky_relu_native", "csof_tpu_torch/csrc/inorm_lrelu.cu",
                "none: the port's own fusion of leaky_relu(InstanceNorm(z)), the path the JAX "
                "package runs with CSOF_FUSED_NORM=0",

@@ -69,6 +69,14 @@ UNET3D_K6_SHAPES = [((1, 32, 192, 160), 1), ((32, 32, 192, 160), 4), ((64, 32, 1
                     ((64, 64, 96, 80), 6), ((128, 64, 96, 80), 3)]
 UNET3D_K6_DX_SHAPES = [((32, 32, 192, 160), 4), ((32, 64, 192, 160), 3), ((64, 64, 96, 80), 6),
                        ((64, 128, 96, 80), 3)]
+#: K6 dw in one training step of the 3d_fullres plan nnU-Net v1's planner
+#: gives Task02 (3x3x3 kernels at every level, pools 4 x (2,2,2) then
+#: (1,2,2); the benchmark's unet3d-train-b2) at batch 2: the 7 routed convs
+#: x 3 z taps, as ((Ci, Co, H, W), planes, launches): level 0 on 2 x 80
+#: planes of 192x160, level 1 on 2 x 40 of 96x80
+UNET3D_PLANNER_DW_SHAPES = [((1, 32, 192, 160), 160, 3), ((32, 32, 192, 160), 160, 6),
+                            ((64, 32, 192, 160), 160, 3), ((64, 64, 96, 80), 80, 6),
+                            ((128, 64, 96, 80), 80, 3)]
 
 
 def bound_ms(nbytes: float, fp32_flops: float, tc_flops: float = 0.0,
@@ -159,6 +167,28 @@ def conv3x3_work(n: int, h: int, w: int, cin: int, cout: int, itemsize: int,
     flops = 2 * 9 * cin * cout * px
     nbytes = px * (cin + cout) * itemsize + (9 * cin + bias) * cout * 4
     return (nbytes, 0.0, flops, 0.0) if itemsize == 2 else (nbytes, 0.0, 0.0, 3 * flops)
+
+
+def conv3x3_dw_work(n: int, h: int, w: int, cin: int, cout: int,
+                    itemsize: int) -> tuple[float, float, float, float]:
+    """K6 dw: the weight gradient of that conv, x and dy -> the float32
+    (Co, Ci, 3, 3) dw, as (bytes, FP32 FLOPs, bf16 tensor-core FLOPs, TF32
+    FLOPs): the forward's multiply-adds, the same roundings' units."""
+    px = n * h * w
+    flops = 2 * 9 * cin * cout * px
+    nbytes = px * (cin + cout) * itemsize + 9 * cin * cout * 4
+    return (nbytes, 0.0, flops, 0.0) if itemsize == 2 else (nbytes, 0.0, 0.0, 3 * flops)
+
+
+def unet_dw_work(three_d: bool = False, itemsize: int = 4) -> tuple[float, ...]:
+    """K6 dw's work summed over the calls of one training step: the Task002
+    2d U-Net at batch 40 (7 calls, K6's forward shapes), or with
+    ``three_d`` the benchmark's 3d_fullres plan at batch 2 (21 calls)."""
+    if three_d:
+        return _summed([(conv3x3_dw_work(planes, h, w, ci, co, itemsize), n)
+                        for (ci, co, h, w), planes, n in UNET3D_PLANNER_DW_SHAPES])
+    return _summed([(conv3x3_dw_work(UNET_TRAIN_BATCH, h, w, ci, co, itemsize), n)
+                    for (ci, co, h, w), n in UNET_K6_SHAPES])
 
 
 def _summed(works) -> tuple[float, ...]:
@@ -260,6 +290,11 @@ def rows() -> list[tuple[str, str, float, str]]:
                                  "step (batch 2)")):
         out.append((name, f"f32 as 3xTF32, {what}", *bound_ms(*unet3d_work(name))))
         out.append((name, f"note: bf16, {what}", *bound_ms(*unet3d_work(name, 2))))
+    for three_d, what in ((False, "the 7 calls of one Task002 2d U-Net training step (batch 40, "
+                                  "320x256)"),
+                          (True, "the 21 z-tap calls of one training step of the v1 planner's "
+                                 "Task02 3d_fullres plan (batch 2, 80x192x160)")):
+        out.append(("K6_dw", f"f32 as 3xTF32, {what}", *bound_ms(*unet_dw_work(three_d))))
     for name, backward in (("K7", False), ("K7_dx", True)):
         out.append((name, "f32, the 26 launches of one Task002 2d U-Net training step (batch 40, "
                     "320x256)", *bound_ms(*unet_native_work(backward))))

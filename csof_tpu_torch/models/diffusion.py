@@ -147,8 +147,8 @@ class DenoiserUNet(nn.Module):
         return self.Conv_0(h).movedim(1, -1)
 
     def kernel_launches(self, width: int, backward: bool = False) -> dict[str, int]:
-        """K6 (and with ``backward`` K6 dx) launches of a forward on inputs
-        ``width`` pixels wide; the first conv's input is the data, whose
+        """K6 (and with ``backward`` K6 dx and dw) launches of a forward on
+        inputs ``width`` pixels wide; the first conv's input is the data, whose
         gradient the backward never takes."""
         n = len(self.cfg.features)
         convs = [(getattr(self, f"ConvNormAct_{2 * i + j}"), i, i == 0 and j == 0)

@@ -90,8 +90,9 @@ class KLAutoencoder(nn.Module):
         return {"reconstruction": self.decode(z), "mu": mu, "logvar": logvar, "kl": kl}
 
     def kernel_launches(self, width: int, backward: bool = False) -> dict[str, int]:
-        """K6 (and with ``backward`` K6 dx) launches of a forward, or of a
-        ``decode`` to images ``width`` pixels wide (the encoder runs none)."""
+        """K6 (and with ``backward`` K6 dx and dw) launches of a forward, or
+        of a ``decode`` to images ``width`` pixels wide (the encoder runs
+        none)."""
         w = width
         for _ in self.features:
             w = (w - 1) // 2 + 1  # a 4x4 stride-2 conv padded (1, 2)
@@ -213,13 +214,15 @@ class ControlledDenoiserUNet(nn.Module):
         of a ControlNet step, which differentiates the control branch alone:
         the first control conv takes the data, and the base's level-0 convs
         come before the first control joins it, so none of their inputs
-        takes a gradient."""
+        takes a gradient; the base's weights are frozen, so K6 dw runs on
+        the control convs alone."""
         n = len(self.cfg.features)
         convs = [(getattr(self, f"control_enc_{i}"), i, i == 0) for i in range(n)]
         convs += [(getattr(self, f"base_enc{j}_{i}"), i, i == 0)
                   for i in range(n) for j in ("", "2")]
         convs += [(getattr(self, f"base_dec_{i}"), n - 2 - i, False) for i in range(n - 1)]
-        return routed_counts(conditioned_launches(convs, width, self.cfg.features), backward)
+        return routed_counts(conditioned_launches(convs, width, self.cfg.features), backward,
+                             trained=[i < n for i in range(len(convs))])
 
 
 def controlnet_param_labels(model: nn.Module) -> dict[str, str]:

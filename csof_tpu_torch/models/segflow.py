@@ -96,14 +96,17 @@ def routed_launches(blocks) -> dict[str, int]:
             "K6": sum(t * b.uses_k6(w) for b, w, t in blocks)}
 
 
-def routed_counts(convs, backward: bool = False) -> dict[str, int]:
-    """K5 and K6 (and with ``backward`` K6 dx) launches of ``convs``:
-    (ConvNormAct, input width, whether its input needs a gradient) triples,
-    each called once; a routed conv's dx runs where its input needs a
-    gradient."""
+def routed_counts(convs, backward: bool = False, trained=None) -> dict[str, int]:
+    """K5 and K6 (and with ``backward`` K6 dx and K6 dw) launches of
+    ``convs``: (ConvNormAct, input width, whether its input needs a
+    gradient) triples, each called once; a routed conv's dx runs where its
+    input needs a gradient, its dw where its weight does (``trained``: one
+    bool a conv; by default every weight)."""
     out = routed_launches([(block, w, 1) for block, w, _ in convs])
     if backward:
         out["K6_dx"] = sum(block.uses_k6(w) and grad for block, w, grad in convs)
+        out["K6_dw"] = sum(block.uses_k6(w) and t for (block, w, _), t in
+                           zip(convs, [True] * len(convs) if trained is None else trained))
     return out
 
 
@@ -517,8 +520,9 @@ class SegFlow(nn.Module):
         also ``K6_dx``: one dx for each K6 conv whose input needs a
         gradient, which is every one but the query encoder's first (its
         input is the video) and the memory encoder's first at frames 0 and
-        1 (their input holds no flow yet); under ``remat`` the backward runs
-        each step's forward again, so the step's K5 and K6 count twice."""
+        1 (their input holds no flow yet), and ``K6_dw``: one dw for each
+        K6 conv of the forward; under ``remat`` the backward runs each
+        step's forward again, so the step's K5 and K6 count twice."""
         levels = len(self.cfg.out_encoder_dims)
         widths = [width]
         for _ in range(levels - 1):
@@ -555,6 +559,7 @@ class SegFlow(nn.Module):
                 count(sf.ConvNormAct_0, widths[lvl], t if lvl == levels - 1 else t - 1)
         count(step.ConvNormAct_0, widths[-1], t)
         decoder(step.flow_decoder, t - 1)
+        dw = k6
         if backward and self.cfg.remat:
             k5, k6 = 2 * k5 - outside[0], 2 * k6 - outside[1]
-        return {"K5": k5, "K6": k6, **({"K6_dx": dx} if backward else {})}
+        return {"K5": k5, "K6": k6, **({"K6_dx": dx, "K6_dw": dw} if backward else {})}

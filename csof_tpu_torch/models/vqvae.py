@@ -115,8 +115,8 @@ class VQVAE(nn.Module):
         return aux
 
     def kernel_launches(self, width: int, backward: bool = False) -> dict[str, int]:
-        """K6 (and with ``backward`` K6 dx) launches of a forward on images
-        ``width`` pixels wide: the decoder's convs at width / 2^k ... width,
+        """K6 (and with ``backward`` K6 dx and dw) launches of a forward on
+        images ``width`` pixels wide: the decoder's convs at width / 2^k ... width,
         each input reached by the straight-through gradient."""
         n = len(self.features)
         w = width

@@ -52,6 +52,8 @@ _SIGNATURES = {
     "csof_inorm_lrelu_backward": [_P] * 9 + [_I] * 6 + [_F, _P],
     # x, packed w, bias, out, N, Ci, H, W, Co, nb, dtype_code, out_f32, dx, stream
     "csof_conv3x3_forward": [_P] * 4 + [_I] * 9 + [_P],
+    # x, dy, partial, dw, N, Ci, H, W, Co, splits, dtype_code, stream
+    "csof_conv3x3_wgrad": [_P] * 4 + [_I] * 7 + [_P],
     # pred, target, cc, loss, planes, C, H, W, window, eps, dtype_code,
     # threads, tile_cols, band_rows, smem, stream
     "csof_ncc_forward": [_P] * 4 + [_I] * 5 + [_F] + [_I] * 5 + [_P],

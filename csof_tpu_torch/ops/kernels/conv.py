@@ -14,8 +14,11 @@ bias ``(Co,)`` float32 (the module's parameters).
 The backward follows ``_conv3x3_cols_vjp_bwd``: the cotangent cast to x's
 dtype; dx is the same kernel on the spatially flipped, in/out-transposed
 weight (no bias, rounded to x's dtype); dw is the weight gradient of a plain
-convolution in x's dtype (left to the library, as the JAX package leaves it
-to XLA); db is the cotangent summed in the dtype, then cast to float32.
+convolution in x's dtype, summed in float32 and rounded once to the dtype
+(the JAX package leaves it to XLA), which on a CUDA tensor is the kernel
+pair K6 dw (``csrc/conv3x3_wgrad.cu``: split over the pixels, then the
+splits summed in a fixed order; ``wgrad_plan``); db is the cotangent summed
+in the dtype, then cast to float32.
 
 The wrapper packs the weight once per call (``pack_weight``), as tensor ops,
 into the order the kernel's shared-memory descriptors read: in x's dtype
@@ -25,6 +28,9 @@ counterpart of the JAX package's ``w2`` transpose outside its kernel.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +42,12 @@ from csof_tpu_torch.ops.kernels.corr import _DTYPE_CODES, _acc, dtype_code
 launches = 0
 #: launches of the CUDA kernel as a backward (dx) since the last reset
 bwd_launches = 0
+#: calls of the weight-gradient kernel pair (K6 dw) since the last reset
+dw_launches = 0
+
+#: K6 dw's chunk of pixels: output rows x columns of one plane
+#: (csrc/conv3x3_wgrad.cu kGTR and kGTW: change the three together)
+WGRAD_TILE = (2, 32)
 
 
 def conv3x3_worthwhile(kernel_size, stride, ci: int, co: int, w: int | None = None) -> bool:
@@ -157,10 +169,98 @@ def conv3x3_dx_plain(dy, weight):
     return conv3x3_plain(dy, flipped_weight(weight))
 
 
+class WgradPlan(NamedTuple):
+    """How one K6 dw call covers its work: blocks of ``channels`` input
+    channels x ``co_block`` output channels, and the ``chunks`` pixel chunks
+    (``WGRAD_TILE`` rows x columns of one plane, plane-major, then rows,
+    then columns) cut into ``splits`` runs, one a block; ``scratch`` float32
+    partial sums (splits x Co x Ci x 9)."""
+
+    channels: int
+    co_block: int
+    tiles: int
+    row_tiles: int
+    col_tiles: int
+    chunks: int
+    splits: int
+    scratch: int
+
+    def split_chunks(self, s: int) -> range:
+        """The chunks split ``s`` sums, as the kernel computes them."""
+        return range(self.chunks * s // self.splits, self.chunks * (s + 1) // self.splits)
+
+    def chunk_origin(self, q):
+        """(plane, first row, first column) of chunk ``q`` (an int or an
+        integer array), as the kernel decodes it."""
+        t = q // self.col_tiles
+        return (t // self.row_tiles, t % self.row_tiles * WGRAD_TILE[0],
+                q % self.col_tiles * WGRAD_TILE[1])
+
+
+def wgrad_plan(n: int, ci: int, co: int, h: int, w: int, dtype: torch.dtype,
+               sms: int = 132) -> WgradPlan:
+    """K6 dw's plan for x (n, ci, h, w) and dy (n, co, h, w): 8 input
+    channels a block where Ci <= 8, else 16; 32 output channels where a
+    float32 Co <= 32 (dy's hi and lo parts stacked in the 64 rows of one
+    wgmma), else 64; the chunks split into as many runs as leave one block
+    for each of the ``sms`` multiprocessors (a block fills one), at least
+    one and at most one a chunk."""
+    if min(n, ci, co, h, w) <= 0:
+        raise ValueError(f"empty conv: x ({n}, {ci}, {h}, {w}), Co {co}")
+    channels = 8 if ci <= 8 else 16
+    co_block = 32 if dtype == torch.float32 and co <= 32 else 64
+    tiles = -(-ci // channels) * -(-co // co_block)
+    row_tiles, col_tiles = -(-h // WGRAD_TILE[0]), -(-w // WGRAD_TILE[1])
+    chunks = n * row_tiles * col_tiles
+    splits = max(1, min(sms // tiles, chunks, 65535))
+    return WgradPlan(channels, co_block, tiles, row_tiles, col_tiles, chunks, splits,
+                     splits * co * ci * 9)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def conv3x3_dw_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """K6 dw on the current stream of x's device: x (N, Ci, H, W) and dy
+    (N, Co, H, W), contiguous, both float32 or both bfloat16 -> dw (Co, Ci,
+    3, 3) float32 (bf16: rounded once to bf16). Two launches: the split
+    sums into scratch, then their sum in split order."""
+    global dw_launches
+    if not x.is_cuda or x.dtype not in _DTYPE_CODES or dy.dtype != x.dtype:
+        raise TypeError(f"x and dy must be float32 or bfloat16 CUDA tensors of one dtype, got "
+                        f"{x.dtype} on {x.device} and {dy.dtype}")
+    if (x.dim() != 4 or dy.dim() != 4 or not x.is_contiguous() or not dy.is_contiguous()
+            or dy.device != x.device):
+        raise ValueError(f"x and dy must be contiguous (N, C, H, W) tensors on one device, got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)}")
+    n, ci, h, w = x.shape
+    co = dy.shape[1]
+    if dy.shape != (n, co, h, w) or min(n, ci, co, h, w) <= 0:
+        raise ValueError(f"dy must be (N, Co, H, W) of x's N, H, W, nothing empty; got "
+                         f"{tuple(x.shape)}, {tuple(dy.shape)}")
+    plan = wgrad_plan(n, ci, co, h, w, x.dtype, _sm_count(x.device.index))
+    scratch = torch.empty(plan.scratch, dtype=torch.float32, device=x.device)
+    dw = torch.empty((co, ci, 3, 3), dtype=torch.float32, device=x.device)
+    _build.cuda_call("csof_conv3x3_wgrad", x.device, x.data_ptr(), dy.data_ptr(),
+                     scratch.data_ptr(), dw.data_ptr(), n, ci, h, w, co, plan.splits,
+                     dtype_code(x))
+    dw_launches += 1
+    return dw
+
+
+def conv3x3_dw_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """K6 dw in plain PyTorch: the weight gradient of the 3x3 conv summed in
+    float32 (float64 for float64 input) and rounded once to x's dtype."""
+    co, ci = dy.shape[1], x.shape[1]
+    return torch.nn.grad.conv2d_weight(_acc(x), (co, ci, 3, 3), _acc(dy), padding=1).to(x.dtype)
+
+
 class Conv3x3Function(torch.autograd.Function):
-    """K6 with its backward: the kernel in both directions on CUDA tensors,
-    the plain versions on CPU tensors (so the CPU runs exactly the dx formula
-    the kernel is held against).
+    """K6 with its backward: the kernels (K6, K6 dx, K6 dw) on CUDA tensors,
+    the plain versions on CPU tensors (so the CPU runs exactly the dx and dw
+    formulas the kernels are held against).
 
     ``Conv3x3Function.apply(x, weight, bias, out_f32)``; bias may be None."""
 
@@ -182,7 +282,7 @@ class Conv3x3Function(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = (conv3x3_dx_cuda if dy.is_cuda else conv3x3_dx_plain)(dy, weight)
         if ctx.needs_input_grad[1]:
-            dw = torch.nn.grad.conv2d_weight(x, weight.shape, dy, padding=1).to(weight.dtype)
+            dw = (conv3x3_dw_cuda if dy.is_cuda else conv3x3_dw_plain)(x, dy).to(weight.dtype)
         if ctx.has_bias and ctx.needs_input_grad[2]:
             db = dy.sum((0, 2, 3)).to(weight.dtype)
         return dx, dw, db, None
@@ -190,5 +290,5 @@ class Conv3x3Function(torch.autograd.Function):
 
 def conv3x3(x, weight, bias=None, out_f32=False):
     """(N, Ci, H, W) -> (N, Co, H, W), differentiable. A CUDA tensor runs
-    kernel K6 (forward and dx); a CPU tensor runs its plain version."""
+    kernel K6 (forward, dx and dw); a CPU tensor runs its plain versions."""
     return Conv3x3Function.apply(x, weight, bias, out_f32)

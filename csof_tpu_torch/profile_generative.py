@@ -222,7 +222,8 @@ def build_case(name: str, conv_impl: str, device, small: bool = False, seed: int
                        lambda: seg_apply(net, batch["source"]),
                        lambda: step_fn(state, batch)[1]["seg_loss"], net.kernel_launches((h, w)),
                        {"K5": 0, "K6": 4 * per["K6"], "K6_dx": 2 * per["K6_dx"],
-                        "K7": 4 * per["K7"], "K7_dx": 2 * per["K7_dx"]}, batch)
+                        "K6_dw": 2 * per["K6_dw"], "K7": 4 * per["K7"],
+                        "K7_dx": 2 * per["K7_dx"]}, batch)
     if name == "policy":
         pol = policy_search.PolicyNet(generator=gen).to(dev)
         x = _data(rng, dev, b, GEN_HW, GEN_HW, 1)
@@ -246,7 +247,7 @@ def sample_ldm(case: GenCase, generator=None) -> torch.Tensor:
 
 
 def generative_launches(reps: int = 3) -> dict:
-    """{run: {"forward" | "step": {"K6", "K6_dx", "K7", "K7_dx": device
+    """{run: {"forward" | "step": {"K6", "K6_dx", "K6_dw", "K7", "K7_dx": device
     kernels of one call, "want", "wall_ms", "events", "busy_ms"}}} under
     pallas, on the
     card: one trace of one call (``device_events``, warm-up included) gives
@@ -273,6 +274,7 @@ def generative_launches(reps: int = 3) -> dict:
             out.setdefault(name, {})[kind] = {
                 "K6": sum("conv3x3_kernel" in e.name for e in events),
                 "K6_dx": sum("conv3x3_dx_kernel" in e.name for e in events),
+                "K6_dw": sum("conv3x3_wgrad_kernel" in e.name for e in events),
                 "K7": sum("inorm_lrelu_fwd" in e.name for e in events),
                 "K7_dx": sum("inorm_lrelu_bwd" in e.name for e in events),
                 "want": want, "wall_ms": statistics.median(times), "events": len(events),

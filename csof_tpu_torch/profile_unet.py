@@ -60,6 +60,7 @@ BATCH_3D, TRAIN_BATCH_3D, PATCH_3D = 8 * TILE_BATCH_3D, 2, (80, 192, 160)
 TRAIN_GROUPS = [
     ("K6 dx (conv3x3_dx_kernel)", ("conv3x3_dx_kernel",)),
     ("K6 forward (conv3x3_kernel)", ("conv3x3_kernel",)),
+    ("K6 dw (conv3x3_wgrad_kernel, its reduce)", ("conv3x3_wgrad",)),
     ("K7 dx (inorm_lrelu_bwd_*)", ("inorm_lrelu_bwd",)),
     ("K7 (inorm_lrelu_fwd_*)", ("inorm_lrelu_fwd",)),
     ("cuDNN dgrad", ("dgrad",)),

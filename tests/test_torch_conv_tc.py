@@ -1,6 +1,7 @@
 """K6 on the tensor cores, the parts a CPU can check: the wrapper's weight
-packing (the order the kernel's shared-memory descriptors read) and the
-numerics of the 3xTF32 route, emulated here in numpy.
+packing (the order the kernel's shared-memory descriptors read), the
+numerics of the 3xTF32 route, emulated here in numpy, and K6 dw's split
+plan (which pixels and channels each block of the weight gradient sums).
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``). These
 tests hold what surrounds it: that the packed weight holds exactly the
@@ -9,6 +10,9 @@ forward's weight and the dx's flipped weight, and that three TF32 products
 float32 tolerance K6 is held to on the card, where a single TF32 pass does
 not.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -140,3 +144,51 @@ def test_k6_bound_counts_float32_as_three_tf32_products(kernel, train, ms, fp32_
     assert got == pytest.approx(ms, abs=5e-4)
     note, note_by = bounds.fp32_cores_note(work)
     assert note_by == "operations" and note == pytest.approx(fp32_ms, abs=5e-4)
+
+
+#: K6 dw's calls (N, Ci, Co, H, W): the two cells' folded planes (the 3-D
+#: cell's z taps at 2 x 80 planes of 192x160 and 2 x 40 of 96x80, the 2-D
+#: cell's 40 of 320x256 and 160x128), then Ci 1 and Ci off the channel
+#: block, H and W off the chunk, N*H*W off the split, one pixel
+WGRAD_CALLS = [(160, 1, 32, 192, 160), (160, 32, 32, 192, 160), (160, 64, 32, 192, 160),
+               (80, 64, 64, 96, 80), (80, 128, 64, 96, 80), (40, 1, 32, 320, 256),
+               (40, 32, 32, 320, 256), (40, 64, 32, 320, 256), (40, 64, 64, 160, 128),
+               (40, 128, 64, 160, 128), (3, 13, 40, 17, 23), (2, 130, 5, 1, 33),
+               (7, 20, 33, 19, 45), (1, 8, 130, 33, 1), (2, 1, 1, 1, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,ci,co,h,w", WGRAD_CALLS)
+def test_wgrad_plan_covers_every_pixel_and_channel_once(n, ci, co, h, w, dtype):
+    """K6 dw's plan: the splits' runs of chunks partition the chunks, the
+    chunks (2 rows x 32 columns of a plane) cover every pixel of the N
+    planes exactly once, the channel blocks every (Co, Ci) pair once, the
+    grid fits the card's 132 SMs where the blocks allow, and the scratch
+    is one float32 (Co, Ci, 3, 3) partial a split. The chunk's shape is
+    the kernel's own (``kGTR`` x ``kGTW`` in ``csrc/conv3x3_wgrad.cu``)."""
+    src = (Path(k6.__file__).parents[2] / "csrc" / "conv3x3_wgrad.cu").read_text()
+    tile = {k: int(v) for k, v in re.findall(r"constexpr int (kGTR|kGTW) = (\d+);", src)}
+    assert (tile["kGTR"], tile["kGTW"]) == k6.WGRAD_TILE
+    plan = k6.wgrad_plan(n, ci, co, h, w, dtype)
+    runs = [plan.split_chunks(s) for s in range(plan.splits)]
+    assert runs[0].start == 0 and runs[-1].stop == plan.chunks
+    assert all(a.stop == b.start for a, b in zip(runs, runs[1:]))
+    assert all(len(r) >= plan.chunks // plan.splits for r in runs)
+    rows, cols = k6.WGRAD_TILE
+    plane, y0, x0 = plan.chunk_origin(np.arange(plan.chunks))
+    cover = np.zeros((n, plan.row_tiles * rows, plan.col_tiles * cols), np.int32)
+    for dy in range(rows):
+        for dx in range(cols):
+            np.add.at(cover, (plane, y0 + dy, x0 + dx), 1)
+    assert (cover == 1).all()
+    assert plan.row_tiles * rows - h < rows and plan.col_tiles * cols - w < cols
+    assert plan.channels == (8 if ci <= 8 else 16)
+    assert plan.co_block == (32 if dtype == torch.float32 and co <= 32 else 64)
+    pairs = np.zeros((co, ci), np.int32)
+    for c0 in range(0, ci, plan.channels):
+        for o0 in range(0, co, plan.co_block):
+            pairs[o0:o0 + plan.co_block, c0:c0 + plan.channels] += 1
+    assert (pairs == 1).all()
+    assert plan.tiles == -(-ci // plan.channels) * -(-co // plan.co_block)
+    assert 1 <= plan.splits <= plan.chunks and plan.tiles * plan.splits <= max(132, plan.tiles)
+    assert plan.scratch == plan.splits * co * ci * 9

@@ -721,16 +721,115 @@ def test_conv3x3_backward_kernel_matches_plain(cuda, n, ci, co, h, w, dtype):
     x.requires_grad_(True)
     wt.requires_grad_(True)
     b.requires_grad_(True)
-    before = (k6.launches, k6.bwd_launches)
+    before = (k6.launches, k6.bwd_launches, k6.dw_launches)
     got = torch.autograd.grad(k6.Conv3x3Function.apply(x, wt, b, False), (x, wt, b), dy)
     torch.cuda.synchronize()
-    assert (k6.launches, k6.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert (k6.launches, k6.bwd_launches, k6.dw_launches) == tuple(v + 1 for v in before)
     assert got[0].dtype == dtype and got[1].dtype == got[2].dtype == torch.float32
     _close(got[0], k6.conv3x3_dx_plain(dy, wt.detach()), CONV_TOL[dtype])
+    ref_dw = k6.conv3x3_dw_plain(x.detach().double(), dy.double())
+    np.testing.assert_allclose(got[1].double().cpu().numpy(), ref_dw.cpu().numpy(),
+                               rtol=DW_TOL[dtype], atol=1e-5 * float(ref_dw.abs().max()))
     if dtype == torch.float32:
         ref = torch.autograd.grad(k6.conv3x3_plain(x, wt, b), (x, wt, b), dy)
         for a, r in zip(got, ref):
             _close(a, r, (1e-4 * float(r.abs().max()), 1e-4))
+
+
+#: K6 dw (N, Ci, Co, H, W): the cells' folded planes at a few planes (the
+#: 3-D cell's levels 0 and 1, 192x160 and 96x80; the 2-D cell's 320x256 and
+#: 160x128) with their channel counts, then Ci 1 and Ci off the channel
+#: block, H and W off the 2 x 32 chunk, Co over one block, one pixel
+DW_CASES = [(4, 1, 32, 192, 160), (4, 32, 32, 192, 160), (3, 64, 32, 192, 160),
+            (4, 64, 64, 96, 80), (3, 128, 64, 96, 80), (2, 32, 32, 320, 256),
+            (2, 64, 64, 160, 128), (3, 13, 40, 17, 23), (2, 130, 5, 1, 33),
+            (1, 8, 130, 33, 1), (2, 20, 33, 19, 45), (2, 1, 1, 1, 1)]
+#: against float64 of the same inputs: float32 3xTF32 sums (measured 4e-7 of
+#: the largest entry at the cells' shapes); bf16 rounds the float32 sum once
+#: (half an ulp, up to 2^-8 of the value)
+DW_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -8}
+
+
+def _dw_inputs(cuda, n, ci, co, h, w, dtype, seed=11):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(n, ci, h, w, generator=g).to(cuda, dtype),
+            torch.randn(n, co, h, w, generator=g).to(cuda, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,ci,co,h,w", DW_CASES)
+def test_conv3x3_dw_kernel_matches_float64(cuda, n, ci, co, h, w, dtype):
+    """K6 dw (conv3x3_wgrad_kernel, then its reduce) against the float64
+    plain twin of the same inputs: float32 as 3xTF32 (four products where
+    Co <= 32), bf16 as one product, both summed in float32; one call of the
+    counter, a float32 (Co, Ci, 3, 3) result."""
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    x, dy = _dw_inputs(cuda, n, ci, co, h, w, dtype)
+    before = k6.dw_launches
+    got = k6.conv3x3_dw_cuda(x, dy)
+    torch.cuda.synchronize()
+    assert k6.dw_launches == before + 1
+    assert got.dtype == torch.float32 and got.shape == (co, ci, 3, 3)
+    ref = k6.conv3x3_dw_plain(x.double(), dy.double())
+    np.testing.assert_allclose(got.double().cpu().numpy(), ref.cpu().numpy(), rtol=DW_TOL[dtype],
+                               atol=1e-5 * float(ref.abs().max()))
+    if dtype == torch.bfloat16:  # rounded once to bf16
+        assert torch.equal(got, got.bfloat16().float())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_dw_kernel_is_deterministic(cuda, dtype):
+    """The splits are summed in a fixed order with no atomics: two calls
+    give the same bits."""
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    x, dy = _dw_inputs(cuda, 8, 32, 32, 192, 160, dtype)
+    assert torch.equal(k6.conv3x3_dw_cuda(x, dy), k6.conv3x3_dw_cuda(x, dy))
+
+
+@pytest.mark.cuda
+def test_dw_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    x, dy = _dw_inputs(cuda, 2, 8, 4, 12, 12, torch.float32)
+    with pytest.raises(TypeError):
+        k6.conv3x3_dw_cuda(x.half(), dy.half())
+    with pytest.raises(TypeError):
+        k6.conv3x3_dw_cuda(x, dy.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        k6.conv3x3_dw_cuda(x.transpose(2, 3), dy.transpose(2, 3))
+    with pytest.raises(ValueError, match="dy must be"):
+        k6.conv3x3_dw_cuda(x, dy[:, :, :6].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ci,co,dhw", [(32, 32, (6, 192, 160)), (64, 64, (5, 96, 80)),
+                                       (1, 32, (4, 64, 48))])
+def test_unet3d_k6_taps_weight_gradient_matches_conv3d_in_float64(cuda, ci, co, dhw):
+    """The 3-D route's weight gradient (a K6 dw call a z tap, each on the
+    folded planes) against F.conv3d's in float64, float32 on the card."""
+    import torch.nn.functional as F
+
+    from csof_tpu_torch.models.blocks import ConvNormAct
+    from csof_tpu_torch.ops.kernels import conv as k6
+
+    block = ConvNormAct(ci, co, 1, "instance", torch.float32,
+                        generator=torch.Generator().manual_seed(0), kernel_size=(3, 3, 3),
+                        conv_impl="pallas").to(cuda)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, ci, *dhw, generator=g).to(cuda)
+    dy = torch.randn(2, co, *dhw, generator=g).to(cuda)
+    before = k6.dw_launches
+    (dw,) = torch.autograd.grad(block._k6_taps(x), (block.Conv_0.weight,), dy)
+    torch.cuda.synchronize()
+    assert k6.dw_launches == before + 3
+    w64 = block.Conv_0.weight.detach().double().requires_grad_(True)
+    (ref,) = torch.autograd.grad(F.conv3d(x.double(), w64, padding=1), (w64,), dy.double())
+    np.testing.assert_allclose(dw.double().cpu().numpy(), ref.cpu().numpy(), rtol=1e-5,
+                               atol=1e-5 * float(ref.abs().max()))
 
 
 def _ncc_planes(n, h, w, seed=8):
@@ -1144,8 +1243,8 @@ def test_unet3d_training_step_launches_match_the_device_events(cuda):
     """The Task002 3d_fullres U-Net at full width on a cut patch (1 x
     16x96x96: level 1 is 48 wide, so K6 routes at levels 0 and 1), one
     training step under pallas: the wrappers' counts equal kernel_launches
-    (17 K6, 16 dx), and so do the conv3x3_kernel and conv3x3_dx_kernel
-    events of a traced step."""
+    (17 K6, 16 dx, 17 dw), and so do the conv3x3_kernel, conv3x3_dx_kernel
+    and conv3x3_wgrad(_reduce)_kernel events of a traced step."""
     from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
     from csof_tpu_torch.config.plans import task002_heart_3d
     from csof_tpu_torch.kernel_times import device_events
@@ -1156,7 +1255,7 @@ def test_unet3d_training_step_launches_match_the_device_events(cuda):
     net = unet_from_plans(task002_heart_3d(), conv_impl="pallas",
                           generator=torch.Generator().manual_seed(0)).to(cuda)
     per = net.kernel_launches((16, 96, 96), backward=True)
-    assert per == {"K5": 0, "K6": 17, "K7": 0, "K6_dx": 16, "K7_dx": 0}
+    assert per == {"K5": 0, "K6": 17, "K7": 0, "K6_dx": 16, "K6_dw": 17, "K7_dx": 0}
     rng = np.random.RandomState(0)
     seg = np.zeros((1, 16, 96, 96), np.int64)
     seg[:, 4:12, 30:60, 20:70] = 1
@@ -1170,14 +1269,18 @@ def test_unet3d_training_step_launches_match_the_device_events(cuda):
         loss, _ = loss_fn(net, batch)
         loss.backward()
 
-    before = (k6.launches, k6.bwd_launches)
+    before = (k6.launches, k6.bwd_launches, k6.dw_launches)
     step()
     torch.cuda.synchronize()
-    assert (k6.launches - before[0], k6.bwd_launches - before[1]) == (17, 16)
+    assert (k6.launches - before[0], k6.bwd_launches - before[1],
+            k6.dw_launches - before[2]) == (17, 16, 17)
     events, _ = device_events(step, reps=1)
     fwd = sum("conv3x3_kernel" in e.name for e in events)
     dx = sum("conv3x3_dx_kernel" in e.name for e in events)
-    assert (fwd, dx) == (per["K6"], per["K6_dx"]), (fwd, dx)
+    dw = sum("conv3x3_wgrad_kernel" in e.name for e in events)
+    dw_sum = sum("conv3x3_wgrad_reduce_kernel" in e.name for e in events)
+    assert (fwd, dx, dw, dw_sum) == (per["K6"], per["K6_dx"], per["K6_dw"], per["K6_dw"]), (
+        fwd, dx, dw, dw_sum)
 
 
 def _kernels_by_span(fn) -> dict:

@@ -533,7 +533,7 @@ def test_k6_routes_as_jax_in_the_denoisers_autoencoder_and_vqvae(monkeypatch):
     assert calls["port"] == 3
     assert abs(float(loss) - float(ref)) <= TOL * abs(float(ref))
     _grads_close(tm, {n: p.grad for n, p in tm.named_parameters()}, jgrads)
-    assert tm.kernel_launches(32, backward=True) == {"K5": 0, "K6": 3, "K6_dx": 2}
+    assert tm.kernel_launches(32, backward=True) == {"K5": 0, "K6": 3, "K6_dx": 2, "K6_dw": 3}
 
 
 def test_controlnet_step_differentiates_the_control_branch_alone(monkeypatch):
@@ -552,8 +552,9 @@ def test_controlnet_step_differentiates_the_control_branch_alone(monkeypatch):
     load_flax_params(off, params)
     rng = np.random.RandomState(87)
     t, noise = _t(rng.randint(0, CFG["timesteps"], 2), torch.int64), _t(rng.randn(*x.shape))
-    dx = {"port": 0}
+    dx = {"port": 0, "dw": 0}
     monkeypatch.setattr(k6, "conv3x3_dx_plain", _counting(dx, "port", k6.conv3x3_dx_plain))
+    monkeypatch.setattr(k6, "conv3x3_dw_plain", _counting(dx, "dw", k6.conv3x3_dw_plain))
     losses = []
     for model in (tm, off):
         opt = torch.optim.SGD(ttrain.make_controlnet_optimizer(model).params, lr=0.0)
@@ -562,6 +563,8 @@ def test_controlnet_step_differentiates_the_control_branch_alone(monkeypatch):
         losses.append(float(step(_t(x), _t(hint), t=t, noise=noise)))
         if model is tm:
             assert dx["port"] == tm.kernel_launches(32, backward=True)["K6_dx"] == 1
+            # K6 dw on the control conv alone: the base's weights are frozen
+            assert dx["dw"] == tm.kernel_launches(32, backward=True)["K6_dw"] == 1
     assert abs(losses[0] - losses[1]) <= TOL * abs(losses[1])
     labels = generative.controlnet_param_labels(tm)
     top = max(float(p.grad.abs().max()) for n, p in off.named_parameters()
@@ -583,21 +586,23 @@ def test_kernel_launches_at_the_card_geometry():
     128^2 one control conv and five base convs (6; 3 dx: its step
     differentiates the control branch alone, and the base's level-0 convs
     come before the first control joins the base), on the 32^2 latents one
-    control conv and three base convs (4; 1 dx)."""
+    control conv and three base convs (4; 1 dx). K6 dw: one a routed conv
+    whose weight trains, so the ControlNet's control conv alone."""
     cfg = diffusion.DiffusionConfig()
     den = diffusion.DenoiserUNet(cfg, conv_impl="pallas")
-    assert den.kernel_launches(128, backward=True) == {"K5": 0, "K6": 5, "K6_dx": 4}
-    assert den.kernel_launches(32, backward=True) == {"K5": 0, "K6": 3, "K6_dx": 2}
+    assert den.kernel_launches(128, backward=True) == {"K5": 0, "K6": 5, "K6_dx": 4, "K6_dw": 5}
+    assert den.kernel_launches(32, backward=True) == {"K5": 0, "K6": 3, "K6_dx": 2, "K6_dw": 3}
     cond = diffusion.DenoiserUNet(diffusion.DiffusionConfig(cond_channels=4), conv_impl="pallas")
     assert cond.kernel_launches(128) == {"K5": 0, "K6": 5}
     ae = generative.KLAutoencoder(conv_impl="pallas")
     assert ae.kernel_launches(128) == {"K5": 0, "K6": 2}
     assert vqvae.VQVAE(conv_impl="pallas").kernel_launches(128, backward=True) == {
-        "K5": 0, "K6": 2, "K6_dx": 2}
+        "K5": 0, "K6": 2, "K6_dx": 2, "K6_dw": 2}
     cn = generative.ControlledDenoiserUNet(cfg, 4, conv_impl="pallas")
-    assert cn.kernel_launches(128, backward=True) == {"K5": 0, "K6": 6, "K6_dx": 3}
+    assert cn.kernel_launches(128, backward=True) == {"K5": 0, "K6": 6, "K6_dx": 3, "K6_dw": 1}
     latent = generative.ControlledDenoiserUNet(diffusion.DiffusionConfig(channels=4), 4,
                                                conv_impl="pallas")
-    assert latent.kernel_launches(32, backward=True) == {"K5": 0, "K6": 4, "K6_dx": 1}
+    assert latent.kernel_launches(32, backward=True) == {"K5": 0, "K6": 4, "K6_dx": 1,
+                                                         "K6_dw": 1}
     assert diffusion.DenoiserUNet(cfg, conv_impl="native").kernel_launches(128) == {
         "K5": 0, "K6": 0}

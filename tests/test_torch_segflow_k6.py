@@ -60,7 +60,7 @@ def test_pallas_switch_routes_the_convs_jax_routes(mode, monkeypatch):
     cfg_kw = dict(SMALL, corr_fuse=mode, dtype="float32", scan_unroll=8)
     params = small_params(JaxConfig(**cfg_kw), seed=1)
     video = _video(seed=11, b=1, t=T, hw=HW)
-    calls = {"jax": 0, "port": 0, "port_dx": 0}
+    calls = {"jax": 0, "port": 0, "port_dx": 0, "port_dw": 0}
     monkeypatch.setattr(jconv, "conv3x3_cols_vb",
                         _counting(calls, "jax", jconv.conv3x3_cols_vb))
     jmodel = JaxSegFlow(cfg=JaxConfig(**cfg_kw))
@@ -78,6 +78,8 @@ def test_pallas_switch_routes_the_convs_jax_routes(mode, monkeypatch):
     monkeypatch.setattr(blocks, "conv3x3", _counting(calls, "port", blocks.conv3x3))
     monkeypatch.setattr(k6, "conv3x3_dx_plain", _counting(calls, "port_dx",
                                                           k6.conv3x3_dx_plain))
+    monkeypatch.setattr(k6, "conv3x3_dw_plain", _counting(calls, "port_dw",
+                                                          k6.conv3x3_dw_plain))
     model = SegFlow(SegFlowModelConfig(**cfg_kw), 4)  # the switch read from the environment
     load_flax_params(model, params)
     k6.launches = k6.bwd_launches = 0
@@ -90,6 +92,7 @@ def test_pallas_switch_routes_the_convs_jax_routes(mode, monkeypatch):
     # dx for every routed conv but the query encoder's first (the video) and
     # the memory encoder's first at frames 0 and 1 (no flow yet)
     assert calls["port_dx"] == counts["K6_dx"] == ROUTED[mode] - 1 - 2
+    assert calls["port_dw"] == counts["K6_dw"] == ROUTED[mode]  # every weight trains
     atol, rtol = TOL["float32"]
     for k in ("seg_logits", "flow", "cum_flow", "registered"):
         np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(ref[k]), atol=atol,
@@ -115,29 +118,34 @@ def test_kernel_launches_at_the_flagship_geometry():
     serving = SegFlow(SegFlowModelConfig(corr_fuse="fused_cm"), 4, conv_impl="pallas")
     assert serving.kernel_launches(12, 128) == {"K5": 0, "K6": 3 + 4 + 3 * 12 + 4 * 11}
     train = SegFlow(SegFlowModelConfig(deep_supervision=True), 4, conv_impl="pallas")
-    assert train.kernel_launches(6, 128, backward=True) == {"K5": 0, "K6": 55, "K6_dx": 52}
+    assert train.kernel_launches(6, 128, backward=True) == {"K5": 0, "K6": 55, "K6_dx": 52,
+                                                            "K6_dw": 55}
     off = SegFlow(SegFlowModelConfig(), 4, conv_impl="native")
-    assert off.kernel_launches(6, 128, backward=True) == {"K5": 0, "K6": 0, "K6_dx": 0}
-    # remat runs each step's 48 routed convs again in the backward
+    assert off.kernel_launches(6, 128, backward=True) == {"K5": 0, "K6": 0, "K6_dx": 0,
+                                                          "K6_dw": 0}
+    # remat runs each step's 48 routed convs again in the backward (K6 dw
+    # once a conv: the recompute takes no weight gradient of its own)
     remat = SegFlow(SegFlowModelConfig(remat=True), 4, conv_impl="pallas")
     assert remat.kernel_launches(6, 128, backward=True) == {"K5": 0, "K6": 55 + 48,
-                                                            "K6_dx": 52}
+                                                            "K6_dx": 52, "K6_dw": 55}
 
 
 def test_remat_counts_its_recomputed_convs(monkeypatch):
     """Under remat the backward recomputes each step (torch.utils.checkpoint):
     the routed convs the port calls in a forward + backward are
     kernel_launches(backward=True)'s."""
-    calls = {"fwd": 0, "dx": 0}
+    calls = {"fwd": 0, "dx": 0, "dw": 0}
     monkeypatch.setattr(blocks, "conv3x3", _counting(calls, "fwd", blocks.conv3x3))
     monkeypatch.setattr(k6, "conv3x3_dx_plain", _counting(calls, "dx", k6.conv3x3_dx_plain))
+    monkeypatch.setattr(k6, "conv3x3_dw_plain", _counting(calls, "dw", k6.conv3x3_dw_plain))
     model = SegFlow(SegFlowModelConfig(**dict(SMALL, corr_fuse="split", remat=True,
                                               dtype="float32")), 4, conv_impl="pallas")
     out = model(torch.from_numpy(_video(seed=2, b=1, t=T, hw=HW)))
     _scalar(out["seg_logits"], out["flow"], out["cum_flow"], out["registered"]).backward()
     counts = model.kernel_launches(T, HW, backward=True)
-    assert (calls["fwd"], calls["dx"]) == (counts["K6"], counts["K6_dx"])
-    assert counts["K6"] > model.kernel_launches(T, HW)["K6"]
+    assert (calls["fwd"], calls["dx"], calls["dw"]) == (counts["K6"], counts["K6_dx"],
+                                                        counts["K6_dw"])
+    assert counts["K6"] > model.kernel_launches(T, HW)["K6"] == counts["K6_dw"]
 
 
 def test_fused_norm_switch_runs_k5_where_jax_does(monkeypatch):

@@ -194,7 +194,7 @@ def test_conv3d_native_and_fused_norm_run_no_kernel_on_the_3d_net(params, monkey
     net = unet_from_plans(_plans(tplans))
     load_flax_params(net, params)
     assert net.kernel_launches(SHAPE[2:], backward=True) == {"K5": 0, "K6": 0, "K7": 0,
-                                                             "K6_dx": 0, "K7_dx": 0}
+                                                             "K6_dx": 0, "K6_dw": 0, "K7_dx": 0}
     k6.launches = 0
     with torch.no_grad():
         got = net(torch.from_numpy(x))
@@ -233,14 +233,19 @@ def test_unet3d_step_loss_and_every_gradient_match_jax(params, jax_step, remat, 
     loss_fn = trainer.make_seg_loss(texp.ExperimentConfig(model="unet3d"))
     tb = {"data": torch.from_numpy(batch["data"]).movedim(-1, 1).contiguous(),
           "seg": torch.from_numpy(batch["seg"])}
-    dx = {"n": 0}
-    real_dx = k6.conv3x3_dx_plain
+    dx = {"n": 0, "dw": 0}
+    real_dx, real_dw = k6.conv3x3_dx_plain, k6.conv3x3_dw_plain
 
     def counted_dx(*a):
         dx["n"] += 1
         return real_dx(*a)
 
+    def counted_dw(*a):
+        dx["dw"] += 1
+        return real_dw(*a)
+
     monkeypatch.setattr(k6, "conv3x3_dx_plain", counted_dx)
+    monkeypatch.setattr(k6, "conv3x3_dw_plain", counted_dw)
     loss, aux = loss_fn(net, tb)
     loss.backward()
     assert abs(loss.item() - ref_loss) <= LOSS_RTOL * abs(ref_loss)
@@ -251,6 +256,7 @@ def test_unet3d_step_loss_and_every_gradient_match_jax(params, jax_step, remat, 
         err = np.abs(p.grad.numpy() - ref).max()
         assert err <= GRAD_TOL * np.abs(ref).max() + 1e-6, f"{name}: {err:.2e}"
     assert dx["n"] == net.kernel_launches(SHAPE[2:], backward=True)["K6_dx"] == LAUNCHES_DX
+    assert dx["dw"] == net.kernel_launches(SHAPE[2:], backward=True)["K6_dw"] == LAUNCHES["K6"]
 
 
 @pytest.mark.parametrize("n,kernel,stride", [(1, (3, 3, 3), (1, 1, 1)), (1, (1, 3, 3), (1, 1, 1)),

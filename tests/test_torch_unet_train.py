@@ -40,7 +40,7 @@ from csof_tpu.training import trainer as jtrainer
 from csof_tpu_torch.compat.flax_import import load_flax_params
 from csof_tpu_torch.config import experiment as texp
 from csof_tpu_torch.config import plans as tplans
-from csof_tpu_torch.config.plans import task002_heart_2d
+from csof_tpu_torch.config.plans import task002_heart_2d, task002_heart_3d
 from csof_tpu_torch.data import cropping, dataset, loaders
 from csof_tpu_torch.data.preprocessing import Preprocessor
 from csof_tpu_torch.models.unet import GenericUNet, unet_from_plans
@@ -58,6 +58,9 @@ PATCH = (64, 64)
 # a library reduction over N*H*W terms against XLA's, rounded once in bf16
 DX_TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-2)}
 DW_REL = {"float32": 1e-5, "bfloat16": 1e-2}
+#: K6 dw's plain twin against float64 conv2d_weight of the same inputs: a
+#: float32 sum (float32), then one rounding to bf16 (bf16: half an ulp, 2^-9)
+DW_EXACT = {"float32": 1e-5, "bfloat16": 2 ** -8}
 #: float32 loss (relative) and gradients (|diff| <= GRAD_TOL max|leaf| + 1e-6
 #: per leaf): the same math summed in another order
 LOSS_RTOL, GRAD_TOL = 1e-5, 2e-3
@@ -164,6 +167,17 @@ def test_conv3x3_backward_matches_jax_vjp(n, ci, co, h, w, dtype):
                                rtol=DX_TOL[dtype][1])
     tol = DW_REL[dtype] * float(np.abs(rdw).max())
     np.testing.assert_allclose(wp.grad.numpy(), rdw, atol=tol, rtol=DW_REL[dtype])
+    # K6 dw's plain twin, which the card's kernel is held to: against the
+    # JAX VJP's dw, and against float64 conv2d_weight of the same inputs
+    # (float32: one float32 sum; bf16: that sum rounded once to bf16)
+    xd, dyd = xt.detach(), torch.from_numpy(dy).to(td)
+    dw = k6.conv3x3_dw_plain(xd, dyd)
+    assert dw.dtype == td and dw.shape == (co, ci, 3, 3)
+    np.testing.assert_allclose(dw.float().numpy(), rdw, atol=tol, rtol=DW_REL[dtype])
+    exact = torch.nn.grad.conv2d_weight(xd.double(), (co, ci, 3, 3), dyd.double(), padding=1)
+    np.testing.assert_allclose(dw.double().numpy(), exact.numpy(), rtol=DW_EXACT[dtype],
+                               atol=DW_EXACT[dtype] * float(exact.abs().max()))
+    assert torch.equal(k6.conv3x3_dw_plain(xd.double(), dyd.double()), exact)
 
 
 def test_conv3x3_function_gradcheck_in_float64():
@@ -236,14 +250,14 @@ def test_f8_jax_cannot_differentiate_its_pallas_conv_where_the_port_can(monkeypa
 
 
 def test_k6_forward_and_dx_launches_per_step_from_the_modules(monkeypatch):
-    """7 K6 forward and 6 K6 dx launches per Task002 2d step, counted from
-    the modules; at the small size, the plain versions' calls in one CPU
-    step equal the modules' counts."""
+    """7 K6 forward, 6 K6 dx launches and 7 K6 dw calls per Task002 2d step,
+    counted from the modules; at the small size, the plain versions' calls
+    in one CPU step equal the modules' counts."""
     net = unet_from_plans(task002_heart_2d(), conv_impl="pallas")
-    assert net.kernel_launches((320, 256), backward=True) == {"K5": 0, "K6": 7, "K7": 0, "K6_dx": 6,
-                                                       "K7_dx": 0}  # K7: on the card only
-    calls = {"plain": 0, "dx": 0}
-    plain, dx_plain = k6.conv3x3_plain, k6.conv3x3_dx_plain
+    assert net.kernel_launches((320, 256), backward=True) == {  # K7: on the card only
+        "K5": 0, "K6": 7, "K7": 0, "K6_dx": 6, "K6_dw": 7, "K7_dx": 0}
+    calls = {"plain": 0, "dx": 0, "dw": 0}
+    plain, dx_plain, dw_plain = k6.conv3x3_plain, k6.conv3x3_dx_plain, k6.conv3x3_dw_plain
 
     def counting_plain(*a, **k):
         calls["plain"] += 1
@@ -253,15 +267,45 @@ def test_k6_forward_and_dx_launches_per_step_from_the_modules(monkeypatch):
         calls["dx"] += 1
         return dx_plain(*a, **k)
 
+    def counting_dw(*a, **k):
+        calls["dw"] += 1
+        return dw_plain(*a, **k)
+
     monkeypatch.setattr(k6, "conv3x3_plain", counting_plain)
     monkeypatch.setattr(k6, "conv3x3_dx_plain", counting_dx)
+    monkeypatch.setattr(k6, "conv3x3_dw_plain", counting_dw)
     small = _port_net(_flax_params(), "pallas")
     loss, _ = trainer.make_seg_loss(_config())(small, _torch_batch(_seg_batch()))
     loss.backward()
     want = small.kernel_launches(PATCH, backward=True)
-    assert want == {"K5": 0, "K6": 7, "K7": 0, "K6_dx": 6, "K7_dx": 0}  # levels 0, 1
+    assert want == {"K5": 0, "K6": 7, "K7": 0, "K6_dx": 6, "K6_dw": 7, "K7_dx": 0}  # levels 0, 1
     # every dx runs the plain forward once, on dy
     assert (calls["plain"] - calls["dx"], calls["dx"]) == (want["K6"], want["K6_dx"])
+    assert calls["dw"] == want["K6_dw"]
+
+
+def _planner_3d():
+    """Task02's 3d_fullres plan as nnU-Net v1's planner gives it (3x3x3
+    kernels at all 6 levels, pools 4 x (2,2,2) then (1,2,2)) on the port's
+    task002_heart_3d(), whose level 0 is the JAX package's."""
+    plans = task002_heart_3d()
+    stage = plans.plans_per_stage[0]
+    stage.pool_op_kernel_sizes = [[2, 2, 2]] * 4 + [[1, 2, 2]]
+    stage.conv_kernel_sizes = [[3, 3, 3]] * 6
+    return plans
+
+
+@pytest.mark.parametrize("plans,patch,want", [
+    (task002_heart_2d, (320, 256), {"K6": 7, "K6_dx": 6, "K6_dw": 7, "K7": 0, "K7_dx": 0}),
+    (_planner_3d, (80, 192, 160), {"K6": 21, "K6_dx": 18, "K6_dw": 21, "K7": 0, "K7_dx": 0}),
+], ids=["2d", "3d_fullres"])
+def test_k6_dw_calls_per_step_from_the_modules(plans, patch, want):
+    """K6 dw calls a training step of the cells' U-Nets, counted from the
+    modules: one a routed conv's K6 launch, every weight having a gradient;
+    the 2-D plan's 7 convs at levels 0 and 1, the planner's 3-D plan's 7
+    convs there x 3 z taps (its first conv, on the data, takes no dx)."""
+    net = unet_from_plans(plans(), conv_impl="pallas")
+    assert net.kernel_launches(patch, backward=True) == {"K5": 0, **want}
 
 
 # -- the losses -------------------------------------------------------------
