@@ -304,6 +304,8 @@ from pathlib import Path
 
 import numpy as np
 
+from csof_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+
 RADIUS = 4
 BATCH = 8
 TRAIN_BATCH, TRAIN_T, TRAIN_HW = 4, 6, 128
@@ -810,9 +812,6 @@ def serve(model, card: str) -> dict:
     import torch
 
     from csof_tpu_torch.inference.flow_predictor import FlowPredictor, predict_and_export_case
-    from csof_tpu_torch.ops.kernels import conv as k6
-    from csof_tpu_torch.ops.kernels import corr as k1
-    from csof_tpu_torch.ops.kernels import norm_act as k5
     from csof_tpu_torch.ops.kernels import skipfuse as k3
 
     predictor = FlowPredictor(model, crop_size=128, device=torch.device("cuda"))
@@ -820,7 +819,7 @@ def serve(model, card: str) -> dict:
     cines = [synthetic_cine(rng) for _ in range(3)]
     props = {"spacing_after_resampling": (10.0, 1.5, 1.5)}
     with tempfile.TemporaryDirectory() as tmp:
-        k1.launches = k1.bwd_launches = k3.launches = k5.launches = k6.launches = 0
+        reset_launch_counts()
         per_request = []
         for i, cine in enumerate(cines):
             before = k3.launches
@@ -839,8 +838,9 @@ def serve(model, card: str) -> dict:
             phase("serving", f"request {i}: cine {cine.shape} -> {secs:.3f} s host clock, "
                   f"K3 launches {per_request[-1]}, classes present "
                   f"{sorted(np.unique(res['seg']).tolist())} ({card})")
-        counts = {"K1": k1.launches, "K3": k3.launches}
-    others = {"K2": k1.bwd_launches, "K5": k5.launches, "K6": k6.launches}
+        launched = launch_counts()
+    counts = {k: launched[k] for k in ("K1", "K3")}
+    others = {k: launched[k] for k in ("K2", "K5", "K6")}
     expect(others == {"K2": 0, "K5": 0, "K6": 0}, f"launched while serving: {others}")
     expect(per_request == [LAUNCHES_PER_REQUEST] * 3,
            f"K3 launches per request {per_request}, expected {LAUNCHES_PER_REQUEST}")
@@ -916,10 +916,6 @@ def train(card: str) -> dict:
 
     from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
     from csof_tpu_torch.data.loaders import VideoChunkLoader
-    from csof_tpu_torch.ops.kernels import conv as k6
-    from csof_tpu_torch.ops.kernels import corr as k1
-    from csof_tpu_torch.ops.kernels import norm_act as k5
-    from csof_tpu_torch.ops.kernels import skipfuse as k3
     from csof_tpu_torch.training import checkpoint as ckpt
     from csof_tpu_torch.training.trainer import Trainer
 
@@ -949,10 +945,9 @@ def train(card: str) -> dict:
             return loss, aux
 
         trainer.run_iteration = timed_step
-        k1.launches = k1.bwd_launches = k3.launches = k5.launches = k6.launches = 0
+        reset_launch_counts()
         hist = trainer.run_training(loader, log_fn=lambda msg: phase("train", msg))
-        counts = {"K1": k1.launches, "K2": k1.bwd_launches, "K3": k3.launches,
-                  "K5": k5.launches, "K6": k6.launches}
+        counts = {k: v for k, v in launch_counts().items() if k in ("K1", "K2", "K3", "K5", "K6")}
         n = TRAIN_EPOCHS * TRAIN_STEPS_PER_EPOCH
         expect(len(losses) == n and all(np.isfinite(losses)), f"losses {losses}")
         expect(counts == {"K1": CORR_PER_STEP * n, "K2": CORR_PER_STEP * n, "K3": 0, "K5": 0,
@@ -1183,9 +1178,7 @@ def unet_serve(model, plans, card: str) -> dict:
 
     from csof_tpu_torch.inference.predictor import predict_case
     from csof_tpu_torch.ops.kernels import conv as k6
-    from csof_tpu_torch.ops.kernels import corr as k1
     from csof_tpu_torch.ops.kernels import norm_act as k5
-    from csof_tpu_torch.ops.kernels import skipfuse as k3
     from csof_tpu_torch.utils.nifti import load_nifti, save_nifti
 
     per_forward = model.kernel_launches(plans.fullres_stage().patch_size)
@@ -1197,7 +1190,7 @@ def unet_serve(model, plans, card: str) -> dict:
         for i in range(UNET_CASES):
             files.append(Path(tmp) / f"la_{i:03d}_0000.nii.gz")
             save_nifti(synthetic_case(rng), files[-1], spacing_xyz=spacing_xyz)
-        k1.launches = k1.bwd_launches = k3.launches = k5.launches = k6.launches = 0
+        reset_launch_counts()
         forwards = 0
         for i, f in enumerate(files):
             before = (k5.launches, k6.launches)
@@ -1221,8 +1214,7 @@ def unet_serve(model, plans, card: str) -> dict:
             phase("unet serving", f"case {i}: (1, {UNET_DEPTH}, {UNET_HW[0]}, {UNET_HW[1]}) -> "
                   f"{secs:.3f} s host clock, {n_fwd} forwards, K5/K6 launches {got}, labels "
                   f"written {sorted(np.unique(seg).tolist())} ({card})")
-        counts = {"K1": k1.launches, "K2": k1.bwd_launches, "K3": k3.launches,
-                  "K5": k5.launches, "K6": k6.launches}
+        counts = {k: v for k, v in launch_counts().items() if k in ("K1", "K2", "K3", "K5", "K6")}
     expect(counts == {"K1": 0, "K2": 0, "K3": 0, "K5": 26 * forwards, "K6": 7 * forwards},
            f"launches in the U-Net serving run {counts} over {forwards} forwards")
     phase("unet serving", f"launches in the U-Net serving run: {counts} ({forwards} forwards)")
@@ -1568,33 +1560,6 @@ class _TimedIter:
         return item
 
 
-def _kernel_modules():
-    from csof_tpu_torch.ops.kernels import conv as k6
-    from csof_tpu_torch.ops.kernels import corr as k1
-    from csof_tpu_torch.ops.kernels import ncc as k4
-    from csof_tpu_torch.ops.kernels import norm_act as k5
-    from csof_tpu_torch.ops.kernels import skipfuse as k3
-
-    return k1, k3, k4, k5, k6
-
-
-def _reset_counts() -> None:
-    k1, k3, k4, k5, k6 = _kernel_modules()
-    k1.launches = k1.bwd_launches = k3.launches = k4.launches = k5.launches = 0
-    k5.native_launches = k5.native_bwd_launches = 0
-    k6.launches = k6.bwd_launches = k6.dw_launches = 0
-
-
-def _read_counts() -> dict:
-    """Launches of K1-K7 since ``_reset_counts`` (K6_dw: calls of K6's
-    weight-gradient pair; K7 and K7 dx: the native norm and activation,
-    which every float32 2D instance block with K5 off runs on the card)."""
-    k1, k3, k4, k5, k6 = _kernel_modules()
-    return {"K1": k1.launches, "K2": k1.bwd_launches, "K3": k3.launches, "K4": k4.launches,
-            "K5": k5.launches, "K6": k6.launches, "K6_dx": k6.bwd_launches,
-            "K6_dw": k6.dw_launches, "K7": k5.native_launches, "K7_dx": k5.native_bwd_launches}
-
-
 def unet_train_data(plans, tmp: Path) -> dict:
     """Synthetic Task002-like cases through the port's data plane: NIfTI
     files -> run_cropping -> Preprocessor.run -> unpack_dataset ->
@@ -1686,9 +1651,9 @@ def unet_train(card: str) -> dict:
 
             trainer.run_iteration = timed_step
             torch.cuda.reset_peak_memory_stats()
-            _reset_counts()
+            reset_launch_counts()
             hist = trainer.run_training(train_it, val_it, log_fn=log)
-            counts = _read_counts()
+            counts = launch_counts()
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
             expect(len(losses) == n and all(np.isfinite(losses)), f"losses {losses}")
             want = {"K1": 0, "K2": 0, "K3": 0, "K4": 0, "K5": 0, "K6": 7 * (n + n_val),
@@ -1855,10 +1820,10 @@ def check_ncc(card: str) -> tuple[dict, dict]:
     pa, pb = planes[20]
     moving = pa[..., None]
     fixed = pb[:1].expand_as(pb)[..., None].contiguous()
-    _reset_counts()
+    reset_launch_counts()
     value = k4.ncc_loss_kernel(moving, fixed)
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = launch_counts()
     ref = L.ncc_loss(moving, fixed)
     expect(abs(value.item() - ref.item()) <= 1e-5,
            f"ncc_loss_kernel {value.item()} vs ncc_loss {ref.item()}")
@@ -1982,11 +1947,11 @@ def segflow_pallas_serving(card: str) -> tuple[dict, dict]:
     shapes = {}
     with torch.inference_mode():
         on(video)  # warm-up
-        _reset_counts()
+        reset_launch_counts()
         with conv_shapes(shapes):
             out = on(video)
         torch.cuda.synchronize()
-        counts = _read_counts()
+        counts = launch_counts()
         ref = off(video)
         times = [host_ms(lambda m=m: m(video)) for m in (off, on, on, off)]
     expect(counts == {"K1": 34, "K2": 0, "K3": 34, "K4": 0, "K5": 0, "K6": want["K6"],
@@ -2007,10 +1972,10 @@ def segflow_pallas_serving(card: str) -> tuple[dict, dict]:
     gpu = copy.deepcopy(cpu).cuda()
     small = np.random.RandomState(1).rand(1, 3, 128, 128, 1).astype(np.float32)
     with torch.inference_mode():
-        _reset_counts()
+        reset_launch_counts()
         got = gpu(torch.from_numpy(small).cuda())
         torch.cuda.synchronize()
-        k6_n = _read_counts()["K6"]
+        k6_n = launch_counts()["K6"]
         want_cpu = cpu(torch.from_numpy(small))
     expect(k6_n == gpu.kernel_launches(3, 128)["K6"], f"float32 forward: K6 {k6_n}")
     for key in ("seg_logits", "flow", "cum_flow", "registered"):
@@ -2066,10 +2031,10 @@ def segflow_pallas_train(card: str) -> tuple[dict, dict]:
             expect({m.conv_impl for m in trainer.model.modules() if hasattr(m, "conv_impl")}
                    == {switch}, f"Trainer built SegFlow without conv_impl={switch}")
             losses = [trainer.run_iteration(batch)[0] for _ in range(PALLAS_TRAIN_WARMUP)]
-            _reset_counts()
+            reset_launch_counts()
             with conv_shapes(shapes if switch == "pallas" else {}):
                 losses.append(trainer.run_iteration(batch)[0])
-            counts = _read_counts()
+            counts = launch_counts()
             step_ms[switch] = host_ms(lambda: losses.append(trainer.run_iteration(batch)[0]),
                                       reps=PALLAS_TRAIN_STEPS, warmup=0)
             expect(all(np.isfinite(losses)), f"{switch}: losses {losses}")
@@ -2097,11 +2062,11 @@ def segflow_pallas_train(card: str) -> tuple[dict, dict]:
     gpu = copy.deepcopy(cpu).cuda()
     small = next(VideoChunkLoader(synthetic_videos(1), 4, 1, 128, seed=3))
     loss_fn = make_segflow_loss(config32)
-    _reset_counts()
+    reset_launch_counts()
     loss_gpu, _ = loss_fn(gpu, {k: torch.from_numpy(v).cuda() for k, v in small.items()})
     loss_gpu.backward()
     torch.cuda.synchronize()
-    counts = _read_counts()
+    counts = launch_counts()
     want = gpu.kernel_launches(4, 128, backward=True)
     expect((counts["K6"], counts["K6_dx"], counts["K6_dw"])
            == (want["K6"], want["K6_dx"], want["K6_dw"]),
@@ -2140,11 +2105,11 @@ def segflow_modes(card: str) -> dict:
         loss_fn = make_segflow_loss(ExperimentConfig(segflow=cfg))
         cpu = SegFlow(cfg, 4, generator=torch.Generator().manual_seed(3), conv_impl="pallas")
         gpu = copy.deepcopy(cpu).cuda()
-        _reset_counts()
+        reset_launch_counts()
         loss_gpu, _ = loss_fn(gpu, {k: torch.from_numpy(v).cuda() for k, v in batch.items()})
         loss_gpu.backward()
         torch.cuda.synchronize()
-        counts = _read_counts()
+        counts = launch_counts()
         for k, v in counts.items():
             total[k] = total.get(k, 0) + v
         want = gpu.kernel_launches(4, 128, backward=True)
@@ -2172,11 +2137,11 @@ def segflow_modes(card: str) -> dict:
     video = torch.from_numpy(batch["video"])
     k5_shapes = {}
     with torch.inference_mode():
-        _reset_counts()
+        reset_launch_counts()
         with norm_act_shapes(k5_shapes):
             got = gpu(video.cuda())
         torch.cuda.synchronize()
-        counts = _read_counts()
+        counts = launch_counts()
         ref = cpu(video)
     for k, v in counts.items():
         total[k] = total.get(k, 0) + v
@@ -2314,11 +2279,11 @@ def check_ncc_wide(card: str) -> tuple[dict, dict]:
         pa, pb = ncc_planes(rng, n, h, w)
         plan = k4.ncc_plan(n, h, w, window, 4)
         expect(plan.path == "two_pass", f"({n}, {h}, {w}) window {window}: plan {plan}")
-        _reset_counts()  # the entry points driven once; the timing launches are not counted
+        reset_launch_counts()  # the entry points driven once; the timing launches are not counted
         got = k4.ncc_map_cuda(pa, pb, window)
         loss = k4.ncc_loss_kernel(pa[..., None], pb[..., None], window)
         torch.cuda.synchronize()
-        counts = {k: counts.get(k, 0) + v for k, v in _read_counts().items()}
+        counts = {k: counts.get(k, 0) + v for k, v in launch_counts().items()}
         ref = k4.ncc_map_plain(pa, pb, window)
         err = compare("ncc wide", f"K4 two-pass map ({n}, {h}, {w}) window {window}", got, ref,
                       NCC_ATOL, 0.0)
@@ -2405,12 +2370,12 @@ def run_command(counts: dict, label: str, name: str, entry, argv: list, want: di
     import torch
 
     with env(**environ):
-        _reset_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         entry([str(a) for a in argv])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        counts[name] = {k: v for k, v in _read_counts().items() if v}
+        counts[name] = {k: v for k, v in launch_counts().items() if v}
     want = {k: v for k, v in want.items() if v}
     expect(counts[name] == want, f"{name}: launches {counts[name]}, expected {want}")
     phase(label, f"{name}: {secs:.3f} s host clock, launches {counts[name]} ({card})")
@@ -3040,14 +3005,14 @@ def unet3d_train(card: str, tmp: Path, root: Path) -> tuple[dict, Path]:
                     tr.run_iteration(b)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                _reset_counts()
+                reset_launch_counts()
                 times, losses = [], []
                 for b in batches[U3_WARMUP:]:
                     t0 = time.perf_counter()
                     loss, _ = tr.run_iteration(b)  # ends in a read of the loss
                     times.append((time.perf_counter() - t0) * 1e3)
                     losses.append(loss)
-                got = {k: v for k, v in _read_counts().items() if v}
+                got = {k: v for k, v in launch_counts().items() if v}
             want = ({"K6": U3_K6 * U3_TIMED, "K6_dx": U3_K6_DX * U3_TIMED,
                      "K6_dw": U3_K6 * U3_TIMED} if switch == "pallas" else {})
             expect(got == want and all(np.isfinite(losses)),
@@ -3435,12 +3400,12 @@ def cascade_phase(card: str, tmp: Path) -> dict:
             probs.setdefault(where, []).append(p)
             return seg
 
-        _reset_counts()
+        reset_launch_counts()
         t0 = time.perf_counter()
         cascade.predict_next_stage(predict_fn, low, tmp / f"prev_{where}", targets)
         if where == "card":
             torch.cuda.synchronize()
-            counts = {n: v for n, v in _read_counts().items() if v}
+            counts = {n: v for n, v in launch_counts().items() if v}
         phase("cascade", f"predict_next_stage, lowres U-Net with TTA on the {where}: "
               f"{time.perf_counter() - t0:.3f} s host clock")
     differ = 0
@@ -3660,10 +3625,10 @@ def raft_phase(card: str, tmp: Path, task: Path, dev: dict) -> dict:
     a, b = torch.from_numpy(im1).cuda(), torch.from_numpy(im2).cuda()
     counts = {}
     with torch.inference_mode():
-        _reset_counts()
+        reset_launch_counts()
         flows = model(a, b)
         torch.cuda.synchronize()
-        counts["raft_serving"] = {k: v for k, v in _read_counts().items() if v}
+        counts["raft_serving"] = {k: v for k, v in launch_counts().items() if v}
         expect(tuple(flows.shape) == (cfg.iters, RAFT_PAIRS, RAFT_HW, RAFT_HW, 2)
                and flows.dtype == torch.float32 and bool(torch.isfinite(flows).all()),
                f"RAFT flows {tuple(flows.shape)} {flows.dtype}")
@@ -3697,7 +3662,7 @@ def raft_phase(card: str, tmp: Path, task: Path, dev: dict) -> dict:
     sup = {"image1": im1[:TRAIN_BATCH, :TRAIN_HW, :TRAIN_HW],
            "image2": im2[:TRAIN_BATCH, :TRAIN_HW, :TRAIN_HW],
            "flow_gt": gt[:TRAIN_BATCH, :TRAIN_HW, :TRAIN_HW]}
-    _reset_counts()
+    reset_launch_counts()
     loss, aux = trainer.run_iteration(sup)
     torch.cuda.synchronize()
     expect(np.isfinite(loss) and set(aux) == {"seq_loss"}, f"supervised step: {loss} {aux}")
@@ -3756,10 +3721,10 @@ def voxelmorph_phase(card: str, tmp: Path, task: Path, dev: dict) -> dict:
     counts = {}
     with torch.inference_mode():
         c = cine.cuda()
-        _reset_counts()
+        reset_launch_counts()
         out = register_sequence(model, c)
         torch.cuda.synchronize()
-        counts["voxelmorph_sequence"] = {k: v for k, v in _read_counts().items() if v}
+        counts["voxelmorph_sequence"] = {k: v for k, v in launch_counts().items() if v}
         n = VXM_T - 1
         for k, shape in (("flow", (n, VXM_HW, VXM_HW, 2)), ("flow_inverse", (n, VXM_HW, VXM_HW, 2)),
                          ("registered", (n, VXM_HW, VXM_HW, 1))):
@@ -3850,14 +3815,14 @@ def finalflow_phase(card: str, dev: dict) -> tuple[dict, dict]:
             models[switch] = model
             want = model.kernel_launches(FF_T, FF_HW)
             with torch.inference_mode():
-                _reset_counts()
+                reset_launch_counts()
                 if switch == "pallas":
                     with conv_shapes(k6_calls), norm_act_shapes(k5_calls):
                         out = model(video)
                 else:
                     out = model(video)
                 torch.cuda.synchronize()
-                got = {k: v for k, v in _read_counts().items() if v}
+                got = {k: v for k, v in launch_counts().items() if v}
                 expect(got == {k: v for k, v in want.items() if v},
                        f"finalflow {name} {switch}: launches {got}, expected {want}")
                 if got:
@@ -4141,12 +4106,12 @@ def family_phase(card: str, dev: dict) -> tuple[dict, dict]:
                 if k7:  # K5 off: each block that runs K5 with the switches on runs K7
                     want["K7"] = k7
                 with torch.inference_mode():
-                    _reset_counts()
+                    reset_launch_counts()
                     with conv_shapes(k6_calls.setdefault((name, dtype), {})), \
                             norm_act_shapes(k5_calls.setdefault((name, dtype), {})):
                         out = model(*args)
                     torch.cuda.synchronize()
-                got = {k: v for k, v in _read_counts().items() if v}
+                got = {k: v for k, v in launch_counts().items() if v}
                 expect(got == want, f"{name} {dtype} switch {sw}: launches {got}, expected {want}")
                 if got:
                     counts[f"{name} {dtype}" + ("" if sw else " switches off")] = got
@@ -4360,10 +4325,10 @@ def generative_phase(card: str, dev: dict) -> tuple[dict, dict]:
                 continue
             rec = records.setdefault((name, kind), {})
             with torch.inference_mode(kind == "forward"), conv_shapes(rec):
-                _reset_counts()
+                reset_launch_counts()
                 out = fn()
                 torch.cuda.synchronize()
-                got = {k: v for k, v in _read_counts().items() if v}
+                got = {k: v for k, v in launch_counts().items() if v}
             expect(got == {k: v for k, v in want.items() if v},
                    f"{name} {kind}: launches {got}, kernel_launches {want}")
             d = dev[name][kind]
@@ -4380,12 +4345,12 @@ def generative_phase(card: str, dev: dict) -> tuple[dict, dict]:
                     compare_output(f"{name} float32: {k} {tuple(v.shape)} switch on vs off",
                                    outs[k], v)
         if name == "ldm":
-            _reset_counts()
+            reset_launch_counts()
             t0 = time.perf_counter()
             img = sample_ldm(case, torch.Generator(device="cuda").manual_seed(3))
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            got = {k: v for k, v in _read_counts().items() if v}
+            got = {k: v for k, v in launch_counts().items() if v}
             den, ae = case.models["denoiser"], case.models["ae"]
             want = {"K6": SAMPLE_STEPS * den.kernel_launches(32)["K6"]
                     + ae.kernel_launches(128)["K6"]}
@@ -4508,10 +4473,10 @@ def _gloo_rank(rank: int, init: str, config, batch: dict) -> dict:
     try:
         with tempfile.TemporaryDirectory() as tmp:
             tr, grads = _par_trainer(config, Path(tmp), device=torch.device("cuda", 0))
-            _reset_counts()
+            reset_launch_counts()
             loss, _ = tr.run_iteration(batch)
             torch.cuda.synchronize()
-            counts = _read_counts()
+            counts = launch_counts()
         return {"loss": loss, "mesh": tr.mesh.shape, "counts": counts,
                 "grads": {n: None if g is None else g.cpu().numpy() for n, g in grads[0].items()}}
     finally:
@@ -4548,13 +4513,13 @@ def parallel_phase(card: str, dp_root: Path, dp_tmp: Path) -> dict:
     total: dict = {}
 
     def take() -> dict:
-        got = _read_counts()
+        got = launch_counts()
         for k, v in got.items():
             total[k] = total.get(k, 0) + v
-        _reset_counts()
+        reset_launch_counts()
         return {k: v for k, v in got.items() if v}
 
-    _reset_counts()
+    reset_launch_counts()
     tmp = dp_tmp / "parallel"
     # (a), (b): the trainers without a process group first, then the group
     # SGD, so that the parameters compare: AdamW turns rounding noise in

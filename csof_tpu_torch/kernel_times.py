@@ -52,6 +52,8 @@ import time
 
 import torch
 
+from csof_tpu_torch.utils import profiling
+
 LEVELS = [(32, 128, 128, 2), (64, 64, 64, 1), (128, 32, 32, 1)]
 BATCH, TRAIN_BATCH, RADIUS = 8, 4, 4
 K4_PLANES = (20, 88)
@@ -107,8 +109,7 @@ def device_events(fn, reps: int = 10) -> tuple[list, int]:
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         events = prof.events()
-        dev = [e for e in events if e.device_type == DeviceType.CUDA and not e.is_user_annotation
-               and _SENTINEL not in e.name]
+        dev = [e for e in profiling.device_kernels(prof) if _SENTINEL not in e.name]
         launched = max(sum(e.device_type == DeviceType.CPU and e.name.startswith(_LAUNCHES)
                            for e in events) - 2, 0)  # less the two spin kernels
         if dev and kernel_count(dev) >= launched:  # launched 0: no host API calls traced

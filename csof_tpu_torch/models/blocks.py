@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import functools
 import math
+import os
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -222,6 +224,32 @@ def add_norm(parent: nn.Module, kind: str, channels: int, index: int) -> str:
 CONV_IMPLS = ("native", "pallas", "tapsum")
 
 
+class KernelSwitches(NamedTuple):
+    conv_impl: str
+    fused_norm_act: bool
+    remat_policy: str
+
+
+def kernel_switches(ndim: int, conv_impl: str | None = None, fused_norm_act: bool | None = None,
+                    remat_policy: str | None = None, remat: bool = False) -> KernelSwitches:
+    """Which kernels an ``ndim``-D net runs: each argument as given, and
+    where it is None the JAX package's switch, read from the environment as
+    it reads it. ``CSOF_CONV2D_IMPL`` (default ``native``) routes the convs;
+    a 3-D net runs K6 only in its z taps (``Conv3dVia2D``), which
+    ``CSOF_CONV3D_IMPL`` other than ``2d`` (the default) turns off;
+    ``CSOF_FUSED_NORM=1`` runs K5; ``CSOF_REMAT_POLICY`` is a U-Net's
+    recompute policy (default ``save_conv`` with ``remat``, else ``full``)."""
+    if conv_impl is None:
+        conv_impl = os.environ.get("CSOF_CONV2D_IMPL", "native")
+        if ndim == 3 and os.environ.get("CSOF_CONV3D_IMPL", "2d") != "2d":
+            conv_impl = "native"
+    if fused_norm_act is None:
+        fused_norm_act = os.environ.get("CSOF_FUSED_NORM", "0") == "1"
+    if remat_policy is None:
+        remat_policy = os.environ.get("CSOF_REMAT_POLICY", "save_conv" if remat else "full")
+    return KernelSwitches(conv_impl, fused_norm_act, remat_policy)
+
+
 class ConvNormAct(nn.Module):
     """conv -> norm -> LeakyReLU (flax ``ConvNormAct`` and
     ``_NCHWConvNormAct``: same params; per-axis kernel and stride with
@@ -238,7 +266,7 @@ class ConvNormAct(nn.Module):
       conv runs as JAX's ``Conv3dVia2D`` runs it there: one K6 launch per z
       tap (:meth:`_k6_taps`). ``CSOF_CONV3D_IMPL=native`` (JAX's plain 3D
       conv) is ``conv_impl="native"`` on a 3D block
-      (:func:`csof_tpu_torch.models.unet.conv_impl_from_env`);
+      (:func:`kernel_switches`);
     - ``fused_norm_act=True`` (``CSOF_FUSED_NORM=1``) runs InstanceNorm +
       LeakyReLU as kernel K5 on a 2D block (GroupNorm blocks and 3D blocks
       ignore it, as in JAX).

@@ -28,9 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from csof_tpu_torch.models.blocks import Conv, ConvNormAct, Dense, upsample_linear
+from csof_tpu_torch.models.blocks import Conv, ConvNormAct, Dense, upsample_linear, kernel_switches
 from csof_tpu_torch.models.segflow import routed_counts
-from csof_tpu_torch.models.unet import conv_impl_from_env
 
 
 def cosine_beta_schedule(timesteps: int, s: float = 0.008) -> np.ndarray:
@@ -105,7 +104,7 @@ class DenoiserUNet(nn.Module):
     def __init__(self, cfg: DiffusionConfig, generator=None, conv_impl: str | None = None):
         super().__init__()
         self.cfg = cfg
-        conv_impl = conv_impl or conv_impl_from_env(2)
+        conv_impl = kernel_switches(2, conv_impl).conv_impl
         feats, td = cfg.features, cfg.time_dim
         kw = dict(generator=generator, conv_impl=conv_impl)
         self.Dense_0 = Dense(td, td, generator=generator)

@@ -33,7 +33,6 @@ the transposed convs and the heads never route.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Literal
 
@@ -41,7 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from csof_tpu_torch.models.blocks import Conv, ConvNormAct
+from csof_tpu_torch.models.blocks import Conv, ConvNormAct, kernel_switches
 from csof_tpu_torch.models.convgru import ConvGRUCell
 from csof_tpu_torch.models.segflow import Decoder, Encoder, level_widths, routed_launches
 from csof_tpu_torch.models.spacetime import SpatioTemporalTransformer
@@ -90,10 +89,7 @@ class FinalFlow(nn.Module):
         if cfg.bottleneck_type not in BOTTLENECKS:
             raise ValueError(f"bottleneck_type {cfg.bottleneck_type!r} is not one of "
                              f"{BOTTLENECKS}")
-        if conv_impl is None:
-            conv_impl = os.environ.get("CSOF_CONV2D_IMPL", "native")
-        if fused_norm_act is None:
-            fused_norm_act = os.environ.get("CSOF_FUSED_NORM", "0") == "1"
+        conv_impl, fused_norm_act, _ = kernel_switches(2, conv_impl, fused_norm_act)
         routed = dict(conv_impl=conv_impl, fused_norm_act=fused_norm_act)
         self.cfg = cfg
         dt = self.compute_dtype = _DTYPES[cfg.dtype]

@@ -31,12 +31,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from csof_tpu_torch.models.blocks import Conv, ConvNormAct, Dense, upsample_linear
+from csof_tpu_torch.models.blocks import Conv, ConvNormAct, Dense, upsample_linear, kernel_switches
 from csof_tpu_torch.models.segflow import routed_counts
 from csof_tpu_torch.models.diffusion import (DDPM, DenoiserUNet, DiffusionConfig,
                                              conditioned_launches, time_embedding)
 from csof_tpu_torch.models.swin import PatchMerging, SwinStage
-from csof_tpu_torch.models.unet import conv_impl_from_env
 
 
 def _normal_like(x, generator):
@@ -52,7 +51,7 @@ class KLAutoencoder(nn.Module):
                  generator=None, conv_impl: str | None = None):
         super().__init__()
         self.features, self.latent_dim = tuple(features), latent_dim
-        conv_impl = conv_impl or conv_impl_from_env(2)
+        conv_impl = kernel_switches(2, conv_impl).conv_impl
         prev = in_channels
         for i, f in enumerate(self.features):
             self.add_module(f"enc_{i}", ConvNormAct(prev, f, 2, generator=generator,
@@ -152,7 +151,7 @@ class ControlledDenoiserUNet(nn.Module):
                  conv_impl: str | None = None):
         super().__init__()
         self.cfg = cfg
-        conv_impl = conv_impl or conv_impl_from_env(2)
+        conv_impl = kernel_switches(2, conv_impl).conv_impl
         feats, td, gen = cfg.features, cfg.time_dim, generator
         kw = dict(generator=gen, conv_impl=conv_impl)
         self.base_time0 = Dense(td, td, generator=gen)

@@ -24,7 +24,6 @@ counts both.
 
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 
 import torch
@@ -32,7 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from csof_tpu_torch.models.attention import sine_pos_embed_2d
-from csof_tpu_torch.models.blocks import Conv, Dense, LayerNorm
+from csof_tpu_torch.models.blocks import Conv, Dense, LayerNorm, kernel_switches
 from csof_tpu_torch.models.segflow import Decoder, Encoder, routed_launches
 from csof_tpu_torch.models.spacetime import MultiHeadDotProductAttention
 from csof_tpu_torch.models.swin import PatchMerging, SwinStage
@@ -135,10 +134,7 @@ class MTLModel(nn.Module):
             raise ValueError(f"dtype must be one of {sorted(_DTYPES)}, got {cfg.dtype!r}")
         if cfg.encoder not in ("conv", "swin"):
             raise ValueError(f"encoder must be 'conv' or 'swin', got {cfg.encoder!r}")
-        if conv_impl is None:
-            conv_impl = os.environ.get("CSOF_CONV2D_IMPL", "native")
-        if fused_norm_act is None:
-            fused_norm_act = os.environ.get("CSOF_FUSED_NORM", "0") == "1"
+        conv_impl, fused_norm_act, _ = kernel_switches(2, conv_impl, fused_norm_act)
         routed = dict(conv_impl=conv_impl, fused_norm_act=fused_norm_act)
         self.cfg, self.num_classes = cfg, num_classes
         dt = self.compute_dtype = _DTYPES[cfg.dtype]

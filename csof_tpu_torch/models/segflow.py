@@ -39,7 +39,6 @@ blocks' InstanceNorm + LeakyReLU as kernel K5 (``norm="instance"``).
 
 from __future__ import annotations
 
-import os
 
 import torch
 from torch import nn
@@ -53,6 +52,7 @@ from csof_tpu_torch.models.blocks import (
     ConvTranspose,
     Dense,
     add_norm,
+    kernel_switches,
     leaky_relu,
     upsample_linear,
 )
@@ -432,10 +432,7 @@ class SegFlow(nn.Module):
         if cfg.out_encoder_dims[-1] != cfg.d_model:
             raise ValueError("SegFlow carries the bottleneck features as the next step's "
                              "attention input, so out_encoder_dims[-1] must equal d_model")
-        if conv_impl is None:
-            conv_impl = os.environ.get("CSOF_CONV2D_IMPL", "native")
-        if fused_norm_act is None:
-            fused_norm_act = os.environ.get("CSOF_FUSED_NORM", "0") == "1"
+        conv_impl, fused_norm_act, _ = kernel_switches(2, conv_impl, fused_norm_act)
         routed = dict(conv_impl=conv_impl, fused_norm_act=fused_norm_act)
         self.cfg, self.num_classes = cfg, num_classes
         dt = compute_dtype(cfg)

@@ -24,13 +24,12 @@ decoder's per-frame input is 4-D in JAX too).
 
 from __future__ import annotations
 
-import os
-
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from csof_tpu_torch.models.attention import sine_pos_embed_2d
+from csof_tpu_torch.models.blocks import kernel_switches
 from csof_tpu_torch.models.segflow import Decoder, Encoder, routed_launches
 from csof_tpu_torch.models.spacetime import (
     MultiHeadDotProductAttention,
@@ -51,10 +50,7 @@ class TemporalVideoSegModel(nn.Module):
                  generator: torch.Generator | None = None, conv_impl: str | None = None,
                  fused_norm_act: bool | None = None):
         super().__init__()
-        if conv_impl is None:
-            conv_impl = os.environ.get("CSOF_CONV2D_IMPL", "native")
-        if fused_norm_act is None:
-            fused_norm_act = os.environ.get("CSOF_FUSED_NORM", "0") == "1"
+        conv_impl, fused_norm_act, _ = kernel_switches(2, conv_impl, fused_norm_act)
         routed = dict(conv_impl=conv_impl, fused_norm_act=fused_norm_act)
         self.dims, self.d_model, self.video_length = tuple(out_encoder_dims), d_model, video_length
         self.compute_dtype = dtype

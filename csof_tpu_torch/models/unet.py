@@ -17,7 +17,6 @@ from its saved conv output; the parameters are the same either way.
 
 from __future__ import annotations
 
-import os
 from typing import Sequence
 
 import torch
@@ -25,21 +24,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from csof_tpu_torch.config.plans import Plans
-from csof_tpu_torch.models.blocks import Conv, ConvTranspose, StackedConvs
+from csof_tpu_torch.models.blocks import Conv, ConvTranspose, StackedConvs, kernel_switches
 
 MAX_FILTERS_2D = 480
 MAX_FILTERS_3D = 320
 REMAT_POLICIES = ("full", "save_conv")
-
-
-def conv_impl_from_env(ndim: int) -> str:
-    """The conv route the JAX package's switches select for an ``ndim``-D
-    U-Net: ``CSOF_CONV2D_IMPL`` (default ``native``); a 3D net runs its
-    Pallas conv only inside ``Conv3dVia2D``, which ``CSOF_CONV3D_IMPL``
-    other than ``2d`` (the default) turns off."""
-    if ndim == 3 and os.environ.get("CSOF_CONV3D_IMPL", "2d") != "2d":
-        return "native"
-    return os.environ.get("CSOF_CONV2D_IMPL", "native")
 
 
 class GenericUNet(nn.Module):
@@ -185,24 +174,20 @@ def unet_from_plans(plans: Plans, stage: int | None = None, deep_supervision: bo
                     remat_policy: str | None = None, in_channels: int | None = None,
                     generator: torch.Generator | None = None) -> GenericUNet:
     """Build the network the plans prescribe (the fullres stage unless
-    ``stage`` is given). ``fused_norm_act`` and ``conv_impl`` default to the
-    JAX package's switches, read the same way: ``CSOF_FUSED_NORM=1`` and
-    :func:`conv_impl_from_env`, so one setting selects the same path in both
-    packages. ``remat`` defaults to on for 3-D plans, with the policy
-    ``CSOF_REMAT_POLICY`` names (default ``save_conv`` there, else
+    ``stage`` is given). ``fused_norm_act``, ``conv_impl`` and
+    ``remat_policy`` default to the JAX package's switches, read the same
+    way (:func:`~csof_tpu_torch.models.blocks.kernel_switches`), so one
+    setting selects the same path in both packages. ``remat`` defaults to on
+    for 3-D plans, where the policy defaults to ``save_conv`` (else
     ``full``), as in JAX. ``in_channels`` overrides the plans' modality
     count (the cascade's fullres stage takes the previous stage's one-hot
     channels beside them)."""
     sp = plans.stage(stage) if stage is not None else plans.fullres_stage()
     ndim = len(sp.conv_kernel_sizes[0])
-    if fused_norm_act is None:
-        fused_norm_act = os.environ.get("CSOF_FUSED_NORM", "0") == "1"
-    if conv_impl is None:
-        conv_impl = conv_impl_from_env(ndim)
     if remat is None:
         remat = ndim == 3
-    if remat_policy is None:
-        remat_policy = os.environ.get("CSOF_REMAT_POLICY", "save_conv" if remat else "full")
+    conv_impl, fused_norm_act, remat_policy = kernel_switches(ndim, conv_impl, fused_norm_act,
+                                                              remat_policy, remat)
     return GenericUNet(
         num_classes=plans.num_classes_with_background,
         in_channels=plans.num_modalities if in_channels is None else in_channels,

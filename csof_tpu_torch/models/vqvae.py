@@ -20,9 +20,8 @@ import math
 import torch
 from torch import nn
 
-from csof_tpu_torch.models.blocks import Conv, ConvNormAct
+from csof_tpu_torch.models.blocks import Conv, ConvNormAct, kernel_switches
 from csof_tpu_torch.models.segflow import routed_counts
-from csof_tpu_torch.models.unet import conv_impl_from_env
 
 
 @contextlib.contextmanager
@@ -83,7 +82,7 @@ class VQVAE(nn.Module):
                  conv_impl: str | None = None):
         super().__init__()
         self.features = tuple(features)
-        conv_impl = conv_impl or conv_impl_from_env(2)
+        conv_impl = kernel_switches(2, conv_impl).conv_impl
         prev = in_channels
         for i, f in enumerate(self.features):
             self.add_module(f"ConvNormAct_{i}", ConvNormAct(prev, f, 2, "group",

@@ -142,15 +142,6 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, name: str) -> None:
-    """Raise if a C entry returned a CUDA error code (cudaGetLastError after
-    its launches): a refused launch never runs, and a later synchronize would
-    not report it."""
-    if err != 0:
-        msg = load_library().csof_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")
-
-
 def _current_stream(index: int) -> int:
     """The raw handle of device ``index``'s current stream, without the
     ``torch.cuda.Stream`` object ``current_stream()`` builds."""
@@ -162,9 +153,14 @@ def cuda_call(name: str, device: torch.device, *args) -> None:
     """Call the C entry ``name`` with ``args`` and the current stream of the
     CUDA ``device`` (an index is set), under a device guard only where it is
     not the current device (the guard and the stream object are most of a
-    small launch's host time), and raise on a launch error."""
+    small launch's host time). Raise if the entry returns a CUDA error code
+    (cudaGetLastError after its launches): a refused launch never runs, and
+    a later synchronize would not report it. ``load_library`` is looked up
+    on every call, so that a recorder put in its place sees every launch."""
     guard = (contextlib.nullcontext() if device.index == torch.cuda.current_device()
              else torch.cuda.device(device))
     with guard:
         err = getattr(load_library(), name)(*args, _current_stream(device.index))
-    check(err, name)
+    if err != 0:
+        msg = load_library().csof_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

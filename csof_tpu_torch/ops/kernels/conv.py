@@ -134,15 +134,10 @@ def _launch(x, weight, bias, out_f32, dx=False):
         raise ValueError(f"batch {n} out of range for one launch, or an empty input")
     out = torch.empty((n, co, h, w), dtype=torch.float32 if out_f32 else x.dtype,
                       device=x.device)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        packed, nb = pack_weight(weight, x.dtype, dx)
-        err = lib.csof_conv3x3_forward(
-            x.data_ptr(), packed.data_ptr(), None if bias is None else bias.data_ptr(),
-            out.data_ptr(), n, ci, h, w, co, nb, dtype_code(x), int(out_f32), int(dx),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "csof_conv3x3_forward")
+    packed, nb = pack_weight(weight, x.dtype, dx)
+    _build.cuda_call("csof_conv3x3_forward", x.device, x.data_ptr(), packed.data_ptr(),
+                     None if bias is None else bias.data_ptr(), out.data_ptr(), n, ci, h, w,
+                     co, nb, dtype_code(x), int(out_f32), int(dx))
     return out
 
 

@@ -96,16 +96,13 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def launch_corr(q: torch.Tensor, m: torch.Tensor, radius: int, stride: int) -> torch.Tensor:
-    """K1 on checked inputs (``check_pair``), on the current stream, with q's
-    device current."""
+    """K1 on checked inputs (``check_pair``), on the current stream of q's
+    device."""
     global launches
     b, c, h, w = q.shape
     out = torch.empty((b, (2 * radius + 1) ** 2, h, w), dtype=q.dtype, device=q.device)
-    err = _build.load_library().csof_corr_forward(
-        q.data_ptr(), m.data_ptr(), out.data_ptr(), b, c, h, w, radius, stride,
-        dtype_code(q), torch.cuda.current_stream().cuda_stream,
-    )
-    _build.check(err, "csof_corr_forward")
+    _build.cuda_call("csof_corr_forward", q.device, q.data_ptr(), m.data_ptr(), out.data_ptr(),
+                     b, c, h, w, radius, stride, dtype_code(q))
     launches += 1
     return out
 
@@ -113,8 +110,7 @@ def launch_corr(q: torch.Tensor, m: torch.Tensor, radius: int, stride: int) -> t
 def corr_cuda(q: torch.Tensor, m: torch.Tensor, radius: int, stride: int) -> torch.Tensor:
     """Launch K1 on the current stream of q's device."""
     check_pair(q, m, radius, stride)
-    with torch.cuda.device(q.device):
-        return launch_corr(q, m, radius, stride)
+    return launch_corr(q, m, radius, stride)
 
 
 #: K2's tiling (csrc/corr_bwd.cu): output tile columns, channels a block
@@ -166,13 +162,8 @@ def corr_bwd_cuda(q: torch.Tensor, m: torch.Tensor, g: torch.Tensor, radius: int
                          f"({smem} bytes of shared memory a block)")
     dq = torch.empty_like(q)
     dm = torch.empty_like(m)
-    lib = _build.load_library()
-    with torch.cuda.device(q.device):
-        err = lib.csof_corr_backward(
-            q.data_ptr(), m.data_ptr(), g.data_ptr(), dq.data_ptr(), dm.data_ptr(),
-            b, c, h, w, radius, stride, dtype_code(q), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "csof_corr_backward")
+    _build.cuda_call("csof_corr_backward", q.device, q.data_ptr(), m.data_ptr(), g.data_ptr(),
+                     dq.data_ptr(), dm.data_ptr(), b, c, h, w, radius, stride, dtype_code(q))
     bwd_launches += 1
     return dq, dm
 

@@ -80,21 +80,34 @@ def cluster_plan(hw: int, dtype: torch.dtype, cluster: int) -> NormActPlan:
 
 
 @functools.lru_cache(maxsize=None)
-def norm_act_plan(n: int, c: int, h: int, w: int, dtype: torch.dtype) -> NormActPlan:
-    """K5's plan for ``(n, c, h, w)`` planes of ``dtype``: a warp a plane up
-    to SMALL_MAX_BYTES, else the fewest blocks (a power of two, at most
-    MAX_CLUSTER) whose slices hold at most SLICE_BYTES each. Raises for a
-    plane too large for MAX_CLUSTER blocks."""
-    hw = h * w
-    if n * c <= 0 or hw <= 0:
-        raise ValueError(f"empty input {(n, c, h, w)}")
+def plane_plan(hw: int, dtype: torch.dtype, arrays: int = 1) -> NormActPlan:
+    """The plan of K5, K7 and K7 dx for planes of ``hw`` elements of
+    ``dtype``, a block holding ``arrays`` plane-sized arrays (K5 and K7 x or
+    z; K7 dx z and dy): a warp a plane up to SMALL_MAX_BYTES of one array
+    (a lane holds its values in registers), else the fewest blocks (a power
+    of two, at most MAX_CLUSTER) whose slices of all the arrays hold at most
+    SLICE_BYTES each. Raises for a plane too large for MAX_CLUSTER blocks."""
+    if hw <= 0:
+        raise ValueError(f"empty plane of {hw} elements")
     nbytes = hw * dtype.itemsize
     if nbytes <= SMALL_MAX_BYTES:
         return WARP_PLAN
     cluster = 1
-    while nbytes > cluster * SLICE_BYTES and cluster < MAX_CLUSTER:
+    while nbytes * arrays > cluster * SLICE_BYTES and cluster < MAX_CLUSTER:
         cluster *= 2
-    return cluster_plan(hw, dtype, cluster)
+    plan = cluster_plan(hw, dtype, cluster)
+    smem = plan.smem_bytes * arrays
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"a plane of {hw} {dtype} elements needs {smem} bytes of shared memory "
+                         f"in each of {cluster} blocks, more than {MAX_SMEM_BYTES}")
+    return NormActPlan(plan.path, cluster, plan.slice, smem)
+
+
+def norm_act_plan(n: int, c: int, h: int, w: int, dtype: torch.dtype) -> NormActPlan:
+    """K5's plan for ``(n, c, h, w)`` planes of ``dtype`` (``plane_plan``)."""
+    if n * c <= 0 or h * w <= 0:
+        raise ValueError(f"empty input {(n, c, h, w)}")
+    return plane_plan(h * w, dtype)
 
 
 def norm_act_plain(x, scale, bias, eps=1e-5, negative_slope=0.01):
@@ -130,14 +143,9 @@ def launch(x, scale, bias, plan: NormActPlan, eps=1e-5, negative_slope=0.01):
     global launches
     n, c, h, w = x.shape
     out = torch.empty_like(x)
-    lib = _build.load_library()
-    with torch.cuda.device(x.device):
-        err = lib.csof_norm_act_forward(
-            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), n * c, c, h * w,
-            plan.cluster, plan.slice, plan.smem_bytes, eps, negative_slope, dtype_code(x),
-            torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "csof_norm_act_forward")
+    _build.cuda_call("csof_norm_act_forward", x.device, x.data_ptr(), scale.data_ptr(),
+                     bias.data_ptr(), out.data_ptr(), n * c, c, h * w, plan.cluster, plan.slice,
+                     plan.smem_bytes, eps, negative_slope, dtype_code(x))
     launches += 1
     return out
 
@@ -154,28 +162,10 @@ def instance_norm_leaky_relu(x, scale, bias, eps=1e-5, negative_slope=0.01):
     raise ValueError(f"unsupported device {x.device}")
 
 
-@functools.lru_cache(maxsize=None)
 def native_plan(hw: int, backward: bool = False) -> NormActPlan:
-    """K7's plan (with ``backward``, K7 dx's) for float32 planes of ``hw``
-    elements, by K5's rule: a warp a plane up to SMALL_MAX_BYTES of z (1024
-    elements; a lane holds its 32 in registers), else the fewest blocks (a
-    power of two, at most MAX_CLUSTER) whose slices hold at most SLICE_BYTES
-    each, of z and, for the backward, of dy beside it. Raises for a plane
-    too large for MAX_CLUSTER blocks."""
-    if hw <= 0:
-        raise ValueError(f"empty plane of {hw} elements")
-    if hw * 4 <= SMALL_MAX_BYTES:
-        return WARP_PLAN
-    arrays = 2 if backward else 1
-    cluster = 1
-    while hw * 4 * arrays > cluster * SLICE_BYTES and cluster < MAX_CLUSTER:
-        cluster *= 2
-    plan = cluster_plan(hw, torch.float32, cluster)
-    smem = plan.smem_bytes * arrays
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"a plane of {hw} float32 elements needs {smem} bytes of shared memory "
-                         f"in each of {cluster} blocks, more than {MAX_SMEM_BYTES}")
-    return NormActPlan(plan.path, cluster, plan.slice, smem)
+    """K7's plan (with ``backward``, K7 dx's, which holds dy beside z) for
+    float32 planes of ``hw`` elements (``plane_plan``)."""
+    return plane_plan(hw, torch.float32, 2 if backward else 1)
 
 
 @functools.lru_cache(maxsize=None)

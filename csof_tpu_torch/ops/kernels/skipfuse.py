@@ -101,16 +101,12 @@ def skip_fuse_cuda(q, m, weight, bias, gn_weight, gn_bias, radius, stride,
     partial = torch.empty((b, partial_tiles(h, w), f, 2), dtype=torch.float32,
                           device=q.device)
     out = torch.empty((b, f, h, w), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        corr = launch_corr(q, m, radius, stride)  # pass 1: K1, staged in device memory
-        packed, nb = pack_weight(weight, q.dtype)
-        err = _build.load_library().csof_skipfuse_forward(
-            q.data_ptr(), m.data_ptr(), corr.data_ptr(), packed.data_ptr(),
-            bias.data_ptr(), gn_weight.data_ptr(), gn_bias.data_ptr(), y.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), b, c, k2, h, w, f, groups, nb,
-            eps, negative_slope, dtype_code(q), torch.cuda.current_stream().cuda_stream,
-        )
-    _build.check(err, "csof_skipfuse_forward")
+    corr = launch_corr(q, m, radius, stride)  # pass 1: K1, staged in device memory
+    packed, nb = pack_weight(weight, q.dtype)
+    _build.cuda_call("csof_skipfuse_forward", q.device, q.data_ptr(), m.data_ptr(),
+                     corr.data_ptr(), packed.data_ptr(), bias.data_ptr(), gn_weight.data_ptr(),
+                     gn_bias.data_ptr(), y.data_ptr(), partial.data_ptr(), out.data_ptr(), b, c,
+                     k2, h, w, f, groups, nb, eps, negative_slope, dtype_code(q))
     launches += 1
     return out
 

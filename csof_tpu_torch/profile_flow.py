@@ -39,7 +39,6 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from csof_tpu_torch.config.experiment import RaftModelConfig, VoxelMorphModelConfig
@@ -49,7 +48,7 @@ from csof_tpu_torch.models.mtl import MTLConfig, MTLModel
 from csof_tpu_torch.models.raft import RAFT
 from csof_tpu_torch.models.temporal import TemporalVideoSegModel
 from csof_tpu_torch.models.voxelmorph import VoxelMorph, register_sequence
-from csof_tpu_torch.profile_serving import busy_us
+from csof_tpu_torch.utils import profiling
 
 #: device-time groups, first match by kernel name (cuDNN's sampler before its convs)
 GROUPS = (("grid_sample", ("grid_sampler", "bilinear_sampler")),
@@ -85,19 +84,13 @@ def device_trace(fn) -> tuple[float, list]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    return statistics.median(times), kernels, prof
-
-
-def busy_ms(kernels) -> float:
-    return busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
+    return statistics.median(times), profiling.device_kernels(prof), prof
 
 
 def profile_call(fn, what: str) -> tuple[str, str]:
     wall, kernels, prof = device_trace(fn)
     summed = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    busy = busy_ms(kernels)
+    busy = profiling.busy_ms(kernels)
     groups: dict[str, float] = {}
     for e in kernels:
         g = group_of(e.name)
@@ -238,7 +231,7 @@ def family_launches() -> dict:
                     "K5": sum("norm_act_" in e.name for e in events),
                     "K6": sum("conv3x3_kernel" in e.name for e in events),
                     "want": family_want(model), "wall_ms": wall, "events": len(kernels),
-                    "busy_ms": busy_ms(kernels)}
+                    "busy_ms": profiling.busy_ms(kernels)}
                 del model
     return out
 
@@ -254,7 +247,8 @@ def main() -> int:
         with torch.inference_mode():
             for name, fn, _ in flow_calls()[:2]:
                 wall, kernels, _ = device_trace(fn)
-                out[name] = {"wall_ms": wall, "events": len(kernels), "busy_ms": busy_ms(kernels)}
+                out[name] = {"wall_ms": wall, "events": len(kernels),
+                             "busy_ms": profiling.busy_ms(kernels)}
         out["finalflow"] = finalflow_launches()
         out["family"] = family_launches()
         print(json.dumps(out))

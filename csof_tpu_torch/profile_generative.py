@@ -254,7 +254,7 @@ def generative_launches(reps: int = 3) -> dict:
     the kernels, the events and the busy ms; then the host-clock ms, the
     median of ``reps`` calls without the profiler."""
     from csof_tpu_torch.kernel_times import device_events
-    from csof_tpu_torch.profile_flow import busy_ms
+    from csof_tpu_torch.utils.profiling import busy_ms
 
     out = {}
     for name in GEN_RUNS:

@@ -14,19 +14,20 @@ model reads the kernel switches as the JAX package does:
 ``CSOF_CONV2D_IMPL=pallas`` runs SegFlow's routed convs as K6.
 """
 
-import os
 import statistics
 import sys
 import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from csof_tpu_torch.config.experiment import SegFlowModelConfig
 from csof_tpu_torch.inference.serving import apply_serving_config
+from csof_tpu_torch.models.blocks import kernel_switches
 from csof_tpu_torch.models.segflow import SegFlow
+from csof_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from csof_tpu_torch.utils import profiling
 
 
 def forward_ms(model, video, reps: int = 10) -> float:
@@ -40,48 +41,19 @@ def forward_ms(model, video, reps: int = 10) -> float:
     return statistics.median(times)
 
 
-def busy_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            total += e - max(s, end)
-            end = e
-    return total
-
-
 def device_summary(prof, wall_ms: float, what: str) -> tuple[str, str]:
     """(summary line, kernel table) of a profile of one ``what`` whose
-    unprofiled host-clock time is ``wall_ms``: the device events counted once
-    each (the aten ops' rows repeat the time of the kernels they launch;
-    user annotations are ranges, not work), their summed time, the busy time
-    (union of their intervals) and the busy share of ``wall_ms``."""
-    kernels = [e for e in prof.events()
-               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    unprofiled host-clock time is ``wall_ms``: the device events
+    (``profiling.device_kernels``), their summed time, the busy time (union
+    of their intervals) and the busy share of ``wall_ms``."""
+    kernels = profiling.device_kernels(prof)
     summed = sum(e.time_range.elapsed_us() for e in kernels) / 1e3
-    busy = busy_us((e.time_range.start, e.time_range.end) for e in kernels) / 1e3
+    busy = profiling.busy_ms(kernels)
     summary = (f"{what} {wall_ms:.3f} ms host clock (median of 10, no profiler); "
                f"{len(kernels)} device events, summed {summed:.3f} ms, busy {busy:.3f} ms; "
                f"busy share {busy / wall_ms:.3f}")
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40)
     return summary, table
-
-
-def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
-    from csof_tpu_torch.ops.kernels import conv, corr, ncc, norm_act, skipfuse
-
-    corr.launches = corr.bwd_launches = skipfuse.launches = ncc.launches = 0
-    norm_act.launches = conv.launches = conv.bwd_launches = 0
-
-
-def read_launches() -> dict:
-    """The kernels' launch counts since the last reset_launches."""
-    from csof_tpu_torch.ops.kernels import conv, corr, ncc, norm_act, skipfuse
-
-    return {"K1": corr.launches, "K2": corr.bwd_launches, "K3": skipfuse.launches,
-            "K4": ncc.launches, "K5": norm_act.launches, "K6": conv.launches,
-            "K6_dx": conv.bwd_launches}
 
 
 def report(summary: str, table: str, path: str | None = None) -> None:
@@ -108,13 +80,13 @@ def main() -> int:
         for _ in range(3):
             model(video)
         wall = forward_ms(model, video)
-        reset_launches()
+        reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             model(video)
             torch.cuda.synchronize()
-        launches = read_launches()
+        launches = launch_counts()
     summary, table = device_summary(prof, wall, "forward")
-    report(f"{summary}; CSOF_CONV2D_IMPL={os.environ.get('CSOF_CONV2D_IMPL', 'native')}, "
+    report(f"{summary}; CSOF_CONV2D_IMPL={kernel_switches(2).conv_impl}, "
            f"launches {launches} ({torch.cuda.get_device_name(0)})", table)
     return 0
 

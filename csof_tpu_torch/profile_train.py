@@ -17,7 +17,6 @@ The summary and the table also go to out.txt. ``CSOF_CONV2D_IMPL=pallas``
 ways.
 """
 
-import os
 import statistics
 import sys
 import tempfile
@@ -28,7 +27,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from csof_tpu_torch.config.experiment import DataConfig, ExperimentConfig
-from csof_tpu_torch.profile_serving import device_summary, read_launches, report, reset_launches
+from csof_tpu_torch.models.blocks import kernel_switches
+from csof_tpu_torch.ops.kernels import launch_counts, reset_launch_counts
+from csof_tpu_torch.profile_serving import device_summary, report
 from csof_tpu_torch.training.trainer import Trainer
 
 BATCH, FRAMES, HW = 4, 6, 128
@@ -58,15 +59,15 @@ def main() -> int:
             trainer.run_iteration(batch)
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        reset_launches()
+        reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             trainer.run_iteration(batch)
             torch.cuda.synchronize()
-        launches = read_launches()
+        launches = launch_counts()
     wall = statistics.median(times)
     summary, table = device_summary(prof, wall, "train step")
     report(f"{summary}; {BATCH * FRAMES / wall * 1e3:.2f} train frames/s unprofiled; "
-           f"CSOF_CONV2D_IMPL={os.environ.get('CSOF_CONV2D_IMPL', 'native')}, launches "
+           f"CSOF_CONV2D_IMPL={kernel_switches(2).conv_impl}, launches "
            f"{launches} ({torch.cuda.get_device_name(0)})", table)
     return 0
 

@@ -42,7 +42,6 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from csof_tpu_torch.config.plans import task002_heart_2d, task002_heart_3d
@@ -78,9 +77,7 @@ def grouped_device_time(prof) -> list[tuple[str, float, int]]:
     the rest as "other"."""
     sums = {name: [0.0, 0] for name, _ in TRAIN_GROUPS}
     sums["other"] = [0.0, 0]
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.is_user_annotation:
-            continue
+    for e in profiling.device_kernels(prof):
         group = next((name for name, keys in TRAIN_GROUPS if any(k in e.name for k in keys)),
                      "other")
         sums[group][0] += e.time_range.elapsed_us() / 1e3

@@ -66,7 +66,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import os
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -80,9 +79,10 @@ from torch.nn.parallel import DistributedDataParallel
 from csof_tpu_torch.compat.flax_import import load_flax_train_state
 from csof_tpu_torch.config.experiment import ExperimentConfig
 from csof_tpu_torch.data.augment import augment_batch_2d, augment_video, step_generator
+from csof_tpu_torch.models.blocks import kernel_switches
 from csof_tpu_torch.models.raft import RAFT
 from csof_tpu_torch.models.segflow import SegFlow
-from csof_tpu_torch.models.unet import GenericUNet, conv_impl_from_env, unet_from_plans
+from csof_tpu_torch.models.unet import GenericUNet, unet_from_plans
 from csof_tpu_torch.models.voxelmorph import VoxelMorph
 from csof_tpu_torch.ops import losses as L
 from csof_tpu_torch.ops.warp import warp_batch, warp_image_cm
@@ -122,11 +122,12 @@ def build_model(config: ExperimentConfig, num_classes: int | None = None,
             return unet_from_plans(plans, deep_supervision=config.deep_supervision,
                                    generator=generator)
         nd = 2 if kind == "unet2d" else 3
+        switches = kernel_switches(nd)
         return GenericUNet(num_classes=num_classes or 4, base_num_features=16,
                            pool_kernel_sizes=((2,) * nd,) * 4, conv_kernel_sizes=((3,) * nd,) * 5,
                            deep_supervision=config.deep_supervision,
-                           fused_norm_act=os.environ.get("CSOF_FUSED_NORM", "0") == "1",
-                           conv_impl=conv_impl_from_env(nd), generator=generator)
+                           fused_norm_act=switches.fused_norm_act, conv_impl=switches.conv_impl,
+                           generator=generator)
     raise ValueError(f"unknown model kind {kind!r}")
 
 
@@ -143,7 +144,7 @@ def _check_trainable(config: ExperimentConfig, for_training: bool = True) -> Non
     # K5 runs on 2D blocks only (InstanceNorm on a 4-D tensor in JAX): a 3D
     # U-Net trains with the switch set, as it does in the JAX package, and so
     # do RAFT and VoxelMorph, which never run it
-    if config.model in ("unet2d", "segflow") and os.environ.get("CSOF_FUSED_NORM", "0") == "1":
+    if config.model in ("unet2d", "segflow") and kernel_switches(2).fused_norm_act:
         raise NotImplementedError(
             "CSOF_FUSED_NORM=1 (fused_norm_act) runs kernel K5, which has no backward: the "
             "JAX package uses it for inference only. Unset it to train.")

@@ -17,11 +17,11 @@ that runs it (``CSOF_FUSED_NORM=1``) is refused, as the trainer refuses it.
 
 from __future__ import annotations
 
-import os
 from typing import Callable
 
 import torch
 
+from csof_tpu_torch.models.blocks import kernel_switches
 from csof_tpu_torch.models.discriminator import (PatchDiscriminator, discriminator_loss,
                                                  generator_adversarial_loss)
 from csof_tpu_torch.ops import losses as L
@@ -30,7 +30,7 @@ from csof_tpu_torch.training.generative import optimizer_params, take_step
 
 def _check_trainable(seg_model: torch.nn.Module) -> None:
     fused = any(getattr(m, "fused_norm_act", False) for m in seg_model.modules())
-    if fused or os.environ.get("CSOF_FUSED_NORM", "0") == "1":
+    if fused or kernel_switches(2).fused_norm_act:
         raise NotImplementedError(
             "CSOF_FUSED_NORM=1 (fused_norm_act) runs kernel K5, which has no backward: the "
             "JAX package uses it for inference only. Unset it to train.")

@@ -1,8 +1,9 @@
 """Profiling and throughput utilities (port of ``csof_tpu/utils/profiling.py``):
 a ``torch.profiler`` trace for TensorBoard, the program's named spans in
-such a trace and their times, a FLOP count, a synchronizing fetch, the
-warm-up + timed-reps throughput protocol and a rolling step timer. Nothing
-here is a benchmark: these are the tools one is built from.
+such a trace and their times, a finished trace's device kernels and busy
+time, a FLOP count, a synchronizing fetch, the warm-up + timed-reps
+throughput protocol and a rolling step timer. Nothing here is a benchmark:
+these are the tools one is built from.
 """
 
 from __future__ import annotations
@@ -92,6 +93,27 @@ def span_times(prof) -> dict[str, dict[str, float]]:
                 out[spans[i][2]]["device_ms"] += ns / 1e6
                 break
     return out
+
+
+def device_kernels(prof) -> list:
+    """The device events (kernels, copies, fills) of a finished
+    ``torch.profiler`` profile, each once: the aten ops' rows repeat the time
+    of the kernels they launch, and user annotations are ranges, not work."""
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+
+
+def busy_ms(events) -> float:
+    """The device's busy time over ``events`` (``device_kernels``): the
+    length of the union of their intervals, in ms."""
+    total, end = 0.0, float("-inf")
+    for start, stop in sorted((ev.time_range.start, ev.time_range.end) for ev in events):
+        if stop > end:
+            total += stop - max(start, end)
+            end = stop
+    return total / 1e3
 
 
 def estimate_flops(fn, *args) -> float | None:

@@ -14,11 +14,14 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu.data import augment as ja
 from csof_tpu.ops.warp import grid_sample as jax_grid_sample
 from csof_tpu_torch.data import augment as ta
 from csof_tpu_torch.ops.warp import grid_sample
+
+torch_threads.pin()
 
 TOL = 1e-5
 FFT_TOL = 2e-5

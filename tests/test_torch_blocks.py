@@ -7,6 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu.models import attention as jattn
 from csof_tpu.models import blocks as jblocks
@@ -16,6 +17,8 @@ from csof_tpu.ops.warp import warp_image_cm as jwarp
 from csof_tpu_torch.compat.flax_import import load_flax_params
 from csof_tpu_torch.models import attention, blocks, convgru, segflow
 from csof_tpu_torch.ops.warp import warp_image_cm
+
+torch_threads.pin()
 
 DT = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # bf16: the two frameworks round at other points inside fused elementwise ops

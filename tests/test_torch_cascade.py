@@ -14,6 +14,7 @@ import json
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 import csof_tpu_torch.data.planning as tp
 from csof_tpu.training import cascade as jcascade
@@ -25,6 +26,8 @@ from csof_tpu_torch.inference.predictor import PredictorConfig, SlidingWindowPre
 from csof_tpu_torch.models.unet import unet_from_plans
 from csof_tpu_torch.training import cascade
 from csof_tpu_torch.utils.nifti import save_nifti
+
+torch_threads.pin()
 
 
 @pytest.fixture(scope="module")

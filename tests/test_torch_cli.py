@@ -24,6 +24,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import torch_threads
 import yaml
 
 from csof_tpu.cli import main as jcli
@@ -31,6 +32,8 @@ from csof_tpu.config.experiment import load_experiment_config as jax_load_config
 from csof_tpu_torch.cli import main as cli
 from csof_tpu_torch.config.experiment import load_experiment_config
 from csof_tpu_torch.utils.nifti import load_nifti
+
+torch_threads.pin()
 
 FLOW_TOL = 1e-4  # Flow and Registered, float32: the same math in another order
 AGREE = 0.999  # segmentation voxels that must agree

@@ -16,11 +16,14 @@ import shutil
 
 import numpy as np
 import pytest
+import torch_threads
 import yaml
 from test_torch_cli import _assert_segs_agree, _nii
 
 from csof_tpu.cli import main as jcli
 from csof_tpu_torch.cli import main as cli
+
+torch_threads.pin()
 
 SUMMARY_TOL = 1e-6
 SEG_CFG = {"model": "unet2d", "max_num_epochs": 1, "num_batches_per_epoch": 2,

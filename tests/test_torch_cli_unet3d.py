@@ -17,6 +17,7 @@ import json
 
 import numpy as np
 import pytest
+import torch_threads
 from test_torch_cli import _assert_segs_agree, _nii
 from test_torch_restore import _filled_params
 
@@ -30,6 +31,8 @@ from csof_tpu_torch.cli import main as cli
 from csof_tpu_torch.data.conversion.acdc import _phantom_frame
 from csof_tpu_torch.utils.nifti import save_nifti
 from csof_tpu_torch.utils.logging import read_training_logs
+
+torch_threads.pin()
 
 SOFTMAX_TOL = 1e-5  # float32 logits summed in another order, through a softmax
 

@@ -8,6 +8,7 @@ import dataclasses
 import math
 
 import pytest
+import torch_threads
 import yaml
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
@@ -16,6 +17,8 @@ from csof_tpu.config import experiment as jexp
 from csof_tpu_torch.config import experiment as texp
 from csof_tpu_torch.utils import yaml_subset
 from csof_tpu_torch.utils.yaml_subset import YamlSubsetError
+
+torch_threads.pin()
 
 # strings a config holds: identifiers, and ones PyYAML must quote
 _WORDS = st.sampled_from(["segflow", "Task027_ACDC", "adamw", "bfloat16", "x-y", "a.b", "yes",

@@ -18,8 +18,11 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+import torch_threads
 
 from csof_tpu_torch.ops.kernels import conv as k6
+
+torch_threads.pin()
 
 #: K6's float32 tolerance against its plain version on the card (atol, rtol)
 F32_TOL = (1e-4, 1e-4)

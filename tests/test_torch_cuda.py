@@ -8,11 +8,14 @@ no JAX, so it also runs where JAX is not installed:
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu_torch.config.experiment import SegFlowModelConfig
 from csof_tpu_torch.models.segflow import SegFlow
 from csof_tpu_torch.ops.kernels import corr as k1
 from csof_tpu_torch.ops.kernels import skipfuse as k3
+
+torch_threads.pin()
 
 # bf16 corr: both round the same f32 sum, taken in another order -> 1 ulp
 CORR_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2e-2, 1e-2)}
@@ -1647,3 +1650,70 @@ def test_event_files_are_the_same_bytes_from_card_or_cpu_tensors(cuda, tmp_path)
         (path,) = list((tmp_path / device.type).glob("events.out.tfevents.*"))
         files.append(path.read_bytes())
     assert files[0] == files[1] and len(files[0]) > 1000
+
+
+@pytest.mark.cuda
+def test_every_c_entry_gets_the_current_stream_last_through_cuda_call(cuda, monkeypatch):
+    """A recording library in place of ``_build.load_library``, as the
+    benchmark's launch recorder puts one: each of the library's eleven C
+    entries, driven through its wrapper on a side stream, receives its
+    ``_SIGNATURES`` layout with that stream's raw handle last; K6's
+    (N, Ci, H, W, Co, nb, dtype, out_f32, dx) are those of the call."""
+    import ctypes
+
+    from csof_tpu_torch.ops.kernels import _build
+    from csof_tpu_torch.ops.kernels import conv as k6
+    from csof_tpu_torch.ops.kernels import ncc as k4
+    from csof_tpu_torch.ops.kernels import norm_act as k5
+
+    lib, calls = _build.load_library(), []
+
+    class Recording:
+        def __getattr__(self, name):
+            fn = getattr(lib, name)
+            if name not in _build._SIGNATURES:
+                return fn
+            return lambda *args: calls.append((name, args)) or fn(*args)
+
+    monkeypatch.setattr(_build, "load_library", Recording)
+    q, m, params = _inputs(cuda, torch.float32, 16, 20, 36)
+    g = torch.randn(2, 81, 20, 36, device=cuda)
+    i, j = (t.to(cuda) for t in _ncc_planes(3, 40, 36))
+    z, dz = (torch.randn(2, 3, 40, 32, device=cuda) for _ in range(2))
+    gamma, beta = torch.ones(3, device=cuda), torch.zeros(3, device=cuda)
+    x, dy = _dw_inputs(cuda, 2, 16, 24, 8, 40, torch.float32)
+    xb = x.to(torch.bfloat16)
+    weight = 0.1 * torch.randn(24, 16, 3, 3, device=cuda)
+    bias = torch.randn(24, device=cuda)
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        k1.corr_cuda(q, m, 4, 1)
+        k1.corr_bwd_cuda(q, m, g, 4, 1)
+        k3.skip_fuse_cuda(q, m, *params, 4, 1)
+        k4.ncc_map_cuda(i, j)
+        k4.launch(i, j, torch.empty_like(i), None, 3, 1, 9, 1e-3, k4.two_pass_plan(3, 40, 36))
+        k4.division_mismatches(9)
+        k5.norm_act_cuda(z, gamma, beta)
+        y, mean, rstd = k5.native_forward_cuda(z, gamma, beta)
+        k5.native_backward_cuda(z, dz, mean, rstd, gamma, beta)
+        out = k6.conv3x3_cuda(x, weight, bias)
+        out_bf16 = k6.conv3x3_cuda(xb, weight, None, out_f32=True)
+        dx = k6.conv3x3_dx_cuda(dy, weight)
+        k6.conv3x3_dw_cuda(x, dy)
+    stream.synchronize()
+    assert sorted({name for name, _ in calls}) == sorted(_build._SIGNATURES)
+    kinds = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: int, ctypes.c_float: float}
+    for name, args in calls:
+        layout = _build._SIGNATURES[name]
+        assert len(args) == len(layout), name
+        assert args[-1] == stream.cuda_stream != torch.cuda.default_stream().cuda_stream, name
+        for arg, kind in zip(args[:-1], layout):
+            assert isinstance(arg, kinds[kind]) and not isinstance(arg, bool), (name, arg, kind)
+    k6_calls = [args for name, args in calls if name == "csof_conv3x3_forward"]
+    assert [a[4:13] for a in k6_calls] == [(2, 16, 8, 40, 24, 32, 0, 0, 0),
+                                           (2, 16, 8, 40, 24, 32, 1, 1, 0),
+                                           (2, 24, 8, 40, 16, 32, 0, 0, 1)]
+    assert [(a[0], a[2], a[3]) for a in k6_calls] == [
+        (x.data_ptr(), bias.data_ptr(), out.data_ptr()), (xb.data_ptr(), None, out_bf16.data_ptr()),
+        (dy.data_ptr(), None, dx.data_ptr())]
+    assert [name for name, _ in calls][2:4] == ["csof_corr_forward", "csof_skipfuse_forward"]

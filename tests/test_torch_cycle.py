@@ -8,11 +8,14 @@ import csv
 import json
 
 import numpy as np
+import torch_threads
 
 from csof_tpu_torch.cli import main as cli
 from csof_tpu_torch.config.plans import Plans
 from csof_tpu_torch.utils import yaml_subset
 from csof_tpu_torch.utils.nifti import load_nifti
+
+torch_threads.pin()
 
 SEG_CFG = {"model": "unet2d", "max_num_epochs": 1, "num_batches_per_epoch": 2,
            "num_val_batches_per_epoch": 1,

@@ -29,6 +29,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch_threads
 
 from csof_tpu.cli import main as jcli
 from csof_tpu.config import paths as jpaths
@@ -51,6 +52,8 @@ from csof_tpu_torch.data.conversion import mnms as tmnms
 from csof_tpu_torch.data.cropping import run_cropping as trun_cropping
 from csof_tpu_torch.utils import io as tio
 from csof_tpu_torch.utils.nifti import save_nifti
+
+torch_threads.pin()
 
 REPO = Path(__file__).resolve().parents[1]
 

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_raft import random_params
 
 import csof_tpu.ops.pallas.conv as jconv
@@ -28,6 +29,8 @@ from csof_tpu_torch.models import blocks
 from csof_tpu_torch.models.finalflow import FinalFlow, FinalFlowConfig
 from csof_tpu_torch.ops.kernels import conv as k6
 from csof_tpu_torch.ops.kernels import norm_act as k5
+
+torch_threads.pin()
 
 SMALL = dict(out_encoder_dims=(8, 16), bottleneck_heads=2, int_steps=3)
 OUTPUTS = ("flow", "flow_forward", "cum_flow", "registered", "velocity")

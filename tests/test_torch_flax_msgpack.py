@@ -10,6 +10,7 @@ import msgpack
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from flax import serialization
 from flax.training.train_state import TrainState
 
@@ -19,6 +20,8 @@ from csof_tpu.models.unet import GenericUNet as JaxUNet
 from csof_tpu.training.schedules import build_optimizer
 from csof_tpu_torch.compat import flax_msgpack
 from csof_tpu_torch.compat.flax_msgpack import MsgpackError, msgpack_restore
+
+torch_threads.pin()
 
 SMALL_SEGFLOW = jexp.SegFlowModelConfig(out_encoder_dims=(8, 16), d_model=16, bottleneck_heads=2,
                                         dim_feedforward=32, corr_radius=(2, 2),

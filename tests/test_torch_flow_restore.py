@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_flow_train import TRAIN_CFG
 from test_torch_raft import random_params
 
@@ -25,6 +26,8 @@ from csof_tpu_torch.compat.flax_import import flax_to_torch_arrays
 from csof_tpu_torch.training.restore import restore_trainer
 from csof_tpu_torch.utils import yaml_subset
 from csof_tpu_torch.utils.logging import read_training_logs
+
+torch_threads.pin()
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_raft import random_params
 
 from csof_tpu.config import experiment as jexp
@@ -32,6 +33,8 @@ from csof_tpu_torch.data.video_dataset import build_video_datasets, split_videos
 from csof_tpu_torch.training import trainer
 from csof_tpu_torch.utils import yaml_subset
 from csof_tpu_torch.utils.logging import read_training_logs
+
+torch_threads.pin()
 
 RAFT_SMALL = dict(feature_dim=32, hidden_dim=16, context_dim=16, iters=2, corr_levels=2,
                   corr_radius=2, dtype="float32")

@@ -31,6 +31,7 @@ import optax
 import pytest
 import torch
 import torch.nn.functional as F
+import torch_threads
 from flax import linen as jax_nn
 from test_torch_finalflow import _counting
 from test_torch_raft import random_params
@@ -44,6 +45,8 @@ from csof_tpu.training import generative as jtrain
 from csof_tpu_torch.compat.flax_import import flax_to_torch_arrays, load_flax_params
 from csof_tpu_torch.models import blocks, diffusion, discriminator, generative, vqvae
 from csof_tpu_torch.training import generative as ttrain
+
+torch_threads.pin()
 
 TOL = 1e-5
 CHAIN_TOL = 1e-4

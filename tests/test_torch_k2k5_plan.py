@@ -15,10 +15,13 @@ LeakyReLU in float64, with ``native_plan`` and the route at each shape.
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu_torch.bounds import UNET_BATCH, UNET_K5_SHAPES
 from csof_tpu_torch.ops.kernels import corr as k1
 from csof_tpu_torch.ops.kernels import norm_act as k5
+
+torch_threads.pin()
 
 # the kernels' tolerances (tests/test_torch_cuda.py): K2 the same float32
 # sums in another order, bf16 one ulp; K5 float32 statistics in another order
@@ -166,6 +169,100 @@ def test_norm_act_plan_holds_the_largest_float32_plane_in_a_cluster():
 def test_norm_act_plan_refuses_a_plane_too_large_for_the_largest_cluster():
     with pytest.raises(ValueError, match="shared memory"):
         k5.norm_act_plan(1, 1, 1024, 1024, torch.float32)  # 4 MB over 8 blocks
+
+
+F32, BF16 = torch.float32, torch.bfloat16
+# the plans K5's norm_act_plan and K7's native_plan gave, each with its own
+# copy of the cluster rule, before both became callers of plane_plan:
+# (path, cluster, slice, smem_bytes), None where they raised. K5: the U-Net's
+# planes at UNET_BATCH and at the training batch, the ragged shapes, each
+# side of every threshold (NORM_PLAN_EDGES of the card tests) and a
+# plane too large; K7 (forward, dx): the 2-D and 3-D U-Net's planes and
+# each side of the warp, slice and shared-memory edges
+K5_OLD_PLANS = [
+    ((32, 32, 320, 256), F32, ("cluster", 4, 20480, 81936)),
+    ((32, 32, 320, 256), BF16, ("cluster", 2, 40960, 81936)),
+    ((32, 64, 160, 128), F32, ("block", 1, 20480, 81936)),
+    ((32, 64, 160, 128), BF16, ("block", 1, 20480, 40976)),
+    ((32, 128, 80, 64), F32, ("block", 1, 5120, 20496)),
+    ((32, 128, 80, 64), BF16, ("block", 1, 5120, 10256)),
+    ((32, 256, 40, 32), F32, ("block", 1, 1280, 5136)),
+    ((32, 256, 40, 32), BF16, ("warp", 0, 0, 0)),
+    ((32, 480, 20, 16), F32, ("warp", 0, 0, 0)),
+    ((32, 480, 20, 16), BF16, ("warp", 0, 0, 0)),
+    ((32, 480, 10, 8), F32, ("warp", 0, 0, 0)),
+    ((32, 480, 10, 8), BF16, ("warp", 0, 0, 0)),
+    ((32, 480, 5, 4), F32, ("warp", 0, 0, 0)),
+    ((32, 480, 5, 4), BF16, ("warp", 0, 0, 0)),
+    ((40, 32, 320, 256), F32, ("cluster", 4, 20480, 81936)),
+    ((40, 32, 320, 256), BF16, ("cluster", 2, 40960, 81936)),
+    ((3, 7, 33, 129), F32, ("block", 1, 4260, 17056)),
+    ((3, 7, 33, 129), BF16, ("block", 1, 4264, 8544)),
+    ((5, 3, 17, 9), F32, ("warp", 0, 0, 0)),
+    ((5, 3, 17, 9), BF16, ("warp", 0, 0, 0)),
+    ((2, 3, 32, 32), F32, ("warp", 0, 0, 0)),
+    ((2, 3, 32, 32), BF16, ("warp", 0, 0, 0)),
+    ((2, 3, 1, 1025), F32, ("block", 1, 1028, 4128)),
+    ((2, 3, 1, 1025), BF16, ("warp", 0, 0, 0)),
+    ((2, 3, 1, 2049), F32, ("block", 1, 2052, 8224)),
+    ((2, 3, 1, 2049), BF16, ("block", 1, 2056, 4128)),
+    ((2, 3, 128, 160), F32, ("block", 1, 20480, 81936)),
+    ((2, 3, 128, 160), BF16, ("block", 1, 20480, 40976)),
+    ((2, 3, 1, 20481), F32, ("cluster", 2, 10244, 40992)),
+    ((2, 3, 1, 20481), BF16, ("block", 1, 20488, 40992)),
+    ((1, 3, 160, 256), F32, ("cluster", 2, 20480, 81936)),
+    ((1, 3, 160, 256), BF16, ("block", 1, 40960, 81936)),
+    ((1, 3, 40961, 1), F32, ("cluster", 4, 10244, 40992)),
+    ((1, 3, 40961, 1), BF16, ("cluster", 2, 20488, 40992)),
+    ((1, 2, 320, 256), F32, ("cluster", 4, 20480, 81936)),
+    ((1, 2, 320, 256), BF16, ("cluster", 2, 40960, 81936)),
+    ((1, 2, 257, 319), F32, ("cluster", 8, 10248, 41008)),
+    ((1, 2, 257, 319), BF16, ("cluster", 4, 20496, 41008)),
+    ((1, 1, 1024, 1024), F32, None),
+    ((1, 1, 1024, 1024), BF16, None),
+]
+K7_OLD_PLANS = [
+    (320 * 256, ("cluster", 4, 20480, 81936), ("cluster", 8, 10240, 81952)),
+    (160 * 128, ("block", 1, 20480, 81936), ("cluster", 2, 10240, 81952)),
+    (80 * 64, ("block", 1, 5120, 20496), ("block", 1, 5120, 40992)),
+    (40 * 32, ("block", 1, 1280, 5136), ("block", 1, 1280, 10272)),
+    (20 * 16, ("warp", 0, 0, 0), ("warp", 0, 0, 0)),
+    (10 * 8, ("warp", 0, 0, 0), ("warp", 0, 0, 0)),
+    (5 * 4, ("warp", 0, 0, 0), ("warp", 0, 0, 0)),
+    (192 * 160, ("cluster", 2, 15360, 61456), ("cluster", 4, 7680, 61472)),
+    (96 * 80, ("block", 1, 7680, 30736), ("block", 1, 7680, 61472)),
+    (1024, ("warp", 0, 0, 0), ("warp", 0, 0, 0)),
+    (1025, ("block", 1, 1028, 4128), ("block", 1, 1028, 8256)),
+    (10240, ("block", 1, 10240, 40976), ("block", 1, 10240, 81952)),
+    (10241, ("block", 1, 10244, 40992), ("cluster", 2, 5124, 41024)),
+    (20481, ("cluster", 2, 10244, 40992), ("cluster", 4, 5124, 41024)),
+    (40960, ("cluster", 2, 20480, 81936), ("cluster", 4, 10240, 81952)),
+    (40961, ("cluster", 4, 10244, 40992), ("cluster", 8, 5124, 41024)),
+    (81921, ("cluster", 8, 10244, 40992), ("cluster", 8, 10244, 81984)),
+    (163841, ("cluster", 8, 20484, 81952), ("cluster", 8, 20484, 163904)),
+    (232000, ("cluster", 8, 29000, 116016), ("cluster", 8, 29000, 232032)),
+    (240000, ("cluster", 8, 30000, 120016), None),
+    (1024 * 1024, None, None),
+]
+PLANE_PLAN_CASES = ([("K5", shape, dtype, 1, want) for shape, dtype, want in K5_OLD_PLANS]
+                    + [("K7", (hw,), F32, 1, fwd) for hw, fwd, _ in K7_OLD_PLANS]
+                    + [("K7_dx", (hw,), F32, 2, bwd) for hw, _, bwd in K7_OLD_PLANS])
+
+
+@pytest.mark.parametrize("kernel,shape,dtype,arrays,want", PLANE_PLAN_CASES)
+def test_plane_plan_gives_the_plans_of_k5_and_k7_it_replaced(kernel, shape, dtype, arrays,
+                                                             want):
+    hw = shape[-2] * shape[-1] if kernel == "K5" else shape[0]
+    callers = {"K5": lambda: k5.norm_act_plan(*shape, dtype),
+               "K7": lambda: k5.native_plan(hw), "K7_dx": lambda: k5.native_plan(hw, True)}
+    if want is None:
+        for plan in (lambda: k5.plane_plan(hw, dtype, arrays), callers[kernel]):
+            with pytest.raises(ValueError, match="shared memory"):
+                plan()
+        return
+    want = k5.NormActPlan(*want)
+    assert k5.plane_plan(hw, dtype, arrays) == want
+    assert callers[kernel]() == want
 
 
 def emulate_norm_act(x, scale, bias, plan, eps=1e-5, slope=0.01, threads=256):

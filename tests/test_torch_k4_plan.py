@@ -14,8 +14,11 @@ mirrored) that must fail; and ``ncc_plan`` at every timed and ragged shape.
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu_torch.ops.kernels import ncc as k4
+
+torch_threads.pin()
 
 #: the timed shapes (the SegFlow loss at its training batch and at the bench
 #: geometry) and the card tests' ragged ones, (planes, H, W, window)

@@ -10,12 +10,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu.ops.pallas.corr import local_correlation_volume_pallas_batched
 from csof_tpu.ops.pallas.skipfuse import fused_skip_fuse_batched
 from csof_tpu_torch.ops import correlation
 from csof_tpu_torch.ops.kernels import corr as k1
 from csof_tpu_torch.ops.kernels import skipfuse as k3
+
+torch_threads.pin()
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 
@@ -88,6 +91,27 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
                            k3.skip_fuse_plain(q, m, w, b, gs, gb, 2, 1))
     assert k1.launches == 0 and k3.launches == 0
 
+
+
+def test_launch_counts_read_and_reset_every_kernel_counter():
+    from csof_tpu_torch.ops import kernels
+    from csof_tpu_torch.ops.kernels import conv, ncc, norm_act
+
+    counters = {"K1": (k1, "launches"), "K2": (k1, "bwd_launches"), "K3": (k3, "launches"),
+                "K4": (ncc, "launches"), "K5": (norm_act, "launches"), "K6": (conv, "launches"),
+                "K6_dx": (conv, "bwd_launches"), "K6_dw": (conv, "dw_launches"),
+                "K7": (norm_act, "native_launches"), "K7_dx": (norm_act, "native_bwd_launches")}
+    saved = {name: getattr(*c) for name, c in counters.items()}
+    try:
+        for i, (module, counter) in enumerate(counters.values(), 1):
+            setattr(module, counter, i)
+        assert kernels.launch_counts() == {name: i for i, name in enumerate(counters, 1)}
+        kernels.reset_launch_counts()
+        assert [getattr(*c) for c in counters.values()] == [0] * 10
+        assert kernels.launch_counts() == dict.fromkeys(counters, 0)
+    finally:
+        for name, (module, counter) in counters.items():
+            setattr(module, counter, saved[name])
 
 def test_cuda_wrappers_refuse_cpu_tensors():
     _, _, q, m = _pair(5, 1, 8, 8, 8, "float32")

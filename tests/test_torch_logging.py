@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads
 from PIL import Image
 
 import csof_tpu.utils.logging as jlog
@@ -31,6 +32,8 @@ from csof_tpu_torch.training.trainer import build_model
 from csof_tpu_torch.utils import logging as tlog
 from csof_tpu_torch.utils import visualization as tviz
 from csof_tpu_torch.utils.png import read_png, write_png
+
+torch_threads.pin()
 
 LOG_NAME = r"training_log_\d{4}_\d{1,2}_\d{1,2}_\d\d_\d\d_\d\d\.txt"
 

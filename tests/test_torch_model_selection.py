@@ -23,6 +23,7 @@ import zipfile
 
 import numpy as np
 import pytest
+import torch_threads
 import yaml
 from PIL import Image
 
@@ -37,6 +38,8 @@ from csof_tpu_torch.evaluation import region_based as reg
 from csof_tpu_torch.utils.logging import read_training_logs
 from csof_tpu_torch.utils.nifti import load_nifti
 from csof_tpu_torch.utils.png import read_png
+
+torch_threads.pin()
 
 SCORE_TOL = 1e-12
 SEG_CFG = {"model": "unet2d", "max_num_epochs": 1, "num_batches_per_epoch": 1,

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_finalflow import _counting
 from test_torch_raft import random_params
 
@@ -41,6 +42,8 @@ from csof_tpu_torch.models import blocks, swin
 from csof_tpu_torch.models.deformable import DeformableTransformerLayer
 from csof_tpu_torch.models.mtl import MTLConfig, MTLModel, ModelWrap
 from csof_tpu_torch.models.temporal import TemporalVideoSegModel
+
+torch_threads.pin()
 
 SWIN_TOL = 1e-5
 MODEL_TOL = {"float32": 1e-4, "bfloat16": 5e-2}

@@ -9,12 +9,15 @@ from __future__ import annotations
 
 import numpy as np
 import pytest
+import torch_threads
 
 from csof_tpu.data import loaders as jloaders
 from csof_tpu.native import bindings as jnative
 from csof_tpu_torch import native
 from csof_tpu_torch.data import loaders
 from csof_tpu_torch.native import bindings
+
+torch_threads.pin()
 
 
 @pytest.fixture(scope="module", autouse=True)

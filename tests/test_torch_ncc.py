@@ -10,10 +10,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu.ops.pallas.ncc import ncc_loss_pallas, ncc_map_pallas
 from csof_tpu_torch.ops import losses as L
 from csof_tpu_torch.ops.kernels import ncc as k4
+
+torch_threads.pin()
 
 # the same float32 operations in the same order as the Pallas kernel's: a
 # few ulps of the cc map (XLA may reassociate the closing arithmetic)

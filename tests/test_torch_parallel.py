@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 import torch_parallel_worker
+import torch_threads
 from test_torch_unet import _plans
 from test_torch_unet_train import (
     GRAD_TOL,
@@ -52,6 +53,8 @@ from csof_tpu_torch.parallel.dryrun import dryrun_multichip
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training.trainer import Trainer
 from csof_tpu_torch.utils.logging import read_training_logs
+
+torch_threads.pin()
 
 #: world 2 against world 1 of the port: the same float32 math, the batch
 #: split over two processes (per-rank convolutions of half the batch, a

@@ -13,10 +13,13 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+import torch_threads
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from csof_tpu_torch.utils import profiling
+
+torch_threads.pin()
 
 
 def test_step_timer_keeps_a_rolling_window():

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from flax import linen as fnn
 
 from csof_tpu.config.experiment import RaftModelConfig as JaxRaftConfig
@@ -29,6 +30,8 @@ from csof_tpu_torch.models.blocks import Conv, same_pads
 from csof_tpu_torch.models.convgru import SepConvGRUCell
 from csof_tpu_torch.models.raft import RAFT, convex_upsample
 from csof_tpu_torch.ops import correlation as corr
+
+torch_threads.pin()
 
 SMALL = dict(feature_dim=32, hidden_dim=16, context_dim=16, iters=3, corr_levels=3)
 OPS_TOL = 1e-5

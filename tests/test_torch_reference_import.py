@@ -23,6 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu.compat.torch_import import import_generic_unet_weights as jax_import
 from csof_tpu.config.plans import Plans as JPlans
@@ -35,6 +36,8 @@ from csof_tpu_torch.compat.torch_import import (
 from csof_tpu_torch.config.plans import Plans
 from csof_tpu_torch.inference import export
 from csof_tpu_torch.models.unet import GenericUNet
+
+torch_threads.pin()
 
 LOGIT_TOL = 1e-4
 NETS = {

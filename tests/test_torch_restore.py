@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_unet import _plans
 
 from csof_tpu.config import experiment as jexp
@@ -41,6 +42,8 @@ from csof_tpu_torch.training.restore import (
     restore_trainer,
     save_trainer_sidecar,
 )
+
+torch_threads.pin()
 
 FWD_TOL = 1e-5  # float32 forward: the same math, summed in another order
 STEP_TOL = 1e-5  # next-step parameters, relative to each tensor's largest entry

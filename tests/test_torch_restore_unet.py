@@ -7,7 +7,10 @@ cosine and SGD-Nesterov under poly. A file of its own, so that the SegFlow and U
 two test workers."""
 
 import pytest
+import torch_threads
 from test_torch_restore import check_restore
+
+torch_threads.pin()
 
 #: the 3D whole step's gradients, relative to each tensor's largest entry:
 #: one LeakyReLU kink within float32 rounding (see the 3D test)

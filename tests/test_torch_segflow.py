@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu.config.experiment import SegFlowModelConfig as JaxConfig
 from csof_tpu.models.segflow import SegFlow as JaxSegFlow
@@ -21,6 +22,8 @@ from csof_tpu_torch.config.experiment import SegFlowModelConfig
 from csof_tpu_torch.models.segflow import SegFlow
 from csof_tpu_torch.ops.kernels import corr as k1
 from csof_tpu_torch.ops.kernels import skipfuse as k3
+
+torch_threads.pin()
 
 SMALL = dict(out_encoder_dims=(8, 16), d_model=16, bottleneck_heads=2, dim_feedforward=32,
              corr_radius=(2, 2), corr_stride=(2, 1))

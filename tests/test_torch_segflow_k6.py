@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_segflow import SMALL, TOL, _video, small_params
 from test_torch_unet import SMALL as UNET_SMALL
 from test_torch_unet import UNET_TOL, _flax_params
@@ -29,6 +30,8 @@ from csof_tpu_torch.models.segflow import SegFlow
 from csof_tpu_torch.models.unet import GenericUNet
 from csof_tpu_torch.ops.kernels import conv as k6
 from csof_tpu_torch.ops.kernels import norm_act as k5
+
+torch_threads.pin()
 
 T, HW = 3, 64
 #: routed convs of one forward at (8, 16) on 64-wide frames, T = 3 (level

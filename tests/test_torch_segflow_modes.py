@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_segflow import SMALL, TOL, _video, small_params
 
 from csof_tpu.config.experiment import SegFlowModelConfig as JaxConfig
@@ -20,6 +21,8 @@ from csof_tpu.models.segflow import hoist_fuse_q_params as jax_hoist
 from csof_tpu_torch.compat.flax_import import hoist_fuse_q_params, load_flax_params
 from csof_tpu_torch.config.experiment import SegFlowModelConfig
 from csof_tpu_torch.models.segflow import SegFlow
+
+torch_threads.pin()
 
 #: three levels, so that the decoders have a deep-supervision head (the
 #: last level has none)

@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_segflow import SMALL, _video, small_params
 
 from csof_tpu.config.experiment import SegFlowModelConfig as JaxConfig
@@ -28,6 +29,8 @@ from csof_tpu_torch.compat.flax_import import load_flax_params
 from csof_tpu_torch.config.experiment import SegFlowModelConfig
 from csof_tpu_torch.models.segflow import SegFlow, temporal_path
 from csof_tpu_torch.ops.kernels import corr as k1
+
+torch_threads.pin()
 
 #: (atol, rtol): float32 reduction order (similarities are sums of C
 #: products, the attention maps means of softmax weights)

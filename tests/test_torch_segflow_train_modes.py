@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_segflow import SMALL, small_params
 from test_torch_segflow_modes import DS3
 from test_torch_train import WEIGHTS, _train_batch
@@ -23,6 +24,8 @@ from csof_tpu_torch.compat.flax_import import load_flax_params
 from csof_tpu_torch.config import experiment as texp
 from csof_tpu_torch.models.segflow import SegFlow
 from csof_tpu_torch.training import trainer
+
+torch_threads.pin()
 
 CASES = {
     "deep_supervision": dict(DS3, corr_fuse="concat", deep_supervision=True),

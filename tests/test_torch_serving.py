@@ -6,6 +6,7 @@ import gzip
 
 import numpy as np
 import pytest
+import torch_threads
 from test_torch_segflow import small_params
 
 from csof_tpu.config.experiment import SegFlowModelConfig as JaxConfig
@@ -21,6 +22,8 @@ from csof_tpu_torch.inference import flow_predictor, processor, serving
 from csof_tpu_torch.models.segflow import SegFlow
 from csof_tpu_torch.ops.kernels import skipfuse as k3
 from csof_tpu_torch.utils.nifti import save_nifti
+
+torch_threads.pin()
 
 
 @pytest.mark.parametrize("norm,mode", [

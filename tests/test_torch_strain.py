@@ -25,6 +25,7 @@ import numpy as np
 import pandas as pd
 import pytest
 import torch
+import torch_threads
 from scipy.io import savemat
 
 from csof_tpu.analysis import flow_analysis as jfa
@@ -51,6 +52,8 @@ from csof_tpu_torch.ops import jacobian as tjac
 from csof_tpu_torch.ops import strain as tstrain
 from csof_tpu_torch.ops.warp import warp_points as twarp_points
 from csof_tpu_torch.utils.nifti import save_nifti
+
+torch_threads.pin()
 
 #: float32 on both sides, the same operations in another order (XLA fuses
 #: and may contract to FMA; the port sums the perimeter exactly): relative

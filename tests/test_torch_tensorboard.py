@@ -18,6 +18,7 @@ import struct
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from PIL import Image
 from tensorboardX.crc32c import crc32c as tbx_crc32c
 from tensorboardX.proto import event_pb2, summary_pb2
@@ -28,6 +29,8 @@ from csof_tpu_torch.training.trainer import Trainer
 from csof_tpu_torch.utils import tb_events
 from csof_tpu_torch.utils import visualization as tvis
 from csof_tpu_torch.utils.png import read_png
+
+torch_threads.pin()
 
 
 def read_events(folder) -> list:

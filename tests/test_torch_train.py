@@ -12,6 +12,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads
 from test_torch_segflow import SMALL, small_params
 
 from csof_tpu.config import experiment as jexp
@@ -33,6 +34,8 @@ from csof_tpu_torch.ops.warp import warp_image_cm
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training import schedules, trainer
 from csof_tpu_torch.utils.logging import read_training_logs
+
+torch_threads.pin()
 
 DTYPES = {"float32": (jnp.float32, torch.float32), "bfloat16": (jnp.bfloat16, torch.bfloat16)}
 # f32: summation order only. bf16: both round the same f32 sum, taken in

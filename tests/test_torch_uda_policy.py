@@ -23,6 +23,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads
 from test_torch_finalflow import _counting
 from test_torch_raft import random_params
 
@@ -36,6 +37,8 @@ from csof_tpu_torch.models import blocks
 from csof_tpu_torch.models.discriminator import PatchDiscriminator, discriminator_loss
 from csof_tpu_torch.models.unet import GenericUNet
 from csof_tpu_torch.training import policy_search, uda
+
+torch_threads.pin()
 
 UNET = dict(num_classes=2, base_num_features=4, pool_kernel_sizes=((2, 2),),
             conv_kernel_sizes=((3, 3), (3, 3)), deep_supervision=False)

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 
 from csof_tpu.config import plans as jplans
 from csof_tpu.data import cropping as jcrop
@@ -54,6 +55,8 @@ from csof_tpu_torch.ops import sliding_window as sw
 from csof_tpu_torch.ops.kernels import conv as k6
 from csof_tpu_torch.ops.kernels import norm_act as k5
 from csof_tpu_torch.utils import nifti
+
+torch_threads.pin()
 
 SMALL = dict(num_classes=3, base_num_features=8, pool_kernel_sizes=((2, 2), (2, 2)),
              conv_kernel_sizes=((3, 3),) * 3)

@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_unet import UNET_TOL
 from torch.profiler import ProfilerActivity, profile
 
@@ -47,6 +48,8 @@ from csof_tpu_torch.models.unet import GenericUNet, unet_from_plans
 from csof_tpu_torch.ops.kernels import conv as k6
 from csof_tpu_torch.training import trainer
 from csof_tpu_torch.utils import profiling
+
+torch_threads.pin()
 
 SMALL3D = dict(num_classes=3, base_num_features=4, pool_kernel_sizes=((1, 2, 2), (2, 2, 2)),
                conv_kernel_sizes=((1, 3, 3), (3, 3, 3), (3, 3, 3)))

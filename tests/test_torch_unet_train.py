@@ -22,6 +22,7 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch_threads
 from test_torch_unet import _plans, _same_props, _write_case
 
 from csof_tpu.config import experiment as jexp
@@ -49,6 +50,8 @@ from csof_tpu_torch.ops.kernels import conv as k6
 from csof_tpu_torch.training import checkpoint as ckpt
 from csof_tpu_torch.training import schedules, trainer
 from csof_tpu_torch.utils.logging import read_training_logs
+
+torch_threads.pin()
 
 NET = dict(num_classes=3, base_num_features=8, pool_kernel_sizes=((2, 2),) * 3,
            conv_kernel_sizes=((3, 3),) * 4)

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_segflow import SMALL, small_params
 from test_torch_unet import _flax_params as unet_params
 
@@ -28,6 +29,8 @@ from csof_tpu_torch.inference import flow_predictor as fp
 from csof_tpu_torch.models.segflow import SegFlow
 from csof_tpu_torch.models.unet import GenericUNet
 from csof_tpu_torch.ops.warp import compose_flows
+
+torch_threads.pin()
 
 FLOW_TOL = 1e-4
 

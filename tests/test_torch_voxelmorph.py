@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_threads
 from test_torch_raft import random_params
 
 from csof_tpu.config.experiment import VoxelMorphModelConfig as JaxVxmConfig
@@ -25,6 +26,8 @@ from csof_tpu_torch.compat.flax_import import load_flax_params
 from csof_tpu_torch.config.experiment import VoxelMorphModelConfig
 from csof_tpu_torch.models.voxelmorph import VoxelMorph, register_sequence
 from csof_tpu_torch.ops import integrate, warp
+
+torch_threads.pin()
 
 SMALL = dict(enc_features=(4, 8, 8), dec_features=(8, 8, 8, 4))
 OPS_TOL = 2e-5
